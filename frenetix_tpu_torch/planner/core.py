@@ -1,0 +1,177 @@
+"""The replanning cycle: (M, 13) sampling matrix → selected candidate.
+
+PyTorch port of `frenetix_tpu/planner/core.py`:
+
+    rollout (polynomials + table lookup (K1) + feasibility)  ops.kinematics
+    → cost stack                                              ops.costs
+    → prediction collisions + corridor road departure         ops.collision
+    → masked argmin, first index on ties                      here
+
+Everything stays on the context's device; nothing is copied to the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from frenetix_tpu.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.ops import collision as coll
+from frenetix_tpu_torch.ops import costs as costs_mod
+from frenetix_tpu_torch.ops.costs import PredictionTensors
+from frenetix_tpu_torch.ops.kinematics import Rollout, VehicleParams, rollout_candidates
+
+__all__ = ["CycleContext", "CycleResult", "evaluate_cycle", "context_from_numpy"]
+
+_BIG = 1e15
+
+
+class CycleContext(NamedTuple):
+    """Everything a cycle needs besides the sampling matrix (tensors on one
+    device; `veh` holds Python floats)."""
+
+    ref: RefPathTable                 # fields are tensors
+    veh: VehicleParams
+    weights: torch.Tensor             # (K,) in costs.COST_TERM_ORDER
+    preds: PredictionTensors
+    obstacle_xy: torch.Tensor         # (O, 2) current obstacle positions
+    obstacle_valid: torch.Tensor      # (O,) bool
+    corridor: torch.Tensor            # (R, 2) drivable d_min/d_max per vertex
+    lane_segments: torch.Tensor       # (S, 2, 2) lanelet centerline segments
+    lane_valid: torch.Tensor          # (S,) bool
+    x0_orientation: torch.Tensor      # scalar
+    desired_velocity: torch.Tensor    # scalar
+    desired_avg_velocity: torch.Tensor  # scalar
+
+
+class CycleResult(NamedTuple):
+    rollout: Rollout
+    cost_terms: torch.Tensor      # (M, K)
+    cost: torch.Tensor            # (M,) weighted total
+    collides: torch.Tensor        # (M,) bool — prediction collision
+    boundary_step: torch.Tensor   # (M,) int32 — first off-road step, -1 if none
+    boundary_harm: torch.Tensor   # (M,) — log-reg harm if leaving the road
+    selectable: torch.Tensor      # (M,) bool — feasible ∧ valid ∧ ¬coll ∧ on-road
+    best_idx: torch.Tensor        # () int32 — argmin cost over selectable
+    found: torch.Tensor           # () bool — any selectable candidate
+    histogram: torch.Tensor       # (11,) int32 infeasibility histogram
+
+
+def _boundary_harm(v, coeff_const, coeff_speed):
+    """Logistic-regression injury probability 1/(1+exp(-(c0 + c1·Δv)))."""
+    return 1.0 / (1.0 + torch.exp(-(coeff_const + coeff_speed * v)))
+
+
+def evaluate_cycle(
+    matrix: torch.Tensor,
+    valid_mask: torch.Tensor,
+    ctx: CycleContext,
+    *,
+    dt: float,
+    n_steps: int,
+    low_vel_mode: bool,
+    quintic_lon: bool = False,
+    check_boundary: bool = True,
+    table_window: int = 768,
+    compensated_sum: bool = False,
+    harm_coeffs=(-7.5, 0.0815),
+) -> CycleResult:
+    """Evaluate and select over one padded sampling matrix; `valid_mask`
+    excludes the padding rows (ops.sampling.pad_matrix)."""
+    ro = rollout_candidates(
+        matrix,
+        ctx.ref,
+        ctx.veh,
+        dt=dt,
+        n_steps=n_steps,
+        low_vel_mode=low_vel_mode,
+        x0_orientation=ctx.x0_orientation,
+        quintic_lon=quintic_lon,
+        extra_ref_tables=ctx.corridor if check_boundary else None,
+        table_window=table_window,
+    )
+
+    cost_terms = costs_mod.compute_cost_terms(
+        ro,
+        dt=dt,
+        desired_velocity=ctx.desired_velocity,
+        preds=ctx.preds,
+        obstacle_xy=ctx.obstacle_xy,
+        obstacle_valid=ctx.obstacle_valid,
+        desired_avg_velocity=ctx.desired_avg_velocity,
+        lane_segments=ctx.lane_segments if ctx.lane_segments.shape[0] else None,
+        lane_valid=ctx.lane_valid,
+    )
+    cost = costs_mod.weighted_total(cost_terms, ctx.weights,
+                                    compensated=compensated_sum)
+
+    m = matrix.shape[0]
+    collides = coll.prediction_collisions(ro, ctx.preds, ctx.veh)
+    if check_boundary:
+        boundary_step, v_at = coll.road_departure_corridor(ro, ctx.veh)
+        off_road = boundary_step >= 0
+        boundary_harm = torch.where(
+            off_road, _boundary_harm(v_at, harm_coeffs[0], harm_coeffs[1]),
+            torch.zeros_like(v_at),
+        )
+    else:
+        boundary_step = torch.full((m,), -1, dtype=torch.int32, device=matrix.device)
+        boundary_harm = torch.zeros(m, dtype=matrix.dtype, device=matrix.device)
+        off_road = torch.zeros(m, dtype=torch.bool, device=matrix.device)
+
+    selectable = ro.feasible & ro.valid & ~collides & ~off_road & valid_mask
+    masked_cost = torch.where(selectable, cost, torch.full_like(cost, _BIG))
+    # torch.argmin returns the FIRST minimal index on CPU and CUDA alike, so
+    # exact ties resolve to the lowest candidate index
+    best_idx = torch.argmin(masked_cost).to(torch.int32)
+    found = torch.any(selectable)
+
+    histogram = torch.sum(ro.inf_slots & valid_mask[:, None], dim=0).to(torch.int32)
+
+    return CycleResult(
+        rollout=ro,
+        cost_terms=cost_terms,
+        cost=cost,
+        collides=collides,
+        boundary_step=boundary_step,
+        boundary_harm=boundary_harm,
+        selectable=selectable,
+        best_idx=best_idx,
+        found=found,
+        histogram=histogram,
+    )
+
+
+def context_from_numpy(*, ref, veh, weights, preds, obstacle_xy, obstacle_valid,
+                       corridor, lane_segments, lane_valid, x0_orientation,
+                       desired_velocity, desired_avg_velocity,
+                       device: torch.device, dtype=torch.float64) -> CycleContext:
+    """The port's CycleContext from the JAX CycleContext's leaves as numpy
+    arrays (or anything `np.asarray` takes): `ref` a RefPathTable, `veh` a
+    VehicleParams-like named tuple, `preds` a PredictionTensors-like named
+    tuple or dict.  Float leaves become `dtype`, masks bool, on `device`."""
+    def f(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    def b(a):
+        return torch.as_tensor(np.array(a, dtype=bool), device=device)
+
+    pred_fields = preds if isinstance(preds, dict) else preds._asdict()
+    return CycleContext(
+        ref=RefPathTable(*(f(x) for x in ref)),
+        veh=VehicleParams(*(float(x) for x in veh)),
+        weights=f(weights),
+        preds=PredictionTensors(**{
+            k: (b(v) if k == "valid" else f(v)) for k, v in pred_fields.items()
+            if k in PredictionTensors._fields
+        }),
+        obstacle_xy=f(obstacle_xy),
+        obstacle_valid=b(obstacle_valid),
+        corridor=f(corridor),
+        lane_segments=f(lane_segments),
+        lane_valid=b(lane_valid),
+        x0_orientation=f(x0_orientation),
+        desired_velocity=f(desired_velocity),
+        desired_avg_velocity=f(desired_avg_velocity),
+    )

@@ -1,0 +1,88 @@
+"""Command line: run single-agent scenarios through the PyTorch port.
+
+Usage:
+    python -m frenetix_tpu_torch.run_scenario PATH_OR_FAMILY [...]
+        [--device cuda|cpu] [--config-dir DIR]
+
+Each argument is a CommonRoad XML file, a directory of them, or the name of
+a synthetic scenario family of `frenetix_tpu/io/scenario_factory.py`
+(highway, curve, s_curve, overtake, lane_change).  One status row per
+scenario goes to stdout; the exit code is 0 when every agent reached its
+goal.  `--device cuda` without a CUDA device raises; it never falls back to
+the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from frenetix_tpu_torch.sim.simulation import Simulation
+from frenetix_tpu_torch.utils.config import load_config
+
+__all__ = ["FAMILIES", "load_target", "resolve_device", "run_scenarios", "main"]
+
+FAMILIES = ("highway", "curve", "s_curve", "overtake", "lane_change")
+
+
+def load_target(target: str):
+    """A Scenario from an XML path or a scenario-family name."""
+    if target in FAMILIES:
+        from frenetix_tpu.io import scenario_factory
+
+        return getattr(scenario_factory, f"make_{target}")()
+    from frenetix_tpu.io.commonroad import load_scenario
+
+    return load_scenario(target)
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return device
+
+
+def run_scenarios(targets, config, device: torch.device, out=sys.stdout):
+    """Simulate each target; print and return one (name, SimulationResult)
+    per scenario."""
+    results = []
+    for target in targets:
+        scenario = load_target(target)
+        res = Simulation(scenario, config, device).run()
+        for aid, status in res.agent_status.items():
+            print(f"{scenario.scenario_id} agent={aid} status={status.name} "
+                  f"steps={res.steps} wall_s={res.wall_time:.3f} "
+                  f"device={device} message={res.agent_messages[aid]!r}",
+                  file=out, flush=True)
+        results.append((target, res))
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("scenarios", nargs="+",
+                    help="CommonRoad XML files, directories of them, or family names")
+    ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    ap.add_argument("--config-dir", default=None,
+                    help="directory of YAML config files (needs PyYAML)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    config = load_config(args.config_dir)
+    targets = []
+    for path in args.scenarios:
+        if os.path.isdir(path):
+            targets.extend(sorted(os.path.join(path, f) for f in os.listdir(path)
+                                  if f.endswith(".xml")))
+        else:
+            targets.append(path)
+    results = run_scenarios(targets, config, device)
+    return 0 if all(res.success for _, res in results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,266 @@
+"""Agent: one planning vehicle's lifecycle in the simulation.
+
+PyTorch port of `frenetix_tpu/sim/agent.py` with the default planner
+interface (`frenetix_tpu/sim/planner_interfaces.py::FrenetPlannerInterface`)
+folded in: per step collision → goal check → replan every k-th step (or when
+no plan exists) → execute the next planned state.  The planner is the port's
+`ReactivePlanner` on the agent's device.
+"""
+from __future__ import annotations
+
+import enum
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from frenetix_tpu.io.commonroad import _point_in_ring
+from frenetix_tpu_torch.planner.initial_state import CartesianState, compute_initial_state_np
+from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, ReactivePlanner
+from frenetix_tpu_torch.planner.route import reference_path_for_problem
+
+__all__ = ["AgentStatus", "Agent", "EgoState"]
+
+
+class AgentStatus(enum.IntEnum):
+    """Same values as the JAX package's AgentStatus."""
+
+    IDLE = 0
+    RUNNING = 1
+    COMPLETED_SUCCESS = 2
+    TIMELIMIT = 3
+    COLLISION = 4
+    ERROR = 5
+
+
+@dataclass
+class EgoState:
+    """Vehicle-center state (CommonRoad convention)."""
+
+    time_step: int
+    position: np.ndarray
+    orientation: float
+    velocity: float
+    acceleration: float = 0.0
+    yaw_rate: float = 0.0
+    steering_angle: float = 0.0
+
+
+@dataclass
+class AgentRecord:
+    states: list = field(default_factory=list)        # executed EgoStates
+    planning_times: list = field(default_factory=list)
+
+
+class Agent:
+    def __init__(self, agent_id: int, planning_problem, scenario, config,
+                 device: torch.device):
+        if config.simulation.used_planner_interface != "FrenetPlannerInterface":
+            raise NotImplementedError(
+                "frenetix_tpu_torch carries only the FrenetPlannerInterface "
+                f"(got {config.simulation.used_planner_interface!r})"
+            )
+        self.id = agent_id
+        self.problem = planning_problem
+        self.scenario = scenario
+        self.config = config
+        self.status = AgentStatus.IDLE
+        self.message = "initialized"
+        self.record = AgentRecord()
+
+        self.planner = ReactivePlanner(config, device)
+        self.veh = config.vehicle
+        self.dt = config.planning.dt
+        self.k_replan = max(1, config.planning.replanning_frequency)
+
+        polyline, _ = reference_path_for_problem(scenario, planning_problem)
+        self.planner.set_reference_path(
+            polyline, scenario.drivable_polygons(),
+            lanelets=list(scenario.lanelets.values())
+            if config.cost_weights.get("lane_center_offset", 0) != 0 else None,
+        )
+
+        init = planning_problem.initial_state
+        self.state = EgoState(
+            time_step=init.time_step,
+            position=np.array(init.position, dtype=float),
+            orientation=float(init.orientation),
+            velocity=float(init.velocity),
+            acceleration=float(init.acceleration),
+            yaw_rate=float(init.yaw_rate),
+        )
+        self.record.states.append(self.state)
+
+        self.current_plan: Optional[PlannedTrajectory] = None
+        self.plan_step = 0            # index into the current plan
+        self.x_cl = None              # curvilinear state carried between plans
+        self._goal_s = self._compute_goal_s()
+        self._goal_time = self._goal_time_interval()
+
+    # ------------------------------------------------------------------ goal
+    def _goal_polygons(self, goal):
+        polys = [self.scenario.lanelets[lid].polygon
+                 for lid in goal.position_lanelets if lid in self.scenario.lanelets]
+        if goal.position_shape is not None:
+            polys.append(goal.position_shape)
+        return polys
+
+    def _compute_goal_s(self) -> Optional[float]:
+        polys = [p for g in self.problem.goals for p in self._goal_polygons(g)]
+        if not polys:
+            return None
+        ref = self.planner.ref_np
+        s_vals = []
+        for c in (p.mean(axis=0) for p in polys):
+            d = np.linalg.norm(np.asarray(ref.xy) - c[None], axis=1)
+            s_vals.append(float(np.asarray(ref.s)[int(np.argmin(d))]))
+        return float(np.mean(s_vals))
+
+    def _goal_time_interval(self):
+        for g in self.problem.goals:
+            if g.time_interval is not None:
+                return g.time_interval
+        return None
+
+    def goal_reached(self) -> bool:
+        """Position inside a goal lanelet/shape and velocity inside the goal
+        interval (the time lower bound is not enforced)."""
+        p = self.state.position
+        for g in self.problem.goals:
+            polys = self._goal_polygons(g)
+            pos_ok = any(_point_in_ring(p, ring) for ring in polys) if polys else True
+            vel_ok = True
+            if g.velocity_interval is not None:
+                lo, hi = g.velocity_interval
+                vel_ok = lo <= self.state.velocity <= hi
+            if pos_ok and vel_ok:
+                return True
+        return False
+
+    def desired_velocity(self) -> float:
+        """Distance-to-goal / remaining time, clipped to ±5 m/s of current."""
+        v_cur = self.state.velocity
+        if self._goal_s is None:
+            return v_cur
+        s_cur = self.x_cl[0][0] if self.x_cl is not None else 0.0
+        dist = self._goal_s - s_cur
+        if self._goal_time is not None:
+            remaining = (self._goal_time[1] - self.state.time_step) * self.dt
+        else:
+            remaining = max(dist, 0.0) / max(v_cur, 1.0)
+        if dist <= 2.0:
+            for g in self.problem.goals:
+                if g.velocity_interval is not None:
+                    lo, hi = g.velocity_interval
+                    return max(0.0, (lo + hi) / 2.0)
+            return 0.0
+        if remaining <= 0:
+            return max(v_cur, 1.0)
+        v_des = dist / remaining
+        return float(np.clip(v_des, max(v_cur - 5.0, 0.0), v_cur + 5.0))
+
+    # -------------------------------------------------------------- stepping
+    def _rear_axle_state(self) -> CartesianState:
+        wb = self.veh.wb_rear_axle
+        return CartesianState(
+            x=self.state.position[0] - wb * np.cos(self.state.orientation),
+            y=self.state.position[1] - wb * np.sin(self.state.orientation),
+            orientation=self.state.orientation,
+            velocity=self.state.velocity,
+            acceleration=self.state.acceleration,
+            steering_angle=self.state.steering_angle,
+            yaw_rate=self.state.yaw_rate,
+        )
+
+    def pre_step(self) -> AgentStatus:
+        if self.status in (AgentStatus.COMPLETED_SUCCESS, AgentStatus.COLLISION,
+                           AgentStatus.TIMELIMIT, AgentStatus.ERROR):
+            return self.status
+        self.status = AgentStatus.RUNNING
+        if self.goal_reached():
+            self.status = AgentStatus.COMPLETED_SUCCESS
+            self.message = "success"
+        return self.status
+
+    def needs_replan(self) -> bool:
+        return self.current_plan is None or self.plan_step >= self.k_replan
+
+    def ensure_x_cl(self):
+        if self.x_cl is None:
+            ra = self._rear_axle_state()
+            self.x_cl = compute_initial_state_np(
+                self.planner.ref_np, ra, self.veh.wheelbase,
+                ra.velocity < self.config.planning.low_vel_mode_threshold,
+            )
+        return self.x_cl
+
+    def update_planner(self, predictions, obstacle_xy, obstacle_valid):
+        """Feed one cycle's predictions, obstacles and desired velocity."""
+        self.planner.set_predictions(predictions)
+        self.planner.set_obstacles(obstacle_xy, obstacle_valid)
+        self.ensure_x_cl()  # desired_velocity() projects the goal against x_cl
+        self.planner.set_desired_velocity(self.desired_velocity())
+
+    def step(self, predictions, obstacle_xy, obstacle_valid) -> AgentStatus:
+        """One simulation step: maybe replan, then execute the next state."""
+        if self.pre_step() != AgentStatus.RUNNING:
+            return self.status
+
+        if self.needs_replan():
+            t0 = time.perf_counter()
+            try:
+                self.update_planner(predictions, obstacle_xy, obstacle_valid)
+                plan = self.planner.plan(self._rear_axle_state(), self.ensure_x_cl())
+            except ValueError as e:
+                # the state cannot be projected onto the reference path:
+                # this agent fails, the simulation goes on
+                self.status = AgentStatus.ERROR
+                self.message = f"planner error: {e}"
+                return self.status
+            self.record.planning_times.append(time.perf_counter() - t0)
+            if plan is None:
+                self.status = AgentStatus.ERROR
+                self.message = "no feasible trajectory"
+                return self.status
+            self.current_plan = plan
+            self.plan_step = 0
+
+        return self.execute_next_state()
+
+    def execute_next_state(self) -> AgentStatus:
+        """Consume the next state of the current plan."""
+        self.plan_step += 1
+        plan = self.current_plan
+        j = min(self.plan_step, len(plan.x) - 1)
+        wb = self.veh.wb_rear_axle
+        theta = float(plan.theta[j])
+        center = np.array([
+            plan.x[j] + wb * np.cos(theta),
+            plan.y[j] + wb * np.sin(theta),
+        ])
+        self.state = EgoState(
+            time_step=self.state.time_step + 1,
+            position=center,
+            orientation=theta,
+            velocity=float(plan.v[j]),
+            acceleration=float(plan.a[j]),
+            yaw_rate=((float(plan.theta[j]) - float(plan.theta[j - 1])) / self.dt
+                      if j > 0 else 0.0),
+            steering_angle=float(np.arctan2(self.veh.wheelbase * plan.kappa[j], 1.0)),
+        )
+        self.record.states.append(self.state)
+        self.x_cl = (
+            np.array([plan.s[j], plan.s_dot[j], plan.s_ddot[j]]),
+            np.array([plan.d[j], plan.d_dot[j], plan.d_ddot[j]]),
+        )
+        return self.status
+
+    def set_collision(self):
+        self.status = AgentStatus.COLLISION
+        self.message = "collision"
+
+    def set_timelimit(self):
+        self.status = AgentStatus.TIMELIMIT
+        self.message = "time limit reached"

@@ -1,0 +1,186 @@
+"""Configuration of the port: typed dataclasses + optional YAML-directory merge.
+
+A JAX-free copy of the parts of `frenetix_tpu/utils/config.py` that the
+single-agent replanning slice reads (the JAX module imports `VehicleParams`
+from a JAX module, so it cannot be imported where JAX is absent).  Field
+names and defaults are identical to the JAX package's; the tests pin that.
+Only fields the slice reads are carried; the flags of features it does not
+carry yet are among them, so that the planner can refuse them loudly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+from frenetix_tpu_torch.ops.kinematics import VehicleParams
+
+__all__ = [
+    "BehaviorConfig",
+    "DebugConfig",
+    "DEFAULT_COST_WEIGHTS",
+    "FrenetixConfig",
+    "OcclusionConfig",
+    "PlanningConfig",
+    "PredictionConfig",
+    "SimulationConfig",
+    "load_config",
+]
+
+DEFAULT_COST_WEIGHTS = {
+    "acceleration": 0.0,
+    "jerk": 0.0,
+    "lateral_jerk": 0.2,
+    "longitudinal_jerk": 0.2,
+    "orientation_offset": 0.0,
+    "path_length": 0.0,
+    "lane_center_offset": 0.0,
+    "velocity_offset": 1.0,
+    "velocity": 0.0,
+    "distance_to_reference_path": 5.0,
+    "distance_to_obstacles": 0.0,
+    "prediction": 0.2,
+    "responsibility": 0.0,
+}
+
+
+@dataclass
+class PlanningConfig:
+    dt: float = 0.1
+    planning_horizon: float = 3.0
+    low_vel_mode_threshold: float = 2.0
+    replanning_frequency: int = 3
+    emergency_mode: str = "stopping"  # "stopping" | "min_risk"
+    t_min: float = 1.1
+    d_min: float = -3.0
+    d_max: float = 3.0
+    d_ego_pos: bool = False
+    sampling_min: int = 2
+    sampling_max: int = 3
+    # fixed-order Neumaier cost summation (ops.costs.weighted_total)
+    compensated_cost_sum: bool = False
+
+    @property
+    def n_steps(self) -> int:
+        return int(self.planning_horizon / self.dt)
+
+
+@dataclass
+class DebugConfig:
+    log_risk: bool = False
+    matrix_bucket: int = 256     # candidate-count padding bucket
+
+
+@dataclass
+class SimulationConfig:
+    max_steps_factor: float = 1.7
+    fallback_max_steps: int = 200
+    start_multiagent: bool = False
+    used_planner_interface: str = "FrenetPlannerInterface"
+    batched_device_agents: bool = False
+    sharded_device_agents: bool = False
+    device_resident_sim: bool = False
+    check_road_boundary: bool = True     # executed off-road pose = failure
+
+
+@dataclass
+class PredictionConfig:
+    mode: str = "ground_truth"  # "ground_truth" | "constant_velocity" | "walenet"
+    horizon_steps: int = 30
+    cov_pos: float = 0.5
+    sensor_radius: float = 50.0
+    use_sensor_model: bool = True   # radius + rear-cone filtering per agent
+    calc_occlusions: bool = False
+    cone_angle: float = 20.0
+    cone_safety_dist: float = 6.0
+    max_obstacles: int = 16     # padding bound of the prediction tensors
+    uncertainty_margin_sigma: float = 0.0
+
+
+@dataclass
+class BehaviorConfig:
+    use_behavior_planner: bool = False
+    stopping_mode_threshold: float = 10.0
+
+
+@dataclass
+class OcclusionConfig:
+    use_occlusion_module: bool = False
+
+
+@dataclass
+class FrenetixConfig:
+    planning: PlanningConfig = field(default_factory=PlanningConfig)
+    debug: DebugConfig = field(default_factory=DebugConfig)
+    simulation: SimulationConfig = field(default_factory=SimulationConfig)
+    prediction: PredictionConfig = field(default_factory=PredictionConfig)
+    behavior: BehaviorConfig = field(default_factory=BehaviorConfig)
+    occlusion: OcclusionConfig = field(default_factory=OcclusionConfig)
+    vehicle: VehicleParams = field(default_factory=VehicleParams)
+    cost_weights: dict = field(default_factory=lambda: dict(DEFAULT_COST_WEIGHTS))
+    dtype: str = "float32"      # "float32" on the card, "float64" for CPU parity
+
+
+def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
+    """Merge an override dict into the config tree; unknown keys are
+    collected into `unknown`."""
+    for k, v in overrides.items():
+        if not hasattr(obj, k):
+            unknown.append(f"{path}{k}")
+            continue
+        cur = getattr(obj, k)
+        if dataclasses.is_dataclass(cur) and isinstance(v, dict):
+            _apply_overrides(cur, v, f"{path}{k}.", unknown)
+        elif isinstance(cur, VehicleParams) and isinstance(v, dict):
+            if v.get("cr_vehicle_id") is not None:
+                raise NotImplementedError(
+                    "vehicle.cr_vehicle_id (vehicle-model database lookup) is "
+                    "not ported to frenetix_tpu_torch yet; give the vehicle "
+                    "parameters explicitly"
+                )
+            unknown.extend(f"{path}{k}.{kk}" for kk in v
+                           if kk not in cur._fields
+                           and kk not in ("cr_vehicle_id", "wb_front_axle"))
+            setattr(obj, k, cur._replace(
+                **{kk: vv for kk, vv in v.items()
+                   if kk in cur._fields and vv is not None}))
+        elif isinstance(cur, dict) and isinstance(v, dict):
+            if k == "cost_weights":
+                unknown.extend(f"{path}{k}.{kk}" for kk in v
+                               if kk not in DEFAULT_COST_WEIGHTS)
+            cur.update(v)
+        else:
+            setattr(obj, k, v)
+
+
+def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = None,
+                strict_overrides: bool = False) -> FrenetixConfig:
+    """Defaults ← `<config_dir>/*.yaml` (each file merges under its stem;
+    cost.yaml's `cost_weights` at the root) ← `overrides`.  YAML keys this
+    slice does not know are ignored; with `strict_overrides` an unknown key
+    in `overrides` raises.  PyYAML is imported only when a directory is
+    given."""
+    cfg = FrenetixConfig()
+    if config_dir and os.path.isdir(config_dir):
+        import yaml
+
+        merged: dict = {}
+        for fname in sorted(os.listdir(config_dir)):
+            if not fname.endswith((".yaml", ".yml")):
+                continue
+            with open(os.path.join(config_dir, fname)) as f:
+                data = yaml.safe_load(f) or {}
+            stem = os.path.splitext(fname)[0]
+            if stem == "cost":
+                if "cost_weights" in data:
+                    merged.setdefault("cost_weights", {}).update(data["cost_weights"])
+            else:
+                merged.setdefault(stem, {}).update(data)
+        _apply_overrides(cfg, merged, "", [])
+    if overrides:
+        unknown: list = []
+        _apply_overrides(cfg, overrides, "", unknown)
+        if strict_overrides and unknown:
+            raise ValueError(f"unknown config override key(s): {unknown}")
+    return cfg

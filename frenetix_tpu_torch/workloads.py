@@ -1,0 +1,97 @@
+"""Replanning-cycle problems built without JAX, for timing and checks.
+
+`dense_cycle_problem` is the port's counterpart of `bench.py::build_workload`
+(the dense sampling sweep of BASELINE.json): a 60° arc of radius 150 m as
+reference path (R = 868 rows at ds ≈ 0.25 m), a ±3.5 m drivable corridor,
+4 predicted obstacles ahead, and the level-5 velocity/lateral grids, i.e.
+34,320 candidates padded to M = 34,816, over N + 1 = 31 steps.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from frenetix_tpu.geometry.corridor import strip_corridor
+from frenetix_tpu.geometry.refpath import prepare_reference_path
+from frenetix_tpu.ops.sampling import (
+    build_sampling_matrix, linspace_samples, pad_matrix, time_samples,
+)
+from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
+from frenetix_tpu_torch.ops.kinematics import VehicleParams
+from frenetix_tpu_torch.planner.core import context_from_numpy
+
+__all__ = ["dense_cycle_problem"]
+
+N_STEPS = 30
+DT = 0.1
+
+
+def _dense_cycle_numpy(dtype=np.float32, density=5, bucket=1024):
+    """Host arrays of the dense cycle: (matrix, mask, context fields), with
+    the context fields named as `planner.core.context_from_numpy` takes them."""
+    t = np.linspace(0, np.pi / 3, 600)
+    center = np.stack([150 * np.sin(t), 150 * (1 - np.cos(t))], axis=1)
+    ref = prepare_reference_path(center, extension=30.0, dtype=dtype)
+    corridor = strip_corridor(ref, 3.5)
+
+    x0_lon = (40.0, 10.0, 0.0)
+    x0_lat = (0.3, 0.0, 0.0)
+    t1 = np.unique(np.concatenate([time_samples(1.1, 3.0, DT, 2), [N_STEPS * DT]]))
+    ss1 = np.union1d(linspace_samples(5.0, 15.0, density), [x0_lon[1]])
+    d1 = np.union1d(linspace_samples(-3.0, 3.0, density), [x0_lat[0]])
+    matrix = build_sampling_matrix(
+        t1_vals=t1, ss1_vals=ss1, d1_vals=d1, x0_lon=x0_lon, x0_lat=x0_lat,
+        dtype=dtype,
+    )
+    matrix, mask = pad_matrix(matrix, bucket=bucket)
+
+    o, t_pred = 4, N_STEPS
+    means = np.zeros((o, t_pred, 2), dtype)
+    for k in range(o):
+        s_obs = 55.0 + 12.0 * k + 8.0 * DT * np.arange(t_pred)
+        means[k, :, 0] = np.interp(s_obs, ref.s, ref.xy[:, 0])
+        means[k, :, 1] = np.interp(s_obs, ref.s, ref.xy[:, 1])
+    covs = np.tile(np.eye(2, dtype=dtype) * 0.5, (o, t_pred, 1, 1))
+    preds = dict(
+        means=means,
+        inv_covs=np.linalg.inv(covs).astype(dtype),
+        covs=covs,
+        orientations=np.zeros((o, t_pred), dtype),
+        velocities=np.full((o, t_pred), 8.0, dtype),
+        lengths=np.full((o,), 4.5, dtype),
+        widths=np.full((o,), 1.8, dtype),
+        valid=np.ones((o, t_pred), bool),
+    )
+    weights = np.zeros(len(COST_TERM_ORDER), dtype)
+    for name, w in dict(
+        lateral_jerk=0.2, longitudinal_jerk=0.2, velocity_offset=1.0,
+        distance_to_reference_path=5.0, prediction=0.2,
+    ).items():
+        weights[COST_TERM_ORDER.index(name)] = w
+    fields = dict(
+        ref=ref,
+        veh=VehicleParams(),
+        weights=weights,
+        preds=preds,
+        obstacle_xy=means[:, 0],
+        obstacle_valid=preds["valid"][:, 0],
+        corridor=corridor,
+        lane_segments=np.zeros((0, 2, 2), dtype),
+        lane_valid=np.zeros((0,), bool),
+        x0_orientation=np.asarray(0.27, dtype),
+        desired_velocity=np.asarray(12.0, dtype),
+        desired_avg_velocity=np.asarray(12.0, dtype),
+    )
+    return matrix, mask, fields
+
+
+def dense_cycle_problem(device: torch.device, dtype=torch.float32, density=5,
+                        bucket=1024):
+    """(matrix, mask, ctx, dt, n_steps, n_valid) of the dense cycle on
+    `device`, ready for `planner.core.evaluate_cycle`."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    matrix, mask, fields = _dense_cycle_numpy(np_dtype, density, bucket)
+    ctx = context_from_numpy(**fields, device=device, dtype=dtype)
+    return (torch.as_tensor(matrix, dtype=dtype, device=device),
+            torch.as_tensor(mask, device=device), ctx, DT, N_STEPS,
+            int(mask.sum()))
