@@ -18,7 +18,24 @@ Phases, each printed on lines of its own:
    the CPU float64 run's (or the two costs lie within 4 float32 ulps).
 5. simulation: run_scenario on the highway and overtake families on the
    card at float32; every agent must reach its goal through the kernel.
+6. batched cycle: a stacked problem of A = 8 agents (567 candidates padded
+   to M = 1024, N + 1 = 31, per-agent tables of different R padded to a
+   common R) through parallel.mesh.batched_full_cycle on the card in
+   float32; per agent `best` must equal the CPU float64 *sequential*
+   evaluate_cycle (or the two float64 costs lie within 4 float32 ulps), and
+   every batched call must launch K1 exactly once.  Times the batched call
+   and the 8 sequential cycles with CUDA events.
+7. multi-agent simulation: convoy (7 vehicles + ego, A = 8) and highway with
+   start_multiagent, batched on the card in float32: every agent must reach
+   its goal through the kernel; compared with the sequential multi-agent run
+   on the card (equal statuses and step counts) and the CPU float64 run.
+8. risk: risk.costs.trajectory_risks on a simulation-sized rollout with 4
+   obstacles on the card in float32 against the CPU float64 result
+   (1e-4 absolute), and a scenario with emergency_mode = "min_risk" whose
+   planner runs the min_risk branch on the card at least once.
 
+Each path (phases 4 to 8) is driven with K1's launch count set to 0 just
+before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
 non-zero without printing the last line.  It needs no network and starts
@@ -34,17 +51,27 @@ import time
 import numpy as np
 import torch
 
+from frenetix_tpu_torch.io import scenario_factory
 from frenetix_tpu_torch.ops import _kernels, table_interp
+from frenetix_tpu_torch.ops.kinematics import rollout_candidates
+from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
+from frenetix_tpu_torch.planner import reactive
 from frenetix_tpu_torch.planner.core import evaluate_cycle
+from frenetix_tpu_torch.risk.costs import trajectory_risks
+from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.run_scenario import run_scenarios
+from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
-from frenetix_tpu_torch.workloads import dense_cycle_problem
+from frenetix_tpu_torch.workloads import dense_cycle_problem, stacked_cycle_problem
 
 KERNEL_SOURCE = "frenetix_tpu_torch/csrc/table_interp.cu"
 REPLACES = "frenetix_tpu/ops/pallas_interp.py:34"
 R_ROWS, C_COLS, P_DENSE = 868, 7, 1_079_296
 P_SIM = 1024 * 31      # level-2 sampling of the simulations, padded
+A_BATCH, M_BATCH = 8, 1024
 ULPS = 4
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_FLOPS = 67e12              # float32 outside the tensor cores
 
 
 def phase(n, text):
@@ -116,15 +143,51 @@ def phase_build():
             print(f"  ptxas: {line.strip()}")
 
 
+def k1_bound_ms(rows, cols, p, itemsize):
+    """The least time the card could take for one K1 call: the larger of its
+    bytes (table, row indices and factors read once, the (C, P) result
+    written once) over the memory rate, and its operations (one subtraction
+    per query, two products and one sum per output element) over the
+    float32 rate.  Returns (ms, "bytes" or "operations", bytes)."""
+    n_bytes = rows * cols * itemsize + p * (4 + itemsize) + cols * p * itemsize
+    n_ops = p + 3 * cols * p
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", n_bytes
+
+
+class Launches:
+    """K1's launch count per driven path: set to 0 just before the path,
+    read just after; a path that launched no kernel fails."""
+
+    def __init__(self):
+        self.by_path = {}
+
+    def start(self):
+        table_interp.reset_launches()
+
+    def stop(self, path):
+        n = table_interp.LAUNCHES
+        check(n > 0, f"{path} launched K1 no time")
+        self.by_path[path] = n
+        return n
+
+
 def phase_k1(dev, smi):
     rng = np.random.default_rng(0)
     results = {}
     max_err = 0.0
+    # (rows, columns, queries): the dense cycle, the simulations' cycle, the
+    # batched cycle on the stacked table (7 + 2 corridor columns), a ragged P
+    shapes = ((R_ROWS, C_COLS, P_DENSE), (R_ROWS, C_COLS, P_SIM),
+              (A_BATCH * R_ROWS, C_COLS, A_BATCH * M_BATCH * 31),
+              (R_ROWS, C_COLS, 1_000_003))
     for dtype in (torch.float32, torch.float64):
-        for p in (P_DENSE, P_SIM, 1_000_003):
-            table = torch.as_tensor(rng.normal(size=(R_ROWS, C_COLS)) * 50.0,
+        for rows, cols, p in shapes:
+            reps = 20 if p >= 1_000_000 else 50
+            table = torch.as_tensor(rng.normal(size=(rows, cols)) * 50.0,
                                     dtype=dtype, device=dev)
-            gidx = torch.as_tensor(np.sort(rng.integers(0, R_ROWS - 1, p)),
+            gidx = torch.as_tensor(np.sort(rng.integers(0, rows - 1, p)),
                                    dtype=torch.int32, device=dev)
             # λ mostly in [0, 1), some extrapolating like out-of-window queries
             lam = torch.as_tensor(rng.uniform(-0.5, 1.5, p), dtype=dtype, device=dev)
@@ -135,16 +198,20 @@ def phase_k1(dev, smi):
             max_err = max(max_err, err)
             check(torch.equal(got, want),
                   f"K1 differs from its plain twin ({dtype}, P={p}): max |Δ| {err}")
-            ms = cuda_ms(lambda: table_interp.interp_rows(table, gidx, lam), 50)
-            plain_ms = cuda_ms(lambda: table_interp.interp_rows_plain(table, gidx, lam), 50)
-            results[(dtype, p)] = (ms, plain_ms)
-            phase(3, f"K1 {str(dtype).split('.')[-1]} P={p}: bitwise equal, "
-                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"(plain/kernel {plain_ms / ms:.2f}) [{smi}]")
+            ms = cuda_ms(lambda: table_interp.interp_rows(table, gidx, lam), reps, 3)
+            plain_ms = cuda_ms(
+                lambda: table_interp.interp_rows_plain(table, gidx, lam), reps, 3)
+            bound, by, n_bytes = k1_bound_ms(rows, cols, p, table.element_size())
+            results[(dtype, rows, p)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                             bound_by=by, bytes=n_bytes)
+            phase(3, f"K1 {str(dtype).split('.')[-1]} R={rows} P={p}: bitwise "
+                     f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bound:.4f} ms by {by} ({n_bytes / 1e6:.2f} MB at 3.35 TB/s) "
+                     f"[{smi}]")
     return results, max_err
 
 
-def phase_dense_cycle(dev, smi):
+def phase_dense_cycle(dev, smi, launches):
     matrix, mask, ctx, dt, n_steps, n_valid = dense_cycle_problem(dev, torch.float32)
     check(matrix.shape == (34816, 13), f"dense matrix shape {tuple(matrix.shape)}")
 
@@ -152,11 +219,11 @@ def phase_dense_cycle(dev, smi):
         return evaluate_cycle(matrix, mask, ctx, dt=dt, n_steps=n_steps,
                               low_vel_mode=False, check_boundary=True)
 
-    before = table_interp.LAUNCHES
+    launches.start()
     res = cycle()
     best, found = int(res.best_idx), bool(res.found)
+    check(launches.stop("dense cycle") == 1, "the dense cycle launches K1 once")
     check(found, "dense cycle found no selectable candidate")
-    check(table_interp.LAUNCHES > before, "dense cycle did not launch K1")
     cost32 = res.cost.cpu().numpy()
     check(np.isfinite(cost32[mask.cpu().numpy()]).all(), "non-finite costs")
     check(np.isfinite(res.rollout.x.cpu().numpy()).all(), "non-finite positions")
@@ -195,15 +262,14 @@ def phase_dense_cycle(dev, smi):
     return p50
 
 
-def phase_simulation(dev, smi):
+def phase_simulation(dev, smi, launches):
     config = load_config()
     config.dtype = "float32"
-    table_interp.reset_launches()
+    launches.start()
     t0 = time.perf_counter()
     results = run_scenarios(["highway", "overtake"], config, dev)
     wall = time.perf_counter() - t0
-    launches = table_interp.LAUNCHES
-    check(launches > 0, "the simulation did not launch K1")
+    n_launches = launches.stop("single-agent simulations")
     for name, res in results:
         check(res.success, f"{name}: {res.agent_status} {res.agent_messages}")
         pos = np.array([s.position for h in res.histories.values() for s in h])
@@ -223,22 +289,256 @@ def phase_simulation(dev, smi):
                  f"max position deviation over the first {n} steps "
                  f"{np.abs(a[:n] - b[:n]).max():.3e} m")
     phase(5, f"simulation wall {wall:.3f} s for both scenarios, "
-             f"K1 launches {launches}")
-    return launches, wall
+             f"K1 launches {n_launches}")
+
+
+def timed_calls(fn, n=20, warm=3):
+    """p50 and the extremes of `n` calls in ms, each between two CUDA events
+    (host launch time included: an eager cycle is bound by it)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), min(times), max(times)
+
+
+def phase_batched_cycle(dev, smi, launches):
+    a_n = A_BATCH
+    matrices, masks, ctx, ctxs, dt, n_steps = stacked_cycle_problem(
+        a_n, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+    check(matrices.shape == (a_n, M_BATCH, 13), f"matrices {tuple(matrices.shape)}")
+    rows = sorted({int(c.ref.s.shape[0]) for c in ctxs})
+    check(len(rows) > 1, "the agents' tables should differ in R")
+    fn = batched_full_cycle(dt=dt, n_steps=n_steps)
+
+    launches.start()
+    out = fn(matrices, masks, ctx)
+    check(launches.stop("batched cycle") == 1, "a batched call launches K1 once")
+    best = out["best"].cpu().numpy()
+    check(bool(out["found"].all()), f"batched cycle: found {out['found'].tolist()}")
+    for key in ("x", "y", "v", "cost", "terms"):
+        check(bool(torch.isfinite(out[key]).all()), f"batched cycle: non-finite {key}")
+
+    m64, k64, _, ctxs64, _, _ = stacked_cycle_problem(
+        a_n, torch.device("cpu"), torch.float64, m_bucket=M_BATCH, spread=12.0,
+        ragged=True)
+    ties = 0
+    for a in range(a_n):
+        ref = evaluate_cycle(m64[a], k64[a], ctxs64[a], dt=dt, n_steps=n_steps,
+                             low_vel_mode=False)
+        b64, cost64 = int(ref.best_idx), ref.cost.numpy()
+        if int(best[a]) != b64:
+            gap = abs(cost64[int(best[a])] - cost64[b64])
+            bound = ULPS * float(np.spacing(np.float32(abs(cost64[b64]))))
+            check(gap <= bound, f"agent {a}: best {int(best[a])} (cuda f32 batched) vs "
+                                f"{b64} (cpu f64 sequential): cost gap {gap} > {bound}")
+            ties += 1
+        x64 = ref.rollout.x[b64].numpy()
+        err = float(np.abs(out["x"][a].cpu().numpy() - x64).max())
+        check(int(best[a]) != b64 or err < 1e-2, f"agent {a}: selected x off by {err} m")
+
+    before = table_interp.LAUNCHES
+    p50, lo, hi = timed_calls(lambda: fn(matrices, masks, ctx))
+    check(table_interp.LAUNCHES - before == 23, "one K1 launch per batched call")
+
+    def sequential():
+        for a in range(a_n):
+            r = evaluate_cycle(matrices[a], masks[a], ctxs[a], dt=dt, n_steps=n_steps,
+                               low_vel_mode=False)
+            torch.index_select(r.rollout.x, 0, r.best_idx.reshape(1).long())
+
+    seq50, seq_lo, seq_hi = timed_calls(sequential)
+    phase(6, f"batched cycle A={a_n} M={M_BATCH} R={rows}->{int(ctx.ref.s.shape[1])}: "
+             f"best {best.tolist()} equals the cpu f64 sequential cycle "
+             f"({ties} ties within {ULPS} float32 ulps); 1 K1 launch per call; p50 "
+             f"{p50:.3f} ms over 20 calls (min {lo:.3f}, max {hi:.3f}), "
+             f"{p50 / a_n:.3f} ms per agent; {a_n} sequential cycles p50 {seq50:.3f} ms "
+             f"(min {seq_lo:.3f}, max {seq_hi:.3f}), {seq50 / a_n:.3f} ms per agent; "
+             f"sequential/batched {seq50 / p50:.2f} [{smi}]")
+
+
+def _multiagent_run(family, dev, dtype, batched):
+    config = load_config()
+    config.dtype = dtype
+    config.simulation.start_multiagent = True
+    config.simulation.batched_device_agents = batched
+    scenario = getattr(scenario_factory, f"make_{family}")()
+    sim = Simulation(scenario, config, dev)
+    res = sim.run()
+    return sim, res
+
+
+def _end_positions(res):
+    return {aid: np.asarray(h[-1].position, dtype=np.float64)
+            for aid, h in res.histories.items()}
+
+
+def phase_multiagent(dev, smi, launches):
+    for family, n_agents in (("convoy", 8), ("highway", 2)):
+        launches.start()
+        sim, res = _multiagent_run(family, dev, "float32", batched=True)
+        n_launches = launches.stop(f"multi-agent {family}, batched")
+        check(len(sim.agents) == n_agents, f"{family}: {len(sim.agents)} agents")
+        check(res.success, f"{family} batched: {res.agent_status} {res.agent_messages}")
+        pos = np.array([s.position for h in res.histories.values() for s in h])
+        check(np.isfinite(pos).all(), f"{family}: non-finite executed positions")
+        batches = [b for a in sim.agents for b in a.record.batch_planning_times]
+        check(batches, f"{family}: no batched pass was recorded")
+        passes = sum(1.0 / n for _, n in batches)
+        phase(7, f"{family} batched on the card: {n_agents} agents "
+                 f"COMPLETED_SUCCESS, steps={res.steps}, batched passes "
+                 f"{passes:.0f}, K1 launches {n_launches}, wall {res.wall_time:.3f} s, "
+                 f"mean batched pass "
+                 f"{1e3 * float(np.mean([t for t, _ in batches])):.3f} ms [{smi}]")
+
+        launches.start()
+        _, seq = _multiagent_run(family, dev, "float32", batched=False)
+        seq_launches = launches.stop(f"multi-agent {family}, sequential")
+        check(seq.agent_status == res.agent_status and seq.steps == res.steps,
+              f"{family}: sequential on the card {seq.agent_status} steps {seq.steps} "
+              f"vs batched {res.agent_status} steps {res.steps}")
+        _, ref = _multiagent_run(family, torch.device("cpu"), "float64", batched=True)
+        end, end_seq, end_ref = (_end_positions(r) for r in (res, seq, ref))
+        dev_seq = max(float(np.abs(end[a] - end_seq[a]).max()) for a in end)
+        dev_ref = max(float(np.abs(end[a] - end_ref[a]).max()) for a in end)
+        phase(7, f"{family}: sequential on the card: equal statuses and steps "
+                 f"({seq.steps}), K1 launches {seq_launches}, wall "
+                 f"{seq.wall_time:.3f} s, max end-position deviation {dev_seq:.3e} m; "
+                 f"cpu f64 batched: steps {ref.steps}, success {ref.success}, max "
+                 f"end-position deviation {dev_ref:.3e} m [{smi}]")
+
+
+def _risk_problem(device, dtype):
+    """A simulation-sized rollout problem for the risk stack: the stacked
+    problem's first agent (M = 1024, 4 obstacles), with the obstacles moved
+    onto the agent's path so that the risks are not all 0."""
+    matrices, _, _, ctxs, dt, n_steps = stacked_cycle_problem(
+        1, device, dtype, m_bucket=M_BATCH, spread=12.0)
+    ctx = ctxs[0]
+    means = ctx.preds.means.clone()
+    means[..., 0] = torch.tensor([52.0, 58.0, 64.0, 70.0], dtype=dtype,
+                                 device=device)[:, None]
+    means[..., 1] = torch.tensor([9.0, 11.5, 14.0, 17.5], dtype=dtype,
+                                 device=device)[:, None]
+    preds = ctx.preds._replace(means=means)
+
+    def rollout():
+        return rollout_candidates(
+            matrices[0], ctx.ref, ctx.veh, dt=dt, n_steps=n_steps, low_vel_mode=False,
+            x0_orientation=ctx.x0_orientation, table_window=768)
+
+    def risks(ro):
+        return trajectory_risks(ro, preds, meta_from_footprint(
+            preds.lengths, preds.widths), ctx.veh.mass)
+
+    return rollout, risks
+
+
+def _min_risk_run(scenario, dev, launches, path):
+    """One simulation with emergency_mode = "min_risk" and log_risk; returns
+    (result, planner modes per cycle, logged ego risks, K1 launches)."""
+    config = load_config()
+    config.dtype = "float32"
+    config.planning.emergency_mode = "min_risk"
+    config.debug.log_risk = True
+    cycles = []
+    plan_fn = reactive.ReactivePlanner.plan
+
+    def recording_plan(self, x0, x_cl):
+        plan = plan_fn(self, x0, x_cl)
+        cycles.append((None, None) if plan is None else (plan.mode, plan.ego_risk))
+        return plan
+
+    reactive.ReactivePlanner.plan = recording_plan
+    try:
+        launches.start()
+        res = Simulation(scenario, config, dev).run()
+        n_launches = launches.stop(path)
+    finally:
+        reactive.ReactivePlanner.plan = plan_fn
+    modes = [mode for mode, _ in cycles]
+    logged = [risk for _, risk in cycles if risk is not None]
+    return res, modes, logged, n_launches
+
+
+def phase_risk(dev, smi, launches):
+    rollout, risks = _risk_problem(dev, torch.float32)
+    launches.start()
+    ro = rollout()
+    launches.stop("risk rollout")
+    torch.cuda.reset_peak_memory_stats()
+    got = risks(ro)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    risk_ms, _, _ = timed_calls(lambda: risks(ro), n=10, warm=1)
+    rollout64, risks64 = _risk_problem(torch.device("cpu"), torch.float64)
+    want = risks64(rollout64())
+    errs = {}
+    for f in ("ego_risk", "obst_risk", "coll_prob_per_obst"):
+        g = getattr(got, f).cpu().numpy().astype(np.float64)
+        check(np.isfinite(g).all(), f"trajectory_risks: non-finite {f}")
+        errs[f] = float(np.abs(g - getattr(want, f).numpy()).max())
+        check(errs[f] <= 1e-4, f"trajectory_risks {f}: max |Δ| {errs[f]} > 1e-4")
+    check(float(want.ego_risk.max()) > 1e-3, "the risk problem has no risk in it")
+    phase(8, f"trajectory_risks M={M_BATCH} O=4 on the card f32 vs cpu f64: max |Δ| "
+             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+             + f" (limit 1e-4); max ego_risk {float(want.ego_risk.max()):.4f}; "
+             f"p50 {risk_ms:.3f} ms, peak memory {peak:.1f} MiB [{smi}]")
+
+    # scenarios in which no candidate is selectable in some cycle: a standing
+    # vehicle 14 m ahead of an ego at 15 m/s (no candidate avoids it, so every
+    # cycle is a min_risk cycle until the crash), and the overtake family
+    # with a crawling lead on lanes too narrow to pass freely
+    total = 0
+    for path, scenario in (
+            ("min_risk, standing lead", scenario_factory.make_highway(
+                lead_v=0.0, lead_gap=14.0)),
+            ("min_risk, narrow overtake", scenario_factory.make_overtake(
+                lane_width=2.4, lead_v=1.0, lead_gap=22.0))):
+        res, modes, logged, n_launches = _min_risk_run(scenario, dev, launches, path)
+        n_min_risk = modes.count("min_risk")
+        total += n_min_risk
+        check(logged and np.isfinite(logged).all(),
+              f"{path}: log_risk recorded no finite risk")
+        phase(8, f"{path} on the card: {len(modes)} cycles, {n_min_risk} min_risk "
+                 f"cycles, statuses "
+                 f"{ {k: v.name for k, v in res.agent_status.items()} }, steps "
+                 f"{res.steps}, max logged ego_risk {max(logged):.4f}, K1 launches "
+                 f"{n_launches}, wall {res.wall_time:.3f} s [{smi}]")
+    check(total > 0, "no cycle ran the min_risk branch on the card")
 
 
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
     k1_times, max_err = phase_k1(dev, smi)
-    phase_dense_cycle(dev, smi)
-    launches, _ = phase_simulation(dev, smi)
-    ms, plain_ms = k1_times[(torch.float32, P_DENSE)]
+    launches = Launches()
+    phase_dense_cycle(dev, smi, launches)
+    phase_simulation(dev, smi, launches)
+    phase_batched_cycle(dev, smi, launches)
+    phase_multiagent(dev, smi, launches)
+    phase_risk(dev, smi, launches)
+    dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
+    stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "table_interp", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
+        "replaces": REPLACES, "launches": sum(launches.by_path.values()),
+        "max_abs_err": max_err,
+        "ms": dense["ms"], "plain_ms": dense["plain_ms"],
+        "bound_ms": dense["bound_ms"], "bound_by": dense["bound_by"],
+        "library_ms": None,     # no one PyTorch call gathers two rows and lerps
+        "shape": f"R={R_ROWS} C={C_COLS} P={P_DENSE} float32",
+        "launches_by_path": launches.by_path,
+        "stacked": dict(stacked, shape=f"R={A_BATCH * R_ROWS} C={C_COLS} "
+                                       f"P={A_BATCH * M_BATCH * 31} float32"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,17 +2,35 @@
 
 Laid out like the JAX package `frenetix_tpu`, which stays the reference:
 
-- ``ops``       rollout, cost stack, collision checks, and the hand-written
-                CUDA kernel of the reference-table lookup (``csrc/``)
-- ``geometry``  Frenet ↔ Cartesian conversions against reference tables
+- ``ops``       rollout, cost stack, collision checks, sampling matrices, and
+                the hand-written CUDA kernel of the reference-table lookup
+                (``csrc/``)
+- ``geometry``  reference-path tables, drivable corridor, Frenet ↔ Cartesian
 - ``planner``   the replanning cycle and the host planner around it
-- ``sim``       the single-agent host simulation loop
+- ``parallel``  the agent axis: stacked contexts, the batched cycle, the
+                batched stepper of the multi-agent simulation
+- ``risk``      collision probabilities, harm models, per-candidate risks
+- ``sim``       the host simulation loop (single- and multi-agent)
+- ``io``        CommonRoad XML reader and the synthetic scenario families
 - ``utils``     the configuration dataclasses
 
-Every entry point takes a ``torch.device``; tensors follow it.  The package
-imports ``torch`` and never ``jax``; it reuses the JAX-free host modules of
-``frenetix_tpu`` (reference-path preprocessing, corridor, sampling, scenario
-I/O) by import.
+The package imports ``torch``, never ``jax`` and nothing of ``frenetix_tpu``:
+it keeps its own copy of every host module it needs.  Entry points run on
+the CUDA device unless the caller passes another ``torch.device``.
 """
+import torch
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+__all__ = ["default_device"]
+
+
+def default_device() -> torch.device:
+    """The device the port's entry points use when the caller names none:
+    the first CUDA device.  Raises where there is none; the CPU is used only
+    when a caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "frenetix_tpu_torch runs on a CUDA device and none is available; "
+            "pass torch.device('cpu') explicitly to run on the CPU")
+    return torch.device("cuda", 0)

@@ -7,9 +7,10 @@ The JAX package's bf16-safe matrix forms (`interp_weights`,
 `_split_precision_interp`) exist only for the TPU's matrix unit and have no
 counterpart here.
 
-`ref` is a `frenetix_tpu.geometry.refpath.RefPathTable` whose fields are
+`ref` is a `frenetix_tpu_torch.geometry.refpath.RefPathTable` whose fields are
 tensors (xy (R, 2), s, theta, kappa, kappa_d, kappa_dd (R,)), uniformly
-spaced in s.
+spaced in s.  The lookups accept leading agent axes on the tables and the
+queries alike (see `interp_ref_tables`).
 """
 from __future__ import annotations
 
@@ -35,14 +36,23 @@ def wrap_valid_orientation(theta):
     return torch.fmod(theta, TWO_PI)
 
 
+def _lead(v, like):
+    """`v` (batch shape B) with trailing singleton axes up to `like`'s rank,
+    so a per-agent scalar broadcasts against (B..., M, N+1) queries."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
 def segment_index(ref_s, s):
     """Segment index i = clip(floor(s/ds), 0, R-2), factor λ = s/ds - i (not
     recomputed after the clip, so out-of-domain queries extrapolate) and the
-    in-domain mask ref_s[0] <= s <= ref_s[-1]."""
-    ds = ref_s[1] - ref_s[0]
-    idx = torch.clamp(torch.floor(s / ds).to(torch.int32), 0, ref_s.shape[0] - 2)
+    in-domain mask ref_s[0] <= s <= ref_s[-1].
+
+    `ref_s` is (R,) or, with leading agent axes, (B..., R); `s` then starts
+    with the same B."""
+    ds = _lead(ref_s[..., 1] - ref_s[..., 0], s)
+    idx = torch.clamp(torch.floor(s / ds).to(torch.int32), 0, ref_s.shape[-1] - 2)
     lam = s / ds - idx.to(s.dtype)
-    in_domain = (s >= ref_s[0]) & (s <= ref_s[-1])
+    in_domain = (s >= _lead(ref_s[..., 0], s)) & (s <= _lead(ref_s[..., -1], s))
     return idx, lam, in_domain
 
 
@@ -57,22 +67,28 @@ def interp_ref_tables(ref, s, extra_tables=None, window_rows=None,
     in-domain mask also requires the query to fall inside the window; the
     local index is clipped to [0, W-2] while λ keeps its unclipped value.
     The kernel reads global rows offset + local index of the full table,
-    which gives the values of the JAX window copy."""
+    which gives the values of the JAX window copy.
+
+    With leading agent axes B on the tables (`ref.s` (B..., R), `s`
+    (B..., ...), `window_anchor` (B...)) the per-agent tables are laid end
+    to end as one (A·R, C) table, A = ∏B, and agent a's rows get a·R added,
+    so the whole batch is ONE kernel launch.  A per-agent row index lies in
+    [0, R-2], so row+1 never reaches the next agent's table."""
     batch_shape = s.shape
     idx, lam, in_dom = segment_index(ref.s, s)
-    cols = [ref.theta, ref.kappa, ref.kappa_d, ref.xy[:, 0], ref.xy[:, 1]]
-    tables = torch.stack(cols, dim=1)
+    cols = [ref.theta, ref.kappa, ref.kappa_d, ref.xy[..., 0], ref.xy[..., 1]]
+    tables = torch.stack(cols, dim=-1)                     # (B..., R, C)
     if extra_tables is not None:
-        tables = torch.cat([tables, extra_tables.to(tables.dtype)], dim=1)
+        tables = torch.cat([tables, extra_tables.to(tables.dtype)], dim=-1)
 
-    r = ref.s.shape[0]
+    r = ref.s.shape[-1]
     if window_rows is not None and window_rows < r:
-        ds = ref.s[1] - ref.s[0]
+        ds = ref.s[..., 1] - ref.s[..., 0]
         margin = window_rows // 8
-        offset = torch.clamp(
+        offset = _lead(torch.clamp(
             torch.floor(window_anchor / ds).to(torch.int32) - margin,
             0, r - window_rows,
-        )
+        ), s)
         idx_local = idx - offset
         in_window = (idx_local >= 0) & (idx_local <= window_rows - 2)
         in_dom = in_dom & in_window
@@ -80,9 +96,16 @@ def interp_ref_tables(ref, s, extra_tables=None, window_rows=None,
     else:
         gidx = idx
 
-    vals_t = interp_rows(tables.contiguous(), gidx.reshape(-1).contiguous(),
+    lead_shape = ref.s.shape[:-1]
+    if lead_shape:
+        n_agents = lead_shape.numel()
+        base = torch.arange(n_agents, dtype=torch.int32, device=s.device) * r
+        gidx = gidx + _lead(base.reshape(lead_shape), s)
+    n_cols = tables.shape[-1]
+    vals_t = interp_rows(tables.reshape(-1, n_cols).contiguous(),
+                         gidx.reshape(-1).contiguous(),
                          lam.reshape(-1).contiguous())     # (C, P)
-    field = [vals_t[i].reshape(batch_shape) for i in range(tables.shape[1])]
+    field = [vals_t[i].reshape(batch_shape) for i in range(n_cols)]
     return {
         "alpha": wrap_valid_orientation(field[0]),
         "theta_lerp": field[0],

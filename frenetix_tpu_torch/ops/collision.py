@@ -3,7 +3,8 @@ drivable-corridor road-departure check, for all candidates at once.
 
 PyTorch port of the parts of `frenetix_tpu/ops/collision.py` that the
 replanning cycle runs.  Ego boxes sit at the vehicle center (the planner's
-states are at the rear axle, shifted forward by wb_rear_axle).
+states are at the rear axle, shifted forward by wb_rear_axle).  Rollouts
+and predictions may carry leading agent axes.
 """
 from __future__ import annotations
 
@@ -47,29 +48,29 @@ def prediction_collisions(ro, preds, veh):
     """(M,) bool — the candidate's box at step i (1 <= i <= t, t = min(N, T))
     overlaps an obstacle box at prediction step i-1."""
     if preds.num_obstacles == 0:
-        return torch.zeros(ro.x.shape[0], dtype=torch.bool, device=ro.x.device)
-    n1 = ro.x.shape[1]
+        return torch.zeros(ro.x.shape[:-1], dtype=torch.bool, device=ro.x.device)
+    n1 = ro.x.shape[-1]
     t = min(n1 - 1, preds.horizon)
 
-    ego_c = ego_centers(ro, veh.wb_rear_axle)[:, 1 : t + 1]       # (M, t, 2)
-    ego_th = ro.theta_gl[:, 1 : t + 1]
+    ego_c = ego_centers(ro, veh.wb_rear_axle)[..., 1 : t + 1, :]  # (M, t, 2)
+    ego_th = ro.theta_gl[..., 1 : t + 1]
     ego_h = torch.tensor([veh.length / 2.0, veh.width / 2.0], dtype=ro.x.dtype,
                          device=ro.x.device)
 
-    obs_c = preds.means[:, :t]                                     # (O, t, 2)
-    obs_th = preds.orientations[:, :t]
+    obs_c = preds.means[..., :t, :]                                # (O, t, 2)
+    obs_th = preds.orientations[..., :t]
     obs_h = torch.stack([preds.lengths / 2.0, preds.widths / 2.0], dim=-1)
 
     hit = obb_overlap(
-        ego_c[:, None],                 # (M, 1, t, 2)
-        ego_th[:, None],
-        ego_h[None, None, None, :],
-        obs_c[None],                    # (1, O, t, 2)
-        obs_th[None],
-        obs_h[None, :, None, :],
+        ego_c[..., :, None, :, :],      # (M, 1, t, 2)
+        ego_th[..., :, None, :],
+        ego_h,
+        obs_c[..., None, :, :, :],      # (1, O, t, 2)
+        obs_th[..., None, :, :],
+        obs_h[..., None, :, None, :],
     )                                   # (M, O, t)
-    hit = hit & preds.valid[None, :, :t]
-    return torch.any(hit.reshape(hit.shape[0], -1), dim=1)
+    hit = hit & preds.valid[..., None, :, :t]
+    return torch.any(hit.flatten(-2), dim=-1)
 
 
 def road_departure_corridor(ro, veh):
@@ -77,7 +78,7 @@ def road_departure_corridor(ro, veh):
     d_min(s) <= d <= d_max(s), whose bounds the rollout interpolated into
     `ro.extras`.  Returns (first_step (M,) int32, -1 if never; the velocity
     at that step, 0 if never)."""
-    n1 = ro.x.shape[1]
+    n1 = ro.x.shape[-1]
     d_lo = ro.extras[0]
     d_hi = ro.extras[1]
     sin_t = torch.sin(ro.theta_cl)
@@ -85,9 +86,9 @@ def road_departure_corridor(ro, veh):
     d_center = ro.d + veh.wb_rear_axle * sin_t
     ext = 0.5 * veh.length * torch.abs(sin_t) + 0.5 * veh.width * torch.abs(cos_t)
     off_road = (d_center - ext < d_lo) | (d_center + ext > d_hi)
-    step = torch.arange(n1, device=ro.x.device)[None, :]
-    first = torch.amin(torch.where(off_road, step, n1), dim=1)
+    step = torch.arange(n1, device=ro.x.device)
+    first = torch.amin(torch.where(off_road, step, n1), dim=-1)
     never = first == n1
     first_step = torch.where(never, -1, first).to(torch.int32)
-    v_at = torch.gather(ro.v, 1, torch.where(never, 0, first)[:, None])[:, 0]
+    v_at = torch.gather(ro.v, -1, torch.where(never, 0, first)[..., None])[..., 0]
     return first_step, torch.where(never, torch.zeros_like(v_at), v_at)

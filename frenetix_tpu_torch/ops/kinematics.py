@@ -5,6 +5,12 @@ PyTorch port of `frenetix_tpu/ops/kinematics.py`.  One pass over the whole
 (M, 13) candidate batch produces (M, N+1) state tensors and (M,) masks; the
 reference-table lookup goes through the K1 kernel.
 
+Every tensor may carry leading agent axes B: the matrix is (B..., M, 13),
+the reference tables (B..., R, ...), `x0_orientation` (B...), and all outputs
+start with B.  Every operation is elementwise or reduces the last axis only,
+so an agent's slice of a batched rollout equals its rollout alone; the table
+lookup of the whole batch is one kernel launch.
+
 Sampling-matrix columns:
 
     0: t0   1: t1    2: s0    3: ss0   4: sss0  5: ss1  6: sss1
@@ -81,13 +87,13 @@ def _carry_forward_theta(active, theta_active, theta_init):
     or the initial orientation when no step was active yet.  Step 0 always
     counts as seen (seeded with θ_init when inactive), so a running maximum
     of the last seen step index, then a gather, carries the value forward."""
-    n1 = active.shape[1]
-    seeded = torch.where(active, theta_active, theta_init[:, None])
+    n1 = active.shape[-1]
+    seeded = torch.where(active, theta_active, theta_init[..., None])
     seen = active.clone()
-    seen[:, 0] = True
+    seen[..., 0] = True
     steps = torch.arange(n1, device=active.device).expand_as(active)
-    last_seen = torch.cummax(torch.where(seen, steps, 0), dim=1).values
-    return torch.gather(seeded, 1, last_seen)
+    last_seen = torch.cummax(torch.where(seen, steps, 0), dim=-1).values
+    return torch.gather(seeded, -1, last_seen)
 
 
 def rollout_candidates(
@@ -103,7 +109,8 @@ def rollout_candidates(
     extra_ref_tables=None,
     table_window: int = 0,
 ) -> Rollout:
-    """Evaluate all candidates of an (M, 13) sampling matrix.
+    """Evaluate all candidates of an (M, 13) sampling matrix, or of a
+    (B..., M, 13) stack of them against (B..., R, ...) tables.
 
     low_vel_mode plans the lateral polynomial over arclength; quintic_lon
     treats column 5 as the end position s1 (stopping mode);
@@ -111,14 +118,14 @@ def rollout_candidates(
     rows anchored at s0 (see geometry.frenet.interp_ref_tables)."""
     dtype = matrix.dtype
     device = matrix.device
-    m = matrix.shape[0]
+    rows = matrix.shape[:-1]          # (B..., M)
     n1 = n_steps + 1
 
-    t1 = matrix[:, 1]
-    s0, ss0, sss0 = matrix[:, 2], matrix[:, 3], matrix[:, 4]
-    ss1, sss1 = matrix[:, 5], matrix[:, 6]
-    d0, dd0, ddd0 = matrix[:, 7], matrix[:, 8], matrix[:, 9]
-    d1, dd1, ddd1 = matrix[:, 10], matrix[:, 11], matrix[:, 12]
+    t1 = matrix[..., 1]
+    s0, ss0, sss0 = matrix[..., 2], matrix[..., 3], matrix[..., 4]
+    ss1, sss1 = matrix[..., 5], matrix[..., 6]
+    d0, dd0, ddd0 = matrix[..., 7], matrix[..., 8], matrix[..., 9]
+    d1, dd1, ddd1 = matrix[..., 10], matrix[..., 11], matrix[..., 12]
 
     # ---- longitudinal polynomial over the fixed time grid ------------------
     if quintic_lon:
@@ -131,26 +138,26 @@ def rollout_candidates(
     # round half to even, as jnp.round
     traj_len = torch.clamp(torch.round(t1 / dt).to(torch.int32) + 1, 2, n1)
     t_end = (traj_len - 1).to(dtype) * dt
-    step_mask = tgrid[None, :] < traj_len[:, None].to(dtype) * dt
+    step_mask = tgrid < traj_len[..., None].to(dtype) * dt
 
-    tau = torch.minimum(tgrid[None, :], t_end[:, None])
+    tau = torch.minimum(tgrid, t_end[..., None])
     s_in = poly.poly_position(coeffs_lon, tau)
     sv_in = poly.poly_velocity(coeffs_lon, tau)
     sa_in = poly.poly_acceleration(coeffs_lon, tau)
 
     # constant-velocity extension past t1
-    s_end = poly.poly_position(coeffs_lon, t_end[:, None])[:, 0]
-    v_end = poly.poly_velocity(coeffs_lon, t_end[:, None])[:, 0]
-    s_ext = s_end[:, None] + (tgrid[None, :] - t_end[:, None]) * v_end[:, None]
+    s_end = poly.poly_position(coeffs_lon, t_end[..., None])[..., 0]
+    v_end = poly.poly_velocity(coeffs_lon, t_end[..., None])[..., 0]
+    s_ext = s_end[..., None] + (tgrid - t_end[..., None]) * v_end[..., None]
     s = torch.where(step_mask, s_in, s_ext)
-    s_vel = torch.where(step_mask, sv_in, v_end[:, None])
+    s_vel = torch.where(step_mask, sv_in, v_end[..., None])
     s_acc = torch.where(step_mask, sa_in, torch.zeros_like(sa_in))
 
     # ---- lateral polynomial (time, or arclength in low-velocity mode) ------
     if low_vel_mode:
         span = s_end - s0
         lat_T = torch.where(span > 0.0, span, t1)
-        tau_lat = torch.where(step_mask, s - s0[:, None], span[:, None])
+        tau_lat = torch.where(step_mask, s - s0[..., None], span[..., None])
     else:
         lat_T = t1
         tau_lat = tau
@@ -161,11 +168,11 @@ def rollout_candidates(
     d_acc = torch.where(step_mask, poly.poly_acceleration(coeffs_lat, tau_lat), zero)
 
     # ---- validity / pre-feasibility ----------------------------------------
-    slot = torch.zeros((m, 11), dtype=torch.bool, device=device)
-    neg_svel = torch.any(s_vel < -_EPS, dim=1)
-    slot[:, 10] = neg_svel
-    slot[:, 2] = neg_svel
-    slot[:, 1] = torch.any(torch.abs(s_acc) > params.a_max, dim=1)
+    slot = torch.zeros(rows + (11,), dtype=torch.bool, device=device)
+    neg_svel = torch.any(s_vel < -_EPS, dim=-1)
+    slot[..., 10] = neg_svel
+    slot[..., 2] = neg_svel
+    slot[..., 1] = torch.any(torch.abs(s_acc) > params.a_max, dim=-1)
     s_vel = torch.where(torch.abs(s_vel) < _EPS, zero, s_vel)
 
     # ---- Werling A.8 transform ---------------------------------------------
@@ -183,10 +190,10 @@ def rollout_candidates(
     tabs = fr.interp_ref_tables(
         ref, s, extra_tables=extra_ref_tables,
         window_rows=table_window if table_window else None,
-        window_anchor=s0[0] if table_window else None,
+        window_anchor=s0[..., 0] if table_window else None,
     )
     in_dom = tabs["in_domain"]
-    slot[:, 3] = torch.any(~in_dom, dim=1)
+    slot[..., 3] = torch.any(~in_dom, dim=-1)
     alpha = tabs["alpha"]
     k_r = tabs["k_r"]
     k_r_d = tabs["k_r_d"]
@@ -198,7 +205,7 @@ def rollout_candidates(
         theta_gl = theta_gl_pt
     else:
         x0_theta = torch.as_tensor(x0_orientation, dtype=dtype,
-                                   device=device).expand(m)
+                                   device=device)[..., None].expand(rows)
         theta_gl_hold = _carry_forward_theta(moving, theta_gl_pt, x0_theta)
         theta_gl = torch.where(moving, theta_gl_pt, theta_gl_hold)
         theta_cl = torch.where(moving, theta_cl_pt, theta_gl - alpha)
@@ -217,16 +224,16 @@ def rollout_candidates(
 
     # ---- constraint masks --------------------------------------------------
     kappa_max = math.tan(params.delta_max) / params.wheelbase
-    slot[:, 4] = torch.any(v < -_EPS, dim=1)
-    slot[:, 5] = torch.any(torch.abs(kappa_gl) > kappa_max, dim=1)
+    slot[..., 4] = torch.any(v < -_EPS, dim=-1)
+    slot[..., 5] = torch.any(torch.abs(kappa_gl) > kappa_max, dim=-1)
 
-    zeros_col = torch.zeros((m, 1), dtype=dtype, device=device)
-    yaw_rate = torch.cat([zeros_col, torch.diff(theta_gl, dim=1) / dt], dim=1)
+    zeros_col = torch.zeros(rows + (1,), dtype=dtype, device=device)
+    yaw_rate = torch.cat([zeros_col, torch.diff(theta_gl, dim=-1) / dt], dim=-1)
     yaw_rate_r = torch.round(yaw_rate * 1e5) / 1e5      # round(yaw_rate, 5)
-    slot[:, 6] = torch.any(torch.abs(yaw_rate_r) > kappa_max * v, dim=1)
+    slot[..., 6] = torch.any(torch.abs(yaw_rate_r) > kappa_max * v, dim=-1)
 
-    kappa_dot_chk = torch.cat([zeros_col, torch.diff(kappa_gl, dim=1) / dt], dim=1)
-    slot[:, 7] = torch.any(torch.abs(kappa_dot_chk) > params.kappa_dot_max, dim=1)
+    kappa_dot_chk = torch.cat([zeros_col, torch.diff(kappa_gl, dim=-1) / dt], dim=-1)
+    slot[..., 7] = torch.any(torch.abs(kappa_dot_chk) > params.kappa_dot_max, dim=-1)
 
     fast = v > params.v_switch
     a_max_v = torch.where(
@@ -234,20 +241,20 @@ def rollout_candidates(
         params.a_max * params.v_switch / torch.where(fast, v, torch.ones_like(v)),
         torch.full_like(v, params.a_max),
     )
-    slot[:, 8] = torch.any((a < -params.a_max) | (a > a_max_v), dim=1)
+    slot[..., 8] = torch.any((a < -params.a_max) | (a > a_max_v), dim=-1)
 
     # ---- Cartesian positions: ref(s) + d·normal(θ_lerp) --------------------
     theta_lerp = tabs["theta_lerp"]
     x = tabs["x"] - d * torch.sin(theta_lerp)
     y = tabs["y"] + d * torch.cos(theta_lerp)
-    slot[:, 9] = torch.any(~in_dom, dim=1)
+    slot[..., 9] = torch.any(~in_dom, dim=-1)
 
     # kappa_dot output column: [0, diff(kappa_gl)] without the /dt
-    kappa_dot_out = torch.cat([zeros_col, torch.diff(kappa_gl, dim=1)], dim=1)
+    kappa_dot_out = torch.cat([zeros_col, torch.diff(kappa_gl, dim=-1)], dim=-1)
 
-    feasible = ~torch.any(slot[:, 1:9], dim=1)
-    valid = ~(slot[:, 10] | slot[:, 9])
-    slot[:, 0] = ~(feasible & valid)
+    feasible = ~torch.any(slot[..., 1:9], dim=-1)
+    valid = ~(slot[..., 10] | slot[..., 9])
+    slot[..., 0] = ~(feasible & valid)
 
     return Rollout(
         s=s, s_vel=s_vel, s_acc=s_acc, d=d, d_vel=d_vel, d_acc=d_acc,

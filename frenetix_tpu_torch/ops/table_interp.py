@@ -61,7 +61,12 @@ def _entry(dtype):
 def interp_rows(table: torch.Tensor, gidx: torch.Tensor,
                 lam: torch.Tensor) -> torch.Tensor:
     """(C, P) interpolated table columns at global rows `gidx` (int32, each
-    in [0, R-2]) with factors `lam`; `table` is the full (R, C) table."""
+    in [0, R-2]) with factors `lam`; `table` is the full (R, C) table.
+
+    For a batch of agents the caller lays their (R, C) tables end to end as
+    one (A·R, C) table and adds a·R to agent a's rows
+    (`geometry.frenet.interp_ref_tables`): one launch for all agents.  A
+    per-agent row is at most R-2, so row+1 stays inside the agent's table."""
     tensors = (table, gidx, lam)
     if all(t.device.type == "cpu" for t in tensors):
         return interp_rows_plain(table, gidx, lam)

@@ -1,0 +1,120 @@
+"""Batched multi-agent stepping: all agents' cycles in ONE device pass.
+
+PyTorch port of `frenetix_tpu/parallel/batched_sim.py`.  The host-loop
+Simulation steps agents one after the other (one cycle each); this module
+evaluates every running agent's replanning cycle in a single pass of
+`parallel.mesh.batched_full_cycle`, with the agents as the leading axis and
+one K1 launch for all of them.
+
+Both paths run the complete cycle (`planner.core.evaluate_cycle`: boundary
+and corridor checking, lane-center costs, the full cost stack), and every op
+reduces over trailing axes only, so a batched selection equals the
+sequential one on the same inputs.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+slice): a device mesh (slice 7), the in-batch responsibility term with reach
+grids (slice 3b), the occlusion gate with phantom masks and occluder
+geometry (slice 4).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from frenetix_tpu_torch.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.parallel.mesh import (
+    _pad_table, _poses_from, batched_full_cycle,
+)
+from frenetix_tpu_torch.planner.core import CycleContext
+
+__all__ = ["BatchedAgentStepper"]
+
+
+class BatchedAgentStepper:
+    """Evaluates a batch of per-agent (matrix, context) cycles in one call.
+
+    Agents must share the static configuration (dt, N, bucket); their
+    reference paths and corridors are stacked to a common R on the agents'
+    device.  Low-velocity and stopping-mode agents are handled by the host
+    path (their cycles use other static flags)."""
+
+    def __init__(self, config, agents, device: torch.device, mesh=None):
+        missing = []
+        if mesh is not None:
+            missing.append("a device mesh for the agent axis (slice 7)")
+        if float(config.cost_weights.get("responsibility", 0.0)) != 0.0:
+            missing.append("the in-batch responsibility term (slice 3b)")
+        if config.occlusion.use_occlusion_module:
+            missing.append("the in-batch occlusion gate (slice 4)")
+        if missing:
+            raise NotImplementedError(
+                "not yet ported to frenetix_tpu_torch: " + "; ".join(missing))
+        self.config = config
+        self.dt = config.planning.dt
+        self.n_steps = config.planning.n_steps
+        self.agents = agents
+        self.device = torch.device(device)
+        self.np_dtype = np.float64 if config.dtype == "float64" else np.float32
+        self.dtype = torch.float64 if config.dtype == "float64" else torch.float32
+
+        refs = [a.planner.ref_np for a in agents]
+        r_max = max(r.s.shape[0] for r in refs)
+        self.ref = RefPathTable(**{
+            name: self._tensor(np.stack([
+                _pad_table(getattr(r, name), r_max, is_pathlength=(name == "s"))
+                for r in refs]))
+            for name in RefPathTable._fields
+        })
+        self.corridors = self._tensor(np.stack([
+            _pad_table(a.planner.corridor, r_max) for a in agents]))
+
+        # lane segments (for the lane_center_offset cost), padded to common S
+        seg_arrays = [a.planner.lane_segments.cpu().numpy() for a in agents]
+        s_max = max(s.shape[0] for s in seg_arrays)
+        segs = np.zeros((len(agents), s_max, 2, 2), self.np_dtype)
+        valids = np.zeros((len(agents), s_max), bool)
+        for i, (a, s) in enumerate(zip(agents, seg_arrays)):
+            segs[i, :s.shape[0]] = s
+            valids[i, :s.shape[0]] = a.planner.lane_valid.cpu().numpy()
+        self.lane_segments = self._tensor(segs)
+        self.lane_valid = torch.as_tensor(valids, device=self.device)
+
+        self._cycle = batched_full_cycle(
+            dt=self.dt, n_steps=self.n_steps, low_vel_mode=False,
+            compensated_sum=bool(config.planning.compensated_cost_sum),
+        )
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def step(self, matrices, masks, preds_stacked, x0_orients, v_desireds,
+             veh, weights, reach_grids=None, phantom_masks=None, occ_geom=None):
+        """matrices (A, M, 13), masks (A, M), agent-stacked predictions
+        (A, O, T, ...), x0_orients and v_desireds (A,) → (dict of (A, ...)
+        selected-trajectory tensors, poses_all (A, 4)), both on the device."""
+        if reach_grids is not None:
+            raise NotImplementedError(
+                "not yet ported to frenetix_tpu_torch: reach grids (slice 3b)")
+        if phantom_masks is not None or occ_geom is not None:
+            raise NotImplementedError(
+                "not yet ported to frenetix_tpu_torch: phantom masks and "
+                "occluder geometry (slice 4)")
+        v_des = self._tensor(v_desireds)
+        ctx = CycleContext(
+            ref=self.ref,
+            veh=veh,
+            weights=weights,
+            preds=preds_stacked,
+            obstacle_xy=preds_stacked.means[:, :, 0],
+            obstacle_valid=preds_stacked.valid[:, :, 0],
+            corridor=self.corridors,
+            lane_segments=self.lane_segments,
+            lane_valid=self.lane_valid,
+            x0_orientation=self._tensor(x0_orients),
+            desired_velocity=v_des,
+            desired_avg_velocity=v_des,
+        )
+        out = self._cycle(self._tensor(matrices),
+                          torch.as_tensor(masks, device=self.device), ctx)
+        return out, _poses_from(out)

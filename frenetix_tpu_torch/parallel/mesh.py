@@ -1,0 +1,254 @@
+"""The agent axis: stacked per-agent contexts and the batched full cycle.
+
+PyTorch port of the single-device part of `frenetix_tpu/parallel/mesh.py`.
+The JAX package maps `planner.core.evaluate_cycle` over a leading agent axis
+with `jax.vmap`; here every op of the cycle accepts leading batch dimensions
+(see `planner.core`), so `batched_full_cycle` is one call of the same
+`evaluate_cycle` on (A, M, 13) matrices and an agent-stacked context:
+
+  - per-agent reference tables and corridors are padded to a common R on the
+    host (`_pad_table`: the path length is extrapolated with its last step,
+    every other table repeats its last row), lane segments to a common S,
+    predictions to a common O;
+  - `veh` and `weights` are config-level and stay unstacked;
+  - the table lookup (K1) of all agents is ONE kernel launch on the stacked
+    (A·R, C) table;
+  - the selection (argmin, first index on ties) and the gather of the
+    selected candidate's rows happen on the device, per agent.
+
+The multi-device variant (`make_agent_mesh`, `sharded_full_cycle`), the
+responsibility term with its reach-set grids (`stack_reach_grids`) and the
+occlusion gate are not ported yet; asking for them raises NotImplementedError
+naming the ROADMAP.md slice that brings them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from frenetix_tpu_torch.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.ops.costs import PredictionTensors
+from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+
+__all__ = [
+    "stack_cycle_contexts",
+    "batched_full_cycle",
+    "agent_pose_predictions",
+    "agent_plan_predictions",
+    "concat_obstacles",
+]
+
+# selected-trajectory fields returned per agent (Rollout attr → output key)
+_SEL_FIELDS = (
+    ("x", "x"), ("y", "y"), ("theta_gl", "theta"), ("v", "v"), ("a", "a"),
+    ("kappa_gl", "kappa"), ("s", "s"), ("s_vel", "s_dot"), ("s_acc", "s_ddot"),
+    ("d", "d"), ("d_vel", "d_dot"), ("d_acc", "d_ddot"),
+)
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _pad_table(a, r_max, is_pathlength=False):
+    """Rows of a per-agent table padded to `r_max`: the path length goes on
+    with its last step, any other table repeats its last row."""
+    a = _np(a)
+    k = r_max - a.shape[0]
+    if k <= 0:
+        return a[:r_max]
+    if is_pathlength:
+        step = a[-1] - a[-2]
+        return np.concatenate([a, a[-1] + step * np.arange(1, k + 1)])
+    return np.concatenate([a, np.repeat(a[-1:], k, axis=0)])
+
+
+def _pad0(a, n):
+    """First axis cut or zero-padded to n rows."""
+    a = _np(a)
+    if a.shape[0] >= n:
+        return a[:n]
+    pad = np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def stack_cycle_contexts(ctxs: list[CycleContext]) -> CycleContext:
+    """Stack per-agent CycleContexts along a new leading agent axis.
+
+    Reference tables and corridors are padded to a common R, lane segments
+    to a common S, predictions to a common O.  `veh` and `weights` must be
+    shared across agents and stay unstacked.  The leaves may be tensors or
+    NumPy arrays; the result lies on the first context's device with its
+    dtype (CPU and the arrays' dtype for NumPy leaves)."""
+    first = ctxs[0].ref.s
+    if isinstance(first, torch.Tensor):
+        device, dtype = first.device, first.dtype
+    else:
+        device, dtype = torch.device("cpu"), None
+
+    def tensor(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype == bool or a.dtype.kind in "iu":
+            return torch.as_tensor(a, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    r_max = max(int(c.ref.s.shape[0]) for c in ctxs)
+    s_max = max(int(c.lane_segments.shape[0]) for c in ctxs)
+    o_max = max(int(c.preds.means.shape[0]) for c in ctxs)
+
+    ref = RefPathTable(**{
+        name: tensor(np.stack([
+            _pad_table(getattr(c.ref, name), r_max, is_pathlength=(name == "s"))
+            for c in ctxs]))
+        for name in RefPathTable._fields
+    })
+    preds = PredictionTensors(**{
+        name: tensor(np.stack([_pad0(getattr(c.preds, name), o_max) for c in ctxs]))
+        for name in PredictionTensors._fields
+    })
+
+    def scalars(name):
+        return tensor(np.stack([_np(getattr(c, name)) for c in ctxs]))
+
+    weights = ctxs[0].weights
+    return CycleContext(
+        ref=ref,
+        veh=ctxs[0].veh,
+        weights=weights if isinstance(weights, torch.Tensor) else tensor(weights),
+        preds=preds,
+        obstacle_xy=tensor(np.stack([_pad0(c.obstacle_xy, o_max) for c in ctxs])),
+        obstacle_valid=tensor(np.stack([_pad0(c.obstacle_valid, o_max)
+                                        for c in ctxs])),
+        corridor=tensor(np.stack([_pad_table(c.corridor, r_max) for c in ctxs])),
+        lane_segments=tensor(np.stack([_pad0(c.lane_segments, s_max)
+                                       for c in ctxs])),
+        lane_valid=tensor(np.stack([_pad0(c.lane_valid, s_max) for c in ctxs])),
+        x0_orientation=scalars("x0_orientation"),
+        desired_velocity=scalars("desired_velocity"),
+        desired_avg_velocity=scalars("desired_avg_velocity"),
+    )
+
+
+def _select(res) -> dict:
+    """Per-agent gather of the selected candidate: the 12 state rows (A, N+1),
+    best (A,), found (A,), cost (A,), terms (A, K), histogram (A, 11)."""
+    b = res.best_idx.long()
+    n1 = res.rollout.x.shape[-1]
+    row = b[..., None, None].expand(b.shape + (1, n1))
+    out = {key: torch.gather(getattr(res.rollout, attr), -2, row)[..., 0, :]
+           for attr, key in _SEL_FIELDS}
+    k = res.cost_terms.shape[-1]
+    out.update(
+        best=res.best_idx,
+        found=res.found,
+        cost=torch.gather(res.cost, -1, b[..., None])[..., 0],
+        terms=torch.gather(res.cost_terms, -2,
+                           b[..., None, None].expand(b.shape + (1, k)))[..., 0, :],
+        histogram=res.histogram,
+    )
+    return out
+
+
+def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
+                       resp_weight=0.0, occlusion=False, compensated_sum=False,
+                       occ_pm_weight=0.0, occ_um_weight=0.0, occ_ve_weight=0.0):
+    """The full multi-agent cycle on one device.
+
+    Returns fn(matrices (A, M, 13), masks (A, M), stacked_ctx) → dict of
+    (A, ...) selected-trajectory tensors + best/found/cost/terms/histogram,
+    all on the context's device.  One K1 launch per call."""
+    missing = []
+    if resp_weight != 0.0:
+        missing.append("the responsibility term with reach-set grids (slice 3b)")
+    if occlusion or occ_pm_weight or occ_um_weight or occ_ve_weight:
+        missing.append("the occlusion gate and its external costs (slice 4)")
+    if missing:
+        raise NotImplementedError(
+            "not yet ported to frenetix_tpu_torch: " + "; ".join(missing))
+
+    def fn(matrices, masks, ctx):
+        res = evaluate_cycle(
+            matrices, masks, ctx, dt=dt, n_steps=n_steps,
+            low_vel_mode=low_vel_mode, check_boundary=True,
+            table_window=table_window, compensated_sum=compensated_sum,
+        )
+        return _select(res)
+
+    return fn
+
+
+def _poses_from(out):
+    """Executed pose (x, y, θ, v) of every agent at the next control step."""
+    return torch.stack(
+        [out["x"][:, 1], out["y"][:, 1], out["theta"][:, 1], out["v"][:, 1]],
+        dim=-1,
+    )
+
+
+def _peer_rows(means, orientations, velocities, in_plan, cov_pos, length, width,
+               active):
+    """PredictionTensors (A observers, A obstacles, T, ...) from per-agent
+    rows (A, T, ...): every observer sees all rows but its own."""
+    a, horizon = means.shape[0], means.shape[1]
+    dtype, device = means.dtype, means.device
+    eye2 = torch.eye(2, dtype=dtype, device=device)
+    not_self = ~torch.eye(a, dtype=torch.bool, device=device)
+    if active is not None:
+        not_self = not_self & active[None, :]
+    valid = not_self[:, :, None].expand(a, a, horizon)
+    if in_plan is not None:
+        valid = valid & in_plan[None]
+    return PredictionTensors(
+        means=means[None].expand(a, a, horizon, 2),
+        inv_covs=(eye2 / cov_pos).expand(a, a, horizon, 2, 2),
+        covs=(eye2 * cov_pos).expand(a, a, horizon, 2, 2),
+        orientations=orientations[None].expand(a, a, horizon),
+        velocities=velocities[None].expand(a, a, horizon),
+        lengths=torch.full((a, a), length, dtype=dtype, device=device),
+        widths=torch.full((a, a), width, dtype=dtype, device=device),
+        valid=valid,
+    )
+
+
+def agent_pose_predictions(poses_all, *, horizon: int, dt: float, length: float,
+                           width: float, cov_pos: float, active=None):
+    """Obstacle tensors from all agents' poses, on their device.
+
+    poses_all (A, 4: x, y, θ, v) → PredictionTensors with O = A obstacles per
+    observing agent: constant-velocity extrapolation of every agent's pose;
+    `valid[i, j] = (i != j)` masks each agent's own row, and an optional
+    `active` (A,) bool masks terminated agents.  The variance is
+    max(cov_pos, 0.1)."""
+    dtype = poses_all.dtype
+    pos, th, v = poses_all[:, :2], poses_all[:, 2], poses_all[:, 3]
+    steps = torch.arange(1, horizon + 1, dtype=dtype, device=poses_all.device) * dt
+    heading = torch.stack([torch.cos(th), torch.sin(th)], dim=-1)       # (A, 2)
+    means = pos[:, None, :] + (v[:, None] * steps[None, :])[:, :, None] \
+        * heading[:, None, :]                                           # (A, T, 2)
+    return _peer_rows(means, th[:, None].expand(-1, horizon),
+                      v[:, None].expand(-1, horizon), None,
+                      max(cov_pos, 0.1), length, width, active)
+
+
+def agent_plan_predictions(bank, bank_len, offset, *, horizon: int, length: float,
+                           width: float, cov_pos: float, active=None):
+    """Peer rows from the agents' currently executing plans.
+
+    `bank` (A, W, 4: center x, y, θ, v): bank[a, j] is agent a's state j steps
+    after its last replan; `bank_len` (A,) the number of valid rows; `offset`
+    the index of the first predicted step.  Row i gathers bank[offset + i],
+    clamped to bank_len − 1 (the last valid pose pads the tail), and is valid
+    while offset + i < bank_len."""
+    device = bank.device
+    idx = offset + torch.arange(horizon, device=device)                 # (T,)
+    idx_c = torch.clamp(torch.minimum(idx[None, :], bank_len[:, None] - 1), min=0)
+    rows = torch.gather(bank, 1, idx_c[:, :, None].expand(-1, -1, 4).long())
+    in_plan = idx[None, :] < bank_len[:, None]                          # (A, T)
+    return _peer_rows(rows[..., :2], rows[..., 2], rows[..., 3], in_plan,
+                      cov_pos, length, width, active)
+
+
+def concat_obstacles(p1: PredictionTensors, p2: PredictionTensors) -> PredictionTensors:
+    """Concatenate two (A, O, ...) prediction-tensor sets along the obstacle
+    axis (scenario obstacles + agent poses)."""
+    return PredictionTensors(*(torch.cat([a, b], dim=1) for a, b in zip(p1, p2)))

@@ -8,6 +8,14 @@ PyTorch port of `frenetix_tpu/planner/core.py`:
     → masked argmin, first index on ties                      here
 
 Everything stays on the context's device; nothing is copied to the host.
+
+The agent axis: every op of the cycle accepts leading batch dimensions (the
+design chosen over folding agents into the candidate axis).  A matrix
+(A, M, 13) with a mask (A, M) and a context whose per-agent leaves start with
+A (`parallel.mesh.stack_cycle_contexts`; `veh` and `weights` stay shared)
+evaluates all agents in one pass, with ONE K1 launch on the stacked tables,
+and returns results that start with A.  All reductions run over trailing
+axes, so agent a's slice equals the cycle of agent a alone.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from frenetix_tpu.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.ops import collision as coll
 from frenetix_tpu_torch.ops import costs as costs_mod
 from frenetix_tpu_torch.ops.costs import PredictionTensors
@@ -100,13 +108,13 @@ def evaluate_cycle(
         obstacle_xy=ctx.obstacle_xy,
         obstacle_valid=ctx.obstacle_valid,
         desired_avg_velocity=ctx.desired_avg_velocity,
-        lane_segments=ctx.lane_segments if ctx.lane_segments.shape[0] else None,
+        lane_segments=ctx.lane_segments if ctx.lane_segments.shape[-3] else None,
         lane_valid=ctx.lane_valid,
     )
     cost = costs_mod.weighted_total(cost_terms, ctx.weights,
                                     compensated=compensated_sum)
 
-    m = matrix.shape[0]
+    rows = matrix.shape[:-1]
     collides = coll.prediction_collisions(ro, ctx.preds, ctx.veh)
     if check_boundary:
         boundary_step, v_at = coll.road_departure_corridor(ro, ctx.veh)
@@ -116,18 +124,18 @@ def evaluate_cycle(
             torch.zeros_like(v_at),
         )
     else:
-        boundary_step = torch.full((m,), -1, dtype=torch.int32, device=matrix.device)
-        boundary_harm = torch.zeros(m, dtype=matrix.dtype, device=matrix.device)
-        off_road = torch.zeros(m, dtype=torch.bool, device=matrix.device)
+        boundary_step = torch.full(rows, -1, dtype=torch.int32, device=matrix.device)
+        boundary_harm = torch.zeros(rows, dtype=matrix.dtype, device=matrix.device)
+        off_road = torch.zeros(rows, dtype=torch.bool, device=matrix.device)
 
     selectable = ro.feasible & ro.valid & ~collides & ~off_road & valid_mask
     masked_cost = torch.where(selectable, cost, torch.full_like(cost, _BIG))
     # torch.argmin returns the FIRST minimal index on CPU and CUDA alike, so
-    # exact ties resolve to the lowest candidate index
-    best_idx = torch.argmin(masked_cost).to(torch.int32)
-    found = torch.any(selectable)
+    # exact ties resolve to the lowest candidate index (per agent)
+    best_idx = torch.argmin(masked_cost, dim=-1).to(torch.int32)
+    found = torch.any(selectable, dim=-1)
 
-    histogram = torch.sum(ro.inf_slots & valid_mask[:, None], dim=0).to(torch.int32)
+    histogram = torch.sum(ro.inf_slots & valid_mask[..., None], dim=-2).to(torch.int32)
 
     return CycleResult(
         rollout=ro,
@@ -150,7 +158,10 @@ def context_from_numpy(*, ref, veh, weights, preds, obstacle_xy, obstacle_valid,
     """The port's CycleContext from the JAX CycleContext's leaves as numpy
     arrays (or anything `np.asarray` takes): `ref` a RefPathTable, `veh` a
     VehicleParams-like named tuple, `preds` a PredictionTensors-like named
-    tuple or dict.  Float leaves become `dtype`, masks bool, on `device`."""
+    tuple or dict.  Float leaves become `dtype`, masks bool, on `device`.
+    The leaves of an agent-stacked JAX context (tables (A, R, ...),
+    predictions (A, O, T, ...), scalars (A,), shared `veh` and `weights`)
+    give the port's stacked context the same way."""
     def f(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 

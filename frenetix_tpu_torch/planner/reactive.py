@@ -10,7 +10,13 @@ PyTorch port of `frenetix_tpu/planner/reactive.py`.  Per replanning cycle it
      [found, best_idx, feasible, collisions, off_road, histogram...], the
      selected candidate's 12 state rows and a [cost, cost_terms...] row,
   4. when nothing is selectable, applies the fallback ladder: standstill
-     (v <= 0.1) → emergency stopping selection.
+     (v <= 0.1) → emergency stopping selection, or with
+     `planning.emergency_mode = "min_risk"` the feasible candidate of lowest
+     ego_risk + obst_risk over the full harm × collision-probability model
+     (`risk.costs.trajectory_risks`, on the device for all candidates).
+
+With `debug.log_risk` every selected trajectory carries its ego and obstacle
+risk.
 
 Features this slice does not carry raise NotImplementedError at
 construction, naming the ROADMAP.md slice that brings them.
@@ -23,11 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from frenetix_tpu.geometry.corridor import corridor_from_polygons, strip_corridor
-from frenetix_tpu.geometry.refpath import RefPathTable, prepare_reference_path
-from frenetix_tpu.ops import sampling as smp
+from frenetix_tpu_torch.geometry.corridor import corridor_from_polygons, strip_corridor
+from frenetix_tpu_torch.geometry.refpath import RefPathTable, prepare_reference_path
+from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, empty_predictions
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+from frenetix_tpu_torch.risk.costs import trajectory_risks
+from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 
 __all__ = ["PlannedTrajectory", "ReactivePlanner", "wants_stopping_mode"]
@@ -37,13 +45,8 @@ def _unsupported_features(config: FrenetixConfig) -> list[str]:
     """Enabled features of `config` that the port does not carry yet, each
     with the ROADMAP.md slice that brings it."""
     out = []
-    if config.planning.emergency_mode != "stopping":
-        out.append(f"planning.emergency_mode={config.planning.emergency_mode!r} "
-                   "(min_risk: slice 3)")
     if config.cost_weights.get("responsibility", 0.0) != 0.0:
-        out.append("cost_weights.responsibility != 0 (responsibility: slice 3)")
-    if config.debug.log_risk:
-        out.append("debug.log_risk (risk stack: slice 3)")
+        out.append("cost_weights.responsibility != 0 (responsibility: slice 3b)")
     if config.occlusion.use_occlusion_module:
         out.append("occlusion.use_occlusion_module (occlusion: slice 4)")
     if config.behavior.use_behavior_planner:
@@ -82,8 +85,11 @@ class PlannedTrajectory:
     d_ddot: np.ndarray
     cost: float
     sampling_parameters: np.ndarray  # (13,)
-    mode: str = "optimal"  # optimal | stopping_plan | standstill | stopping
+    mode: str = "optimal"  # optimal | stopping_plan | standstill | stopping | min_risk
     cost_terms: Optional[np.ndarray] = None
+    # set when debug.log_risk is on and there are predicted obstacles
+    ego_risk: Optional[float] = None
+    obst_risk: Optional[float] = None
 
 
 _STATE_ROWS = ("x", "y", "theta_gl", "v", "a", "kappa_gl",
@@ -139,6 +145,10 @@ class ReactivePlanner:
         if unsupported:
             raise NotImplementedError(
                 "not yet ported to frenetix_tpu_torch: " + "; ".join(unsupported))
+        if config.planning.emergency_mode not in ("stopping", "min_risk"):
+            raise ValueError(
+                f"planning.emergency_mode={config.planning.emergency_mode!r}: "
+                "expected 'stopping' or 'min_risk'")
         if config.planning.sampling_min >= config.planning.sampling_max:
             raise ValueError(
                 f"planning.sampling_min ({config.planning.sampling_min}) must "
@@ -160,6 +170,7 @@ class ReactivePlanner:
         self.ref_np = None
         self.corridor = None
         self.preds = None
+        self.obstacle_meta = None
         self.obstacle_xy = np.zeros((0, 2), self.np_dtype)
         self.obstacle_valid = np.zeros((0,), bool)
         self.desired_velocity = 0.0
@@ -201,8 +212,12 @@ class ReactivePlanner:
                                              device=self.device)
             self.lane_valid = torch.zeros((0,), dtype=torch.bool, device=self.device)
 
-    def set_predictions(self, preds):
+    def set_predictions(self, preds, obstacle_meta=None):
+        """`obstacle_meta`: a risk.harm.ObstacleMeta for the rows of `preds`;
+        without one the risk stack infers mass and protection from the
+        footprints."""
         self.preds = preds
+        self.obstacle_meta = obstacle_meta
 
     def set_obstacles(self, obstacle_xy: np.ndarray, obstacle_valid: np.ndarray):
         self.obstacle_xy = obstacle_xy.astype(self.np_dtype)
@@ -320,9 +335,35 @@ class ReactivePlanner:
         ro = last_res.rollout
         feas = (ro.feasible & ro.valid).cpu().numpy() & last_mask
         if feas.any():
-            idx = self._select_stopping_index(last_matrix, feas, x_cl[1][0])
-            return self._materialize(last_res, idx, last_matrix, "stopping")
+            if p.emergency_mode == "stopping":
+                idx = self._select_stopping_index(last_matrix, feas, x_cl[1][0])
+                return self._materialize(last_res, idx, last_matrix, "stopping")
+            # minimum-risk selection: lowest ego_risk + obst_risk among the
+            # feasible candidates, first index on ties
+            total, risks = self._risk_totals(ro)
+            total = torch.where(self._tensor(feas, torch.bool), total,
+                                torch.full_like(total, torch.inf))
+            return self._materialize(last_res, int(torch.argmin(total)),
+                                     last_matrix, "min_risk", risks=risks)
         return None
+
+    # ------------------------------------------------------------------ risk
+    def _default_meta(self, preds):
+        """The obstacles' crash metadata: what `set_predictions` was given,
+        else mass and protection class inferred from the footprints."""
+        if self.obstacle_meta is not None:
+            return self.obstacle_meta
+        return meta_from_footprint(preds.lengths, preds.widths)
+
+    def _risk_totals(self, ro):
+        """((M,) ego_risk + obst_risk on the device, the TrajectoryRisks) of
+        a rollout; zeros and None without predicted obstacles."""
+        preds = self.preds
+        if preds is None or preds.num_obstacles == 0:
+            return torch.zeros(ro.x.shape[0], dtype=self.dtype,
+                               device=self.device), None
+        risks = trajectory_risks(ro, preds, self._default_meta(preds), self.veh.mass)
+        return risks.ego_risk + risks.obst_risk, risks
 
     def _stopping_matrix(self, level: int, x_cl):
         """End-position-constrained sampling matrix t1 × s1 × d1 with end
@@ -392,24 +433,29 @@ class ReactivePlanner:
         )
 
     # ---------------------------------------------------------- materialization
-    def _materialize(self, res, idx: int, matrix, mode: str) -> PlannedTrajectory:
-        """Candidate `idx` to the host in one copy."""
+    def _materialize(self, res, idx: int, matrix, mode: str,
+                     risks=None) -> PlannedTrajectory:
+        """Candidate `idx` to the host in one copy; `risks`, when the caller
+        already has the rollout's TrajectoryRisks, saves `log_risk` from
+        computing them again."""
         n1 = res.rollout.x.shape[1]
         length = max(n1, 1 + res.cost_terms.shape[1])
         index = torch.tensor([idx], device=self.device)
         rows = torch.stack(_selected_rows(res, index, length))
         return self._plan_from_rows(rows.cpu().numpy().astype(self.np_dtype),
-                                    res, idx, matrix, mode)
+                                    res, idx, matrix, mode, risks=risks)
 
     def _plan_from_rows(self, rows, res, idx: int, matrix,
-                        mode: str) -> PlannedTrajectory:
-        """PlannedTrajectory from host rows: 12 state rows + [cost, terms...]."""
+                        mode: str, risks=None) -> PlannedTrajectory:
+        """PlannedTrajectory from host rows: 12 state rows + [cost, terms...].
+        With `debug.log_risk` and predicted obstacles, the selected
+        candidate's risks come from the full risk stack over the rollout."""
         k = res.cost_terms.shape[1]
         n1 = res.rollout.x.shape[1]
         (x, y, theta, v, a_, kappa, s, s_dot, s_ddot, d, d_dot, d_ddot) = (
             r[:n1] for r in rows[:12])
         extra = rows[12]
-        return PlannedTrajectory(
+        plan = PlannedTrajectory(
             x=x, y=y, theta=theta, v=v, a=a_, kappa=kappa,
             s=s, s_dot=s_dot, s_ddot=s_ddot,
             d=d, d_dot=d_dot, d_ddot=d_ddot,
@@ -418,3 +464,10 @@ class ReactivePlanner:
             mode=mode,
             cost_terms=extra[1:1 + k],
         )
+        if (self.config.debug.log_risk and self.preds is not None
+                and self.preds.num_obstacles > 0):
+            if risks is None:
+                _, risks = self._risk_totals(res.rollout)
+            pair = torch.stack([risks.ego_risk[idx], risks.obst_risk[idx]])
+            plan.ego_risk, plan.obst_risk = (float(v) for v in pair.cpu())
+        return plan

@@ -1,0 +1,93 @@
+"""Where a cycle's time goes on the card: kernels per call, device busy time,
+idle share and the heaviest kernels, from `torch.profiler`.
+
+    python -m frenetix_tpu_torch.profile_cycle [--calls 10] [--top 8]
+
+Profiles, in float32 on the CUDA device, each over `--calls` calls after a
+warm-up: the dense cycle (34,816 candidates), one simulation-sized cycle
+(M = 1024), the batched cycle of 8 agents (A = 8, M = 1024) and the risk
+stack on a simulation-sized rollout (4 obstacles).  The profiler slows the
+host, so the wall time it reports per call is longer than an unprofiled
+call's; device times per kernel are not affected.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from frenetix_tpu_torch import default_device
+from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
+from frenetix_tpu_torch.planner.core import evaluate_cycle
+from frenetix_tpu_torch.risk.costs import trajectory_risks
+from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch.workloads import dense_cycle_problem, stacked_cycle_problem
+
+
+def profile_calls(name, fn, calls, top, card):
+    """Print one summary line and the `top` heaviest kernels of `fn`."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    by_kernel = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_kernel.get(ev.name, (0, 0.0))
+            by_kernel[ev.name] = (n + 1, us + ev.device_time)
+    launches = sum(n for n, _ in by_kernel.values()) / calls
+    busy_ms = sum(us for _, us in by_kernel.values()) / 1e3 / calls
+    print(f"[profile] {name}: {launches:.0f} kernels per call, device busy "
+          f"{busy_ms:.3f} ms per call, profiled wall {wall_ms:.3f} ms per call, "
+          f"idle share {1.0 - busy_ms / wall_ms:.2f} [{card}]")
+    for kernel, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"    {us / 1e3 / calls:8.4f} ms  {n / calls:6.1f}x  "
+              f"{100.0 * us / 1e3 / calls / busy_ms:5.1f}%  {kernel[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--top", type=int, default=8)
+    args = ap.parse_args(argv)
+    dev = default_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+    matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, torch.float32)
+    profile_calls("dense cycle M=34816", lambda: evaluate_cycle(
+        matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False),
+        args.calls, args.top, card)
+
+    matrices, masks, sctx, ctxs, dt, n_steps = stacked_cycle_problem(
+        8, dev, torch.float32, m_bucket=1024, spread=12.0, ragged=True)
+    profile_calls("simulation-sized cycle M=1024", lambda: evaluate_cycle(
+        matrices[0], masks[0], ctxs[0], dt=dt, n_steps=n_steps, low_vel_mode=False),
+        args.calls, args.top, card)
+    batched = batched_full_cycle(dt=dt, n_steps=n_steps)
+    profile_calls("batched cycle A=8 M=1024", lambda: batched(matrices, masks, sctx),
+                  args.calls, args.top, card)
+
+    res = evaluate_cycle(matrices[0], masks[0], ctxs[0], dt=dt, n_steps=n_steps,
+                         low_vel_mode=False)
+    preds = ctxs[0].preds
+    profile_calls("risk stack M=1024 O=4", lambda: trajectory_risks(
+        res.rollout, preds, meta_from_footprint(preds.lengths, preds.widths),
+        ctxs[0].veh.mass), args.calls, args.top, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

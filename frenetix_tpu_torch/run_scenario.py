@@ -1,15 +1,18 @@
-"""Command line: run single-agent scenarios through the PyTorch port.
+"""Command line: run scenarios through the PyTorch port.
 
 Usage:
     python -m frenetix_tpu_torch.run_scenario PATH_OR_FAMILY [...]
-        [--device cuda|cpu] [--config-dir DIR]
+        [--device cuda|cpu] [--config-dir DIR] [--multiagent]
+        [--batched-agents]
 
 Each argument is a CommonRoad XML file, a directory of them, or the name of
-a synthetic scenario family of `frenetix_tpu/io/scenario_factory.py`
-(highway, curve, s_curve, overtake, lane_change).  One status row per
-scenario goes to stdout; the exit code is 0 when every agent reached its
-goal.  `--device cuda` without a CUDA device raises; it never falls back to
-the CPU.
+a synthetic scenario family of `frenetix_tpu_torch/io/scenario_factory.py`
+(every `make_<family>` there: highway, curve, s_curve, overtake, lane_change,
+convoy, ...).  `--multiagent` turns every dynamic obstacle into a planning
+agent; `--batched-agents` evaluates all agents' cycles in one device pass.
+One status row per agent goes to stdout; the exit code is 0 when every agent
+reached its goal.  `--device cuda` without a CUDA device raises; it never
+falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -19,22 +22,21 @@ import sys
 
 import torch
 
+from frenetix_tpu_torch.io import scenario_factory
+from frenetix_tpu_torch.io.commonroad import load_scenario
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
 
 __all__ = ["FAMILIES", "load_target", "resolve_device", "run_scenarios", "main"]
 
-FAMILIES = ("highway", "curve", "s_curve", "overtake", "lane_change")
+FAMILIES = tuple(sorted(name[len("make_"):] for name in dir(scenario_factory)
+                        if name.startswith("make_")))
 
 
 def load_target(target: str):
     """A Scenario from an XML path or a scenario-family name."""
     if target in FAMILIES:
-        from frenetix_tpu.io import scenario_factory
-
         return getattr(scenario_factory, f"make_{target}")()
-    from frenetix_tpu.io.commonroad import load_scenario
-
     return load_scenario(target)
 
 
@@ -69,10 +71,19 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     ap.add_argument("--config-dir", default=None,
                     help="directory of YAML config files (needs PyYAML)")
+    ap.add_argument("--multiagent", action="store_true",
+                    help="convert dynamic obstacles into planning agents")
+    ap.add_argument("--batched-agents", action="store_true",
+                    help="multi-agent: evaluate ALL agents' cycles in one "
+                         "batched device pass (parallel.batched_sim)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     config = load_config(args.config_dir)
+    if args.multiagent:
+        config.simulation.start_multiagent = True
+    if args.batched_agents:
+        config.simulation.batched_device_agents = True
     targets = []
     for path in args.scenarios:
         if os.path.isdir(path):

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from frenetix_tpu.io.commonroad import _point_in_ring
+from frenetix_tpu_torch.io.commonroad import _point_in_ring
 from frenetix_tpu_torch.planner.initial_state import CartesianState, compute_initial_state_np
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, ReactivePlanner
 from frenetix_tpu_torch.planner.route import reference_path_for_problem
@@ -52,6 +52,8 @@ class EgoState:
 class AgentRecord:
     states: list = field(default_factory=list)        # executed EgoStates
     planning_times: list = field(default_factory=list)
+    # (wall time of the batched pass, agents in it) per batched replan
+    batch_planning_times: list = field(default_factory=list)
 
 
 class Agent:
@@ -195,6 +197,11 @@ class Agent:
                 ra.velocity < self.config.planning.low_vel_mode_threshold,
             )
         return self.x_cl
+
+    def apply_external_plan(self, plan) -> None:
+        """Accept a plan computed by the batched stepper."""
+        self.current_plan = plan
+        self.plan_step = 0
 
     def update_planner(self, predictions, obstacle_xy, obstacle_valid):
         """Feed one cycle's predictions, obstacles and desired velocity."""

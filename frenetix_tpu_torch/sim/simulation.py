@@ -1,14 +1,21 @@
-"""Single-agent simulation: scenario + config → stepped agent → result.
+"""Simulation: scenario + config → stepped agents → result.
 
-PyTorch port of the sequential host loop of `frenetix_tpu/sim/simulation.py`
+PyTorch port of the host loop of `frenetix_tpu/sim/simulation.py`
 (`Simulation.run`): per step a global prediction from the same pre-step
-snapshot, sensor filtering, one replanning step of the agent on the device,
-then the agent-vs-obstacle and road-departure checks on the host.
+snapshot, per agent sensor filtering and the other live agents added as
+predicted obstacles (their current plans in ground-truth mode), then the
+agents' replanning on the device, and the agent-vs-obstacle, agent-vs-agent
+and road-departure checks on the host.
 
-Multi-agent runs, the batched and device-resident paths, Wale-Net
-predictions, visible-area occlusion and plotting are not ported yet; a
-config or scenario that asks for them raises NotImplementedError naming the
-ROADMAP.md slice that brings them.
+Multi-agent runs (`simulation.start_multiagent`, or a scenario with several
+planning problems) step the agents one after the other, or with
+`simulation.batched_device_agents` all replanning agents in one device pass
+(`parallel.batched_sim.BatchedAgentStepper`) with ONE device→host copy per
+densification level.
+
+The sharded and device-resident paths, Wale-Net predictions, visible-area
+occlusion and plotting are not ported yet; a config that asks for them raises
+NotImplementedError naming the ROADMAP.md slice that brings them.
 """
 from __future__ import annotations
 
@@ -19,9 +26,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from frenetix_tpu_torch import default_device
+from frenetix_tpu_torch.io.commonroad import GoalCondition, PlanningProblem, State
+from frenetix_tpu_torch.ops import sampling as smp
+from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
+from frenetix_tpu_torch.planner.reactive import PlannedTrajectory
 from frenetix_tpu_torch.sim.agent import Agent, AgentStatus
 from frenetix_tpu_torch.sim.prediction import (
-    constant_velocity_predictions, ground_truth_predictions, to_device,
+    constant_velocity_predictions, extrapolate_constant_velocity,
+    ground_truth_predictions, to_device,
 )
 from frenetix_tpu_torch.sim.sensor_model import visible_obstacles
 from frenetix_tpu_torch.utils.config import FrenetixConfig
@@ -50,10 +63,8 @@ def _obb_overlap_np(c1, th1, h1, c2, th2, h2) -> bool:
 def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
     sim = config.simulation
     out = []
-    if sim.start_multiagent or len(scenario.planning_problems) != 1:
-        out.append("multi-agent simulation (slice 2)")
-    if sim.batched_device_agents or sim.sharded_device_agents:
-        out.append("batched/sharded agent cycles (slices 2 and 7)")
+    if sim.sharded_device_agents:
+        out.append("simulation.sharded_device_agents (multi-GPU: slice 7)")
     if sim.device_resident_sim:
         out.append("simulation.device_resident_sim (slice 6)")
     if config.prediction.mode not in ("ground_truth", "constant_velocity"):
@@ -80,14 +91,16 @@ class SimulationResult:
 
 class Simulation:
     def __init__(self, scenario, config: Optional[FrenetixConfig] = None,
-                 device: torch.device = torch.device("cpu")):
+                 device: Optional[torch.device] = None):
+        """`device` defaults to the CUDA device (`default_device()`, which
+        raises where there is none); pass torch.device("cpu") to run there."""
         self.scenario = scenario
         self.config = config or FrenetixConfig()
         unsupported = _unsupported(self.config, scenario)
         if unsupported:
             raise NotImplementedError(
                 "not yet ported to frenetix_tpu_torch: " + "; ".join(unsupported))
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else default_device()
         self.dtype = torch.float64 if self.config.dtype == "float64" else torch.float32
         self.np_dtype = np.float64 if self.config.dtype == "float64" else np.float32
         self.dt = self.config.planning.dt
@@ -102,7 +115,64 @@ class Simulation:
             Agent(pid, pp, scenario, self.config, self.device)
             for pid, pp in scenario.planning_problems.items()
         ]
+        if self.config.simulation.start_multiagent:
+            self._create_obstacle_agents()
         self.agent_obstacle_ids = {a.id for a in self.agents}
+        self._peer_rows_cache = None
+        self._batched_stepper = None
+        self._batched_max_m = 0
+
+    # ----------------------------------------------------------- multi-agent
+    def _create_obstacle_agents(self):
+        """Convert dynamic obstacles into planning agents; the goal region is
+        an 8 m × 4 m box around the obstacle's final trajectory state."""
+        sim_cfg = self.config.simulation
+        n_wanted = sim_cfg.number_of_agents
+        candidates = self.scenario.dynamic_obstacles
+        if sim_cfg.use_specific_agents:
+            wanted = set(sim_cfg.agent_ids)
+            candidates = [ob for ob in candidates if ob.obstacle_id in wanted]
+        elif n_wanted >= 0:
+            if sim_cfg.select_agents_randomly and n_wanted < len(candidates):
+                # fresh entropy unless agent_selection_seed pins the sample
+                rng = np.random.default_rng(sim_cfg.agent_selection_seed)
+                pick = sorted(rng.choice(len(candidates), size=n_wanted,
+                                         replace=False).tolist())
+                candidates = [candidates[i] for i in pick]
+            else:
+                candidates = candidates[:n_wanted]
+        for ob in candidates:
+            if ob.obstacle_type not in ("car", "truck", "bus"):
+                continue
+            if not ob.trajectory:
+                continue
+            final = ob.trajectory[-1]
+            ang = final.orientation
+            ca, sa = np.cos(ang), np.sin(ang)
+            rot = np.array([[ca, -sa], [sa, ca]])
+            half = np.array([[4.0, 2.0], [4.0, -2.0], [-4.0, -2.0], [-4.0, 2.0]])
+            goal = GoalCondition(
+                position_shape=(half @ rot.T) + final.position,
+                time_interval=(0, final.time_step + 20),
+                velocity_interval=None,
+            )
+            init = ob.initial_state
+            pp = PlanningProblem(
+                problem_id=ob.obstacle_id,
+                initial_state=State(
+                    time_step=init.time_step, position=init.position,
+                    orientation=init.orientation, velocity=init.velocity,
+                    acceleration=init.acceleration,
+                ),
+                goals=[goal],
+            )
+            try:
+                self.agents.append(
+                    Agent(ob.obstacle_id, pp, self.scenario, self.config, self.device))
+            except ValueError:
+                # no route or reference path for this obstacle: it stays a
+                # scenario obstacle and the simulation goes on
+                continue
 
     # ----------------------------------------------------------- predictions
     def _visible_obstacle_ids(self, t: int, exclude: set) -> list[int]:
@@ -154,14 +224,136 @@ class Simulation:
                 pd["valid"][k] = False
         return pd
 
+    def _peer_future(self, a: Agent, t: int, horizon: int):
+        """The future of one live peer agent as the others see it.
+
+        ground_truth: the remainder of the peer's current plan, converted
+          rear axle → center and truncated at the plan's end; before the
+          first plan exists (step 0) the converted obstacle's recorded
+          trajectory; constant-velocity extrapolation only when neither
+          exists (an ego planning problem with no recorded trajectory).
+        constant_velocity: extrapolate the current pose.
+
+        Returns (means (H, 2), orientations (H,), velocities (H,), valid (H,),
+        cov (2, 2)); invalid tail rows repeat the last valid pose."""
+        mode = self.config.prediction.mode
+        st = a.state
+        means = np.zeros((horizon, 2))
+        orient = np.full(horizon, float(st.orientation))
+        vel = np.full(horizon, float(st.velocity))
+        valid = np.zeros(horizon, bool)
+        cov_pos = self.config.prediction.cov_pos
+
+        if mode == "ground_truth":
+            plan = a.current_plan
+            if plan is not None:
+                wb = self.config.vehicle.wb_rear_axle
+                n = len(plan.x)
+                for i in range(horizon):
+                    j = a.plan_step + 1 + i
+                    if j >= n:
+                        break
+                    th = float(plan.theta[j])
+                    means[i] = (plan.x[j] + wb * np.cos(th),
+                                plan.y[j] + wb * np.sin(th))
+                    orient[i] = th
+                    vel[i] = float(plan.v[j])
+                    valid[i] = True
+            else:
+                ob = self.scenario.obstacles.get(a.id)
+                if ob is not None:
+                    for i in range(horizon):
+                        s = ob.state_at_time(t + 1 + i)
+                        if s is None:
+                            break
+                        means[i] = s.position
+                        orient[i] = float(s.orientation)
+                        vel[i] = float(s.velocity)
+                        valid[i] = True
+            cov = np.eye(2) * cov_pos
+            if valid.any():
+                n_v = int(valid.sum())
+                means[n_v:] = means[n_v - 1]
+                orient[n_v:] = orient[n_v - 1]
+                vel[n_v:] = vel[n_v - 1]
+                return means, orient, vel, valid, cov
+
+        means = extrapolate_constant_velocity(
+            st.position, st.orientation, st.velocity, horizon, self.dt)
+        valid[:] = True
+        cov = np.eye(2) * (cov_pos if mode == "ground_truth" else max(cov_pos, 0.1))
+        return means, orient, vel, valid, cov
+
+    def _peer_rows_for_step(self, t: int) -> dict:
+        """Every live agent's peer-visible prediction row, computed once per
+        step and cached; observers then take all rows but their own."""
+        cached = self._peer_rows_cache
+        if cached is not None and cached[0] == t:
+            return cached[1]
+        horizon = self.config.prediction.horizon_steps
+        dtype = self.np_dtype
+        rows = {}
+        for a in self.agents:
+            if a.status not in (AgentStatus.IDLE, AgentStatus.RUNNING):
+                continue
+            means, orient, vel, valid, cov = self._peer_future(a, t, horizon)
+            rows[a.id] = dict(
+                means=means.astype(dtype),
+                orientations=orient.astype(dtype),
+                velocities=vel.astype(dtype), valid=valid,
+                covs=np.broadcast_to(cov.astype(dtype), (horizon, 2, 2)),
+                inv_covs=np.broadcast_to(np.linalg.inv(cov).astype(dtype),
+                                         (horizon, 2, 2)))
+        self._peer_rows_cache = (t, rows)
+        return rows
+
+    def _augment_with_agents(self, pd, for_agent: Agent):
+        """The other live agents as predicted obstacles (`_peer_future`).
+        Terminated agents are left out: they have left the world.  When the
+        fixed tensor width leaves too few free rows, the scenario obstacles
+        farthest from the observer are evicted, so that no peer is dropped."""
+        others = [
+            a for a in self.agents
+            if a.id != for_agent.id
+            and a.status in (AgentStatus.IDLE, AgentStatus.RUNNING)
+        ]
+        if not others:
+            return pd
+        free = list(np.where(~pd["valid"].any(axis=1))[0])
+        if len(free) < len(others):
+            valid_rows = np.where(pd["valid"].any(axis=1))[0]
+            dist = np.linalg.norm(
+                pd["means"][valid_rows, 0] - np.asarray(for_agent.state.position)[None],
+                axis=1,
+            )
+            need = len(others) - len(free)
+            for row in valid_rows[np.argsort(dist)[::-1][:need]]:
+                pd["valid"][row] = False
+                free.append(int(row))
+        rows = self._peer_rows_for_step(int(for_agent.state.time_step))
+        for a, slot in zip(others, free):
+            r = rows[a.id]
+            pd["means"][slot] = r["means"]
+            pd["orientations"][slot] = r["orientations"]
+            pd["velocities"][slot] = r["velocities"]
+            pd["covs"][slot] = r["covs"]
+            pd["inv_covs"][slot] = r["inv_covs"]
+            pd["lengths"][slot] = self.config.vehicle.length + 0.5
+            pd["widths"][slot] = self.config.vehicle.width + 0.2
+            pd["valid"][slot] = r["valid"]
+        return pd
+
     def _agent_predictions(self, pd_base, ids, agent):
-        """One agent's predictions: a copy of the global step, sensor-filtered."""
+        """One agent's predictions: a copy of the global step, sensor-filtered,
+        with the other live agents added.  The one definition shared by the
+        sequential and the batched path."""
         pd = {k: v.copy() for k, v in pd_base.items()}
-        return self._filter_for_agent(pd, ids, agent)
+        pd = self._filter_for_agent(pd, ids, agent)
+        return self._augment_with_agents(pd, agent)
 
     # ------------------------------------------------------------- collisions
     def _check_collisions(self, t: int):
-        """Agent-vs-obstacle OBB checks at step t."""
+        """Agent-vs-obstacle and agent-vs-agent OBB checks at step t."""
         veh = self.config.vehicle
         h_agent = (veh.length / 2.0, veh.width / 2.0)
         for a in self.agents:
@@ -179,6 +371,163 @@ class Simulation:
                 ):
                     a.set_collision()
                     break
+            if a.status == AgentStatus.COLLISION:
+                continue
+            for b in self.agents:
+                # terminated agents have left the world
+                if b.id == a.id or b.status not in (AgentStatus.IDLE,
+                                                    AgentStatus.RUNNING):
+                    continue
+                if _obb_overlap_np(
+                    a.state.position, a.state.orientation, h_agent,
+                    b.state.position, b.state.orientation, h_agent,
+                ):
+                    a.set_collision()
+                    break
+
+    # ---------------------------------------------------------- batched step
+    def _step_agents_batched(self, running, pd_base, ids):
+        """All replanning agents' cycles in one device pass per sampling
+        level; per-agent host work is bookkeeping and executing the selected
+        state."""
+        if self._batched_stepper is None:
+            from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
+
+            self._batched_stepper = BatchedAgentStepper(
+                self.config, self.agents, self.device)
+            self._batched_weights = torch.as_tensor(
+                np.array([self.config.cost_weights.get(k, 0.0)
+                          for k in COST_TERM_ORDER]),
+                dtype=self.dtype, device=self.device)
+        stepper = self._batched_stepper
+        active = [a for a in running if a.pre_step() == AgentStatus.RUNNING]
+        if not active:
+            return
+
+        low_thr = self.config.planning.low_vel_mode_threshold
+        replanners = [a for a in active if a.needs_replan()]
+        # only replanners consume predictions
+        per_pd = {a.id: self._agent_predictions(pd_base, ids, a) for a in replanners}
+        batchable = [a for a in replanners if a.state.velocity >= low_thr]
+        host_only = [a for a in replanners if a.state.velocity < low_thr]
+
+        # progressive densification stays batched: agents that miss at one
+        # sampling level run again in the next level's batch; only the
+        # fallback ladder goes to the host
+        pending = list(batchable)
+        level = self.config.planning.sampling_min
+        a_index = {a.id: i for i, a in enumerate(self.agents)}
+        n_agents = len(self.agents)
+        while pending and level < self.config.planning.sampling_max:
+            t0 = time.perf_counter()
+            mats, v_des, x0_th = {}, {}, {}
+            max_m = 0
+            for a in pending:
+                a.ensure_x_cl()
+                a.planner.current_velocity = float(a.state.velocity)
+                t1, ss1, d1 = a.planner._sampling_ranges(level, a.x_cl)
+                m = smp.build_sampling_matrix(
+                    t1_vals=t1, ss1_vals=ss1, d1_vals=d1,
+                    x0_lon=a.x_cl[0], x0_lat=a.x_cl[1], dtype=self.np_dtype,
+                )
+                mats[a.id] = m
+                v_des[a.id] = a.desired_velocity()
+                x0_th[a.id] = a.state.orientation
+                max_m = max(max_m, len(m))
+            bucket = self.config.debug.matrix_bucket
+            max_m = ((max_m + bucket - 1) // bucket) * bucket
+            # never shrink: the batch keeps one shape over the run
+            max_m = max(max_m, self._batched_max_m)
+            self._batched_max_m = max_m
+
+            all_mats = np.zeros((n_agents, max_m, 13), self.np_dtype)
+            all_masks = np.zeros((n_agents, max_m), bool)
+            all_vdes = np.zeros(n_agents, self.np_dtype)
+            all_th = np.zeros(n_agents, self.np_dtype)
+            pred_list = []
+            for i, a in enumerate(self.agents):
+                if a.id in mats:
+                    m, msk = smp.pad_matrix(mats[a.id], max_m)
+                    all_mats[i] = m[:max_m]
+                    all_masks[i] = msk[:max_m]
+                    all_vdes[i] = v_des[a.id]
+                    all_th[i] = x0_th[a.id]
+                    pred_list.append(per_pd[a.id])
+                else:
+                    # an agent that does not replan rides along with harmless
+                    # rows and an all-False mask; its `found` comes back False
+                    all_mats[i] = all_mats[i - 1] if i else 0.001
+                    all_mats[i, :, 1] = 1.0
+                    pred_list.append(pd_base)
+            preds_stacked = to_device(
+                {k: np.stack([pd[k] for pd in pred_list]) for k in pd_base},
+                self.device, self.dtype)
+            out, poses_all = stepper.step(
+                all_mats, all_masks, preds_stacked, all_th, all_vdes,
+                self.config.vehicle, self._batched_weights,
+            )
+            # the agents' next poses stay on the device for a caller that
+            # rebuilds obstacle tensors there (mesh.agent_pose_predictions)
+            self._last_poses_all = poses_all
+            out = self._fetch_selection(out)   # the ONE copy of this level
+            batch_time = time.perf_counter() - t0
+            still_pending = []
+            for a in pending:
+                i = a_index[a.id]
+                # one pass covers the whole batch: record its wall time and
+                # size, and the amortised share
+                a.record.batch_planning_times.append((batch_time, len(pending)))
+                a.record.planning_times.append(batch_time / max(len(pending), 1))
+                if out["found"][i]:
+                    def g(k):
+                        return np.asarray(out[k][i], dtype=self.np_dtype)
+
+                    a.apply_external_plan(PlannedTrajectory(
+                        x=g("x"), y=g("y"), theta=g("theta"), v=g("v"),
+                        a=g("a"), kappa=g("kappa"), s=g("s"), s_dot=g("s_dot"),
+                        s_ddot=g("s_ddot"), d=g("d"), d_dot=g("d_dot"),
+                        d_ddot=g("d_ddot"), cost=float(out["cost"][i]),
+                        sampling_parameters=all_mats[i, int(out["best"][i])],
+                        mode="optimal", cost_terms=g("terms"),
+                    ))
+                else:
+                    still_pending.append(a)
+            pending = still_pending
+            level += 1
+        host_only.extend(pending)   # all levels missed → host fallback ladder
+
+        # host path: low-velocity agents and batched misses
+        for a in host_only:
+            pd = per_pd[a.id]
+            a.current_plan = None
+            a.step(to_device(pd, self.device, self.dtype),
+                   pd["means"][:, 0], pd["valid"][:, 0])
+
+        # everyone else executes the next planned state
+        done_ids = {a.id for a in host_only}
+        for a in active:
+            if a.id not in done_ids:
+                a.execute_next_state()
+
+    @staticmethod
+    def _fetch_selection(out: dict) -> dict:
+        """The whole selection dict in ONE device→host copy: every field is
+        flattened per agent into one (A, L) tensor (indices, counters and
+        flags are < 2^24 and survive float32 exactly), copied, and split
+        again on the host."""
+        dtype = out["x"].dtype
+        keys = list(out)
+        parts = [out[k].to(dtype).reshape(out[k].shape[0], -1) for k in keys]
+        widths = [p.shape[1] for p in parts]
+        flat = torch.cat(parts, dim=1).cpu().numpy()
+        host, col = {}, 0
+        for k, w in zip(keys, widths):
+            block = flat[:, col:col + w]
+            col += w
+            host[k] = block[:, 0] if out[k].dim() == 1 else block
+        host["found"] = host["found"] != 0
+        host["best"] = host["best"].astype(np.int64)
+        return host
 
     def _check_road_departure(self):
         """An agent whose vehicle center lies outside every lanelet has left
@@ -202,10 +551,18 @@ class Simulation:
             if not running:
                 break
             pd_base, ids = self._predictions_for_step(t)
-            for a in running:
-                pd = self._agent_predictions(pd_base, ids, a)
-                a.step(to_device(pd, self.device, self.dtype),
-                       pd["means"][:, 0], pd["valid"][:, 0])
+            if self.config.simulation.batched_device_agents and len(self.agents) > 1:
+                self._step_agents_batched(running, pd_base, ids)
+            else:
+                # every agent's predictions from the SAME pre-step snapshot,
+                # before any agent executes (lockstep; it also keeps the
+                # sequential and the batched path equal)
+                per_pd = {a.id: self._agent_predictions(pd_base, ids, a)
+                          for a in running}
+                for a in running:
+                    pd = per_pd[a.id]
+                    a.step(to_device(pd, self.device, self.dtype),
+                           pd["means"][:, 0], pd["valid"][:, 0])
             t += 1
             self._check_collisions(t)
             self._check_road_departure()

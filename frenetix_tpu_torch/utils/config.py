@@ -82,6 +82,15 @@ class SimulationConfig:
     sharded_device_agents: bool = False
     device_resident_sim: bool = False
     check_road_boundary: bool = True     # executed off-road pose = failure
+    # multi-agent selection: with use_specific_agents exactly `agent_ids`
+    # become agents; otherwise `number_of_agents` of the dynamic obstacles
+    # (-1: all), in scenario order or a random sample
+    number_of_agents: int = -1
+    use_specific_agents: bool = False
+    agent_ids: list = field(default_factory=list)
+    select_agents_randomly: bool = False
+    # None → fresh entropy per run; an int pins the sample
+    agent_selection_seed: Optional[int] = None
 
 
 @dataclass

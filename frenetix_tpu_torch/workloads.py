@@ -5,22 +5,30 @@
 reference path (R = 868 rows at ds ≈ 0.25 m), a ±3.5 m drivable corridor,
 4 predicted obstacles ahead, and the level-5 velocity/lateral grids, i.e.
 34,320 candidates padded to M = 34,816, over N + 1 = 31 steps.
+
+`stacked_cycle_problem` is the port's counterpart of
+`bench_scaling.py::build_stacked_problem`: A agents on arcs shifted sideways,
+±4 m corridors, one shared sampling matrix (7 × 9 × 9 = 567 candidates,
+padded to the bucket), 4 predicted obstacles per agent, stacked along the
+agent axis for `parallel.mesh.batched_full_cycle`.  With `ragged=True` the
+agents' arcs differ in length, so their tables have different R and are
+padded to a common one.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from frenetix_tpu.geometry.corridor import strip_corridor
-from frenetix_tpu.geometry.refpath import prepare_reference_path
-from frenetix_tpu.ops.sampling import (
+from frenetix_tpu_torch.geometry.corridor import strip_corridor
+from frenetix_tpu_torch.geometry.refpath import prepare_reference_path
+from frenetix_tpu_torch.ops.sampling import (
     build_sampling_matrix, linspace_samples, pad_matrix, time_samples,
 )
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
 from frenetix_tpu_torch.planner.core import context_from_numpy
 
-__all__ = ["dense_cycle_problem"]
+__all__ = ["dense_cycle_problem", "stacked_cycle_problem"]
 
 N_STEPS = 30
 DT = 0.1
@@ -95,3 +103,69 @@ def dense_cycle_problem(device: torch.device, dtype=torch.float32, density=5,
     return (torch.as_tensor(matrix, dtype=dtype, device=device),
             torch.as_tensor(mask, device=device), ctx, DT, N_STEPS,
             int(mask.sum()))
+
+
+def _stacked_cycle_numpy(a: int, dtype=np.float32, n_steps: int = N_STEPS,
+                         m_bucket: int = 256, spread: float = 3.0,
+                         ragged: bool = False):
+    """Host arrays of the stacked problem: the shared (matrix, mask) and one
+    dict of context fields per agent."""
+    matrix = build_sampling_matrix(
+        t1_vals=np.round(np.arange(1.1, 3.05, 0.3), 2),
+        ss1_vals=np.linspace(5, 15, 9), d1_vals=np.linspace(-3, 3, 9),
+        x0_lon=(30.0, 10.0, 0.0), x0_lat=(0.0, 0.0, 0.0), dtype=dtype,
+    )
+    matrix, mask = pad_matrix(matrix, m_bucket)
+
+    o, t_pred = 4, n_steps
+    weights = np.zeros(len(COST_TERM_ORDER), dtype)
+    weights[COST_TERM_ORDER.index("velocity_offset")] = 1.0
+    weights[COST_TERM_ORDER.index("distance_to_reference_path")] = 5.0
+
+    agents = []
+    for i in range(a):
+        arc = np.pi / 3 * (1.0 + 0.04 * i) if ragged else np.pi / 3
+        t = np.linspace(0, arc, 300)
+        ref = prepare_reference_path(
+            np.stack([150 * np.sin(t) + spread * i, 150 * (1 - np.cos(t))], axis=1),
+            extension=20.0, dtype=dtype,
+        )
+        covs = np.tile(np.eye(2, dtype=dtype) * 0.5, (o, t_pred, 1, 1))
+        means = np.tile(np.array([60.0 + spread * i, 5.0], dtype), (o, t_pred, 1))
+        preds = dict(
+            means=means, inv_covs=np.linalg.inv(covs).astype(dtype), covs=covs,
+            orientations=np.zeros((o, t_pred), dtype),
+            velocities=np.full((o, t_pred), 8.0, dtype),
+            lengths=np.full((o,), 4.5, dtype), widths=np.full((o,), 1.8, dtype),
+            valid=np.ones((o, t_pred), bool),
+        )
+        agents.append(dict(
+            ref=ref, veh=VehicleParams(), weights=weights, preds=preds,
+            obstacle_xy=means[:, 0], obstacle_valid=preds["valid"][:, 0],
+            corridor=strip_corridor(ref, 4.0).astype(dtype),
+            lane_segments=np.zeros((0, 2, 2), dtype),
+            lane_valid=np.zeros((0,), bool),
+            x0_orientation=np.asarray(0.2, dtype),
+            desired_velocity=np.asarray(10.0, dtype),
+            desired_avg_velocity=np.asarray(10.0, dtype),
+        ))
+    return matrix, mask, agents
+
+
+def stacked_cycle_problem(a: int, device: torch.device, dtype=torch.float32,
+                          n_steps: int = N_STEPS, m_bucket: int = 256,
+                          spread: float = 3.0, ragged: bool = False):
+    """(matrices (A, M, 13), masks (A, M), stacked ctx, per-agent ctxs, dt,
+    n_steps) on `device`: the stacked context for
+    `parallel.mesh.batched_full_cycle` and the A single-agent contexts it
+    was stacked from, for the sequential `planner.core.evaluate_cycle`."""
+    from frenetix_tpu_torch.parallel.mesh import stack_cycle_contexts
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    matrix, mask, agents = _stacked_cycle_numpy(a, np_dtype, n_steps, m_bucket,
+                                                spread, ragged)
+    ctxs = [context_from_numpy(**f, device=device, dtype=dtype) for f in agents]
+    matrices = torch.as_tensor(np.tile(matrix[None], (a, 1, 1)), dtype=dtype,
+                               device=device)
+    masks = torch.as_tensor(np.tile(mask[None], (a, 1)), device=device)
+    return matrices, masks, stack_cycle_contexts(ctxs), ctxs, DT, n_steps

@@ -27,7 +27,7 @@ from frenetix_tpu_torch.ops import kinematics as tkin
 from frenetix_tpu_torch.ops import polynomials as tpoly
 from frenetix_tpu_torch.ops import table_interp
 from tests.torch_parity import (
-    assert_fields_match, curved_ref_np, ref_to_torch, t64, to_np,
+    assert_fields_match, curved_ref_np, ref_to_torch, t64, to_np, torch_rollout,
 )
 
 torch.set_num_threads(1)
@@ -275,20 +275,6 @@ def test_carry_forward_matches_sequential_loop():
 # ---------------------------------------------------------------------- costs
 
 
-def _torch_rollout(jro):
-    """The port's Rollout carrying the JAX rollout's values."""
-    fields = {}
-    for f in jro._fields:
-        v = getattr(jro, f)
-        if f == "extras":
-            fields[f] = tuple(t64(x) for x in v) if v is not None else None
-        elif f == "traj_len":
-            fields[f] = torch.as_tensor(np.array(v))
-        else:
-            fields[f] = t64(v)
-    return tkin.Rollout(**fields)
-
-
 def _cost_inputs(seed=9):
     rng = np.random.default_rng(seed)
     o, t = 3, 30
@@ -324,7 +310,7 @@ def cost_pair():
         obstacle_valid=jnp.asarray(ci["obstacle_valid"]),
         lane_segments=jnp.asarray(ci["lane_segments"]),
         lane_valid=jnp.asarray(ci["lane_valid"]), **kw)
-    tro = _torch_rollout(jro)
+    tro = torch_rollout(jro)
     tt = tcosts.compute_cost_terms(
         tro, preds=tpreds, obstacle_xy=t64(ci["obstacle_xy"]),
         obstacle_valid=t64(ci["obstacle_valid"]),

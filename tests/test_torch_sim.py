@@ -4,8 +4,11 @@
   float64 on the highway and overtake families: statuses and step counts
   equal, every executed position within 1e-9 m.
 - Config defaults equal to the JAX package's, field by field.
-- Import closure: the port, its run_scenario and chip_smoke import without
-  JAX, with a `sys.meta_path` finder that raises on `jax`.
+- Import closure: every module of the port, its run_scenario and chip_smoke
+  import with a `sys.meta_path` finder that raises on `jax`, `jaxlib` and
+  `frenetix_tpu` (the exact name; `frenetix_tpu_torch` still imports).
+- Default device: `Simulation(scenario, config)` without a device uses the
+  CUDA device and raises where there is none.
 - K1 on the card (marker `cuda`; they skip without a CUDA device).  This file
   imports JAX only inside the parity tests, so on a machine without JAX the
   card tests run with
@@ -87,22 +90,49 @@ def test_run_scenario_cuda_without_cuda_raises():
 
 
 @pytest.mark.parametrize("override", [
-    {"planning": {"emergency_mode": "min_risk"}},
+    {"simulation": {"sharded_device_agents": True}},
     {"cost_weights": {"responsibility": 0.5}},
-    {"debug": {"log_risk": True}},
+    {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
     {"occlusion": {"use_occlusion_module": True}},
     {"behavior": {"use_behavior_planner": True}},
-    {"simulation": {"start_multiagent": True}},
+    {"simulation": {"batched_device_agents": True, "device_resident_sim": True}},
     {"simulation": {"device_resident_sim": True}},
     {"prediction": {"mode": "walenet"}},
     {"prediction": {"calc_occlusions": True}},
 ])
 def test_features_outside_the_slice_raise(override):
-    from frenetix_tpu.io.scenario_factory import make_highway
+    from frenetix_tpu_torch.io.scenario_factory import make_highway
 
     cfg = tconfig.load_config(overrides=override, strict_overrides=True)
     with pytest.raises(NotImplementedError, match="slice"):
         Simulation(make_highway(), cfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("override", [
+    {"planning": {"emergency_mode": "min_risk"}},
+    {"debug": {"log_risk": True}},
+    {"simulation": {"start_multiagent": True}},
+    {"simulation": {"start_multiagent": True, "batched_device_agents": True}},
+])
+def test_features_of_this_slice_construct(override):
+    from frenetix_tpu_torch.io.scenario_factory import make_highway
+
+    cfg = tconfig.load_config(overrides=override, strict_overrides=True)
+    sim = Simulation(make_highway(), cfg, torch.device("cpu"))
+    assert len(sim.agents) == (2 if cfg.simulation.start_multiagent else 1)
+
+
+def test_simulation_defaults_to_the_card_and_raises_without_one():
+    import frenetix_tpu_torch
+    from frenetix_tpu_torch.io.scenario_factory import make_highway
+
+    if torch.cuda.is_available():
+        assert Simulation(make_highway()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        frenetix_tpu_torch.default_device()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Simulation(make_highway(), tconfig.load_config())
 
 
 # --------------------------------------------------------------------- config
@@ -143,24 +173,34 @@ def test_load_config_overrides_and_yaml_dir(tmp_path):
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+BLOCKED = ("jax", "jaxlib", "frenetix_tpu")
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 
-class BlockJax:
+class BlockReference:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, BlockReference())
 import frenetix_tpu_torch
-for mod in pkgutil.walk_packages(frenetix_tpu_torch.__path__, "frenetix_tpu_torch."):
-    importlib.import_module(mod.name)
-import frenetix_tpu_torch.run_scenario
+names = [m.name for m in pkgutil.walk_packages(frenetix_tpu_torch.__path__,
+                                               "frenetix_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
+                 "io.commonroad", "io.scenario_factory", "parallel.mesh",
+                 "parallel.batched_sim", "risk.probability", "risk.harm",
+                 "risk.costs", "run_scenario", "workloads"):
+    assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
-print("imported without jax")
+try:
+    import frenetix_tpu
+except ImportError:
+    print("imported without jax and without frenetix_tpu")
 """
 
 
@@ -169,7 +209,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "imported without jax" in proc.stdout
+    assert "imported without jax and without frenetix_tpu" in proc.stdout
 
 
 def test_kernel_build_without_nvcc_raises():
@@ -238,3 +278,30 @@ def test_dense_cycle_on_card_matches_cpu_float64(cuda_device):
     m = mask.cpu().numpy()
     np.testing.assert_allclose(res.rollout.x.cpu().numpy()[m], ref.rollout.x.numpy()[m],
                                atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_cycle_on_card_is_one_launch_and_equals_sequential(cuda_device, dtype):
+    """On the card the batched call launches K1 exactly once, on the stacked
+    table, and selects per agent what the agent's own cycle selects there
+    (bitwise equal costs: same kernel, same elementwise order)."""
+    from frenetix_tpu_torch import workloads
+    from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
+    from frenetix_tpu_torch.planner.core import evaluate_cycle
+
+    n_agents = 8
+    matrices, masks, ctx, ctxs, dt, n = workloads.stacked_cycle_problem(
+        n_agents, cuda_device, dtype, m_bucket=1024, spread=12.0, ragged=True)
+    fn = batched_full_cycle(dt=dt, n_steps=n)
+    table_interp.reset_launches()
+    out = fn(matrices, masks, ctx)
+    torch.cuda.synchronize()
+    assert table_interp.LAUNCHES == 1
+    res = evaluate_cycle(matrices, masks, ctx, dt=dt, n_steps=n, low_vel_mode=False)
+    for a in range(n_agents):
+        seq = evaluate_cycle(matrices[a], masks[a], ctxs[a], dt=dt, n_steps=n,
+                             low_vel_mode=False)
+        assert int(out["best"][a]) == int(seq.best_idx)
+        assert torch.equal(res.cost[a], seq.cost)
+    assert table_interp.LAUNCHES == 2 + n_agents

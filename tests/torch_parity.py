@@ -63,3 +63,19 @@ def curved_ref_np(n_points=600, radius=150.0, dtype=np.float64):
 
 def ref_to_torch(ref_np, dtype=torch.float64):
     return type(ref_np)(*(torch.as_tensor(np.array(f), dtype=dtype) for f in ref_np))
+
+
+def torch_rollout(jro):
+    """The port's Rollout carrying a JAX rollout's values (float64, CPU)."""
+    from frenetix_tpu_torch.ops.kinematics import Rollout
+
+    fields = {}
+    for f in jro._fields:
+        v = getattr(jro, f)
+        if f == "extras":
+            fields[f] = tuple(t64(x) for x in v) if v is not None else None
+        elif f == "traj_len":
+            fields[f] = torch.as_tensor(np.array(v))
+        else:
+            fields[f] = t64(v)
+    return Rollout(**fields)
