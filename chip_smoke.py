@@ -34,7 +34,24 @@ Phases, each printed on lines of its own:
    (1e-4 absolute), and a scenario with emergency_mode = "min_risk" whose
    planner runs the min_risk branch on the card at least once.
 
-Each path (phases 4 to 8) is driven with K1's launch count set to 0 just
+9. responsibility: the highway with start_multiagent and
+   cost_weights["responsibility"] = 0.2, batched and sequential on the card
+   in float32 (equal statuses and steps, every agent at its goal), against
+   the first steps of the CPU float64 run; then one `batched_full_cycle`
+   with `resp_weight` on phase 6's stacked problem padded to 16 obstacle
+   slots, with reach grids that make the term differ between candidates:
+   per agent `best` must equal the CPU float64 run's (or tie within 4
+   float32 ulps); timed beside the same cycle without the term.
+10. sensing and occlusion: a truck parked beside the lane (a blind spot),
+   the occlusion module on with occ_um = 2.0 and occ_ve = 0.5 and
+   `calc_occlusions`, two agents, batched and sequential on the card in
+   float32: every agent at its goal, equal statuses, the ego's executed
+   states equal; the ego passes the truck slower than with the module off; the
+   gate must have removed the first choice in some cycle.  Then
+   `polar_visibility_batch` on the card against `polar_visibility` on the
+   host at 720 rays.
+
+Each path (phases 4 to 10) is driven with K1's launch count set to 0 just
 before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -52,23 +69,29 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch.io import scenario_factory
+from frenetix_tpu_torch.io.commonroad import Obstacle, State
 from frenetix_tpu_torch.ops import _kernels, table_interp
 from frenetix_tpu_torch.ops.kinematics import rollout_candidates
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner import reactive
 from frenetix_tpu_torch.planner.core import evaluate_cycle
+from frenetix_tpu_torch.risk import reachable_set
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.run_scenario import run_scenarios
+from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
-from frenetix_tpu_torch.workloads import dense_cycle_problem, stacked_cycle_problem
+from frenetix_tpu_torch.workloads import (
+    dense_cycle_problem, stacked_cycle_problem, stacked_post_pass_extras,
+)
 
 KERNEL_SOURCE = "frenetix_tpu_torch/csrc/table_interp.cu"
 REPLACES = "frenetix_tpu/ops/pallas_interp.py:34"
 R_ROWS, C_COLS, P_DENSE = 868, 7, 1_079_296
 P_SIM = 1024 * 31      # level-2 sampling of the simulations, padded
 A_BATCH, M_BATCH = 8, 1024
+O_SLOTS = 16           # obstacle slots of the simulations' prediction tensors
 ULPS = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # float32 outside the tensor cores
@@ -81,6 +104,18 @@ def phase(n, text):
 def check(cond, what):
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+def _same_or_tie(best, best64, cost64, what):
+    """`best` (card, float32) must be the CPU float64 selection or tie with it
+    within ULPS float32 ulps of the float64 cost; returns 1 for a tie."""
+    if best == best64:
+        return 0
+    gap = abs(cost64[best] - cost64[best64])
+    bound = ULPS * float(np.spacing(np.float32(abs(cost64[best64]))))
+    check(gap <= bound, f"{what}: best {best} (cuda f32) vs {best64} (cpu f64): "
+                        f"cost gap {gap} > {bound}")
+    return 1
 
 
 def nvidia_smi_line() -> str:
@@ -233,11 +268,7 @@ def phase_dense_cycle(dev, smi, launches):
                          check_boundary=True)
     best64 = int(ref.best_idx)
     cost64 = ref.cost.numpy()
-    if best != best64:
-        gap = abs(cost64[best] - cost64[best64])
-        bound = ULPS * float(np.spacing(np.float32(abs(cost64[best64]))))
-        check(gap <= bound, f"best_idx {best} (cuda f32) vs {best64} (cpu f64): "
-                            f"f64 cost gap {gap} > {ULPS} float32 ulps ({bound})")
+    _same_or_tie(best, best64, cost64, "dense cycle")
     x_err = float(np.abs(res.rollout.x.cpu().numpy().astype(np.float64)
                          - ref.rollout.x.numpy())[mask.cpu().numpy()].max())
 
@@ -335,12 +366,7 @@ def phase_batched_cycle(dev, smi, launches):
         ref = evaluate_cycle(m64[a], k64[a], ctxs64[a], dt=dt, n_steps=n_steps,
                              low_vel_mode=False)
         b64, cost64 = int(ref.best_idx), ref.cost.numpy()
-        if int(best[a]) != b64:
-            gap = abs(cost64[int(best[a])] - cost64[b64])
-            bound = ULPS * float(np.spacing(np.float32(abs(cost64[b64]))))
-            check(gap <= bound, f"agent {a}: best {int(best[a])} (cuda f32 batched) vs "
-                                f"{b64} (cpu f64 sequential): cost gap {gap} > {bound}")
-            ties += 1
+        ties += _same_or_tie(int(best[a]), b64, cost64, f"batched cycle agent {a}")
         x64 = ref.rollout.x[b64].numpy()
         err = float(np.abs(out["x"][a].cpu().numpy() - x64).max())
         check(int(best[a]) != b64 or err < 1e-2, f"agent {a}: selected x off by {err} m")
@@ -363,6 +389,7 @@ def phase_batched_cycle(dev, smi, launches):
              f"{p50 / a_n:.3f} ms per agent; {a_n} sequential cycles p50 {seq50:.3f} ms "
              f"(min {seq_lo:.3f}, max {seq_hi:.3f}), {seq50 / a_n:.3f} ms per agent; "
              f"sequential/batched {seq50 / p50:.2f} [{smi}]")
+    return p50
 
 
 def _multiagent_run(family, dev, dtype, batched):
@@ -515,6 +542,196 @@ def phase_risk(dev, smi, launches):
     check(total > 0, "no cycle ran the min_risk branch on the card")
 
 
+def _responsibility_run(dev, dtype, batched, max_steps=None):
+    config = load_config()
+    config.dtype = dtype
+    config.simulation.start_multiagent = True
+    config.simulation.batched_device_agents = batched
+    config.cost_weights["responsibility"] = 0.2
+    sim = Simulation(scenario_factory.make_highway(), config, dev)
+    if max_steps is not None:
+        sim.max_steps = max_steps
+    return sim, sim.run()
+
+
+def phase_responsibility(dev, smi, launches, plain_p50):
+    launches.start()
+    sim, res = _responsibility_run(dev, "float32", batched=True)
+    n_batched = launches.stop("responsibility highway, batched")
+    check(len(sim.agents) == 2, f"responsibility: {len(sim.agents)} agents")
+    check(res.success, f"responsibility batched: {res.agent_status} {res.agent_messages}")
+    batches = [b for a in sim.agents for b in a.record.batch_planning_times]
+    check(batches, "responsibility: no batched pass was recorded")
+    launches.start()
+    _, seq = _responsibility_run(dev, "float32", batched=False)
+    n_seq = launches.stop("responsibility highway, sequential")
+    check(seq.agent_status == res.agent_status and seq.steps == res.steps,
+          f"responsibility: sequential {seq.agent_status} steps {seq.steps} vs "
+          f"batched {res.agent_status} steps {res.steps}")
+    end, end_seq = _end_positions(res), _end_positions(seq)
+    dev_seq = max(float(np.abs(end[a] - end_seq[a]).max()) for a in end)
+    # the CPU float64 run costs seconds per cycle (the risk stack at 16
+    # obstacle slots): its first steps only
+    ref_steps = 12
+    _, ref = _responsibility_run(torch.device("cpu"), "float64", batched=True,
+                                 max_steps=ref_steps)
+    dev_ref = max(float(np.abs(np.asarray(res.histories[a][ref_steps].position)
+                               - np.asarray(ref.histories[a][ref_steps].position)).max())
+                  for a in res.histories)
+    check(np.isfinite([dev_seq, dev_ref]).all(), "responsibility: non-finite positions")
+    phase(9, f"highway, responsibility 0.2, 2 agents on the card: batched "
+             f"COMPLETED_SUCCESS steps={res.steps} wall {res.wall_time:.3f} s, mean "
+             f"batched pass {1e3 * float(np.mean([t for t, _ in batches])):.3f} ms, K1 "
+             f"launches {n_batched}; sequential equal statuses and steps, wall "
+             f"{seq.wall_time:.3f} s, K1 launches {n_seq}, max end-position deviation "
+             f"{dev_seq:.3e} m; cpu f64 batched after {ref_steps} steps: max position "
+             f"deviation {dev_ref:.3e} m [{smi}]")
+
+    # one batched cycle with the term, on phase 6's problem at 16 slots
+    w = 0.3
+    matrices, masks, ctx, _, dt, n_steps = stacked_cycle_problem(
+        A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True,
+        o_slots=O_SLOTS)
+    check(ctx.preds.means.shape[:2] == (A_BATCH, O_SLOTS), "obstacle slots")
+    grid, _, _ = stacked_post_pass_extras(ctx)
+    fn = batched_full_cycle(dt=dt, n_steps=n_steps, resp_weight=w)
+    plain = batched_full_cycle(dt=dt, n_steps=n_steps)
+    launches.start()
+    out = fn(matrices, masks, ctx, grid)
+    check(launches.stop("batched cycle with responsibility") == 1,
+          "a batched call launches K1 once")
+    check(bool(out["found"].all()), f"responsibility cycle: found {out['found'].tolist()}")
+    check(bool(torch.isfinite(out["cost"]).all()), "responsibility cycle: non-finite cost")
+    base = plain(matrices, masks, ctx)
+    moved = float((out["cost"] - base["cost"]).abs().max())
+
+    # the CPU float64 reference on the 4 real obstacle slots (the 12 padded
+    # slots are invalid and add exact zeros)
+    m64, k64, c64, _, _, _ = stacked_cycle_problem(
+        A_BATCH, torch.device("cpu"), torch.float64, m_bucket=M_BATCH, spread=12.0,
+        ragged=True, o_slots=4)
+    g64, _, _ = stacked_post_pass_extras(c64)
+    res64 = evaluate_cycle(m64, k64, c64, dt=dt, n_steps=n_steps, low_vel_mode=False)
+    risks64 = trajectory_risks(res64.rollout, c64.preds, meta_from_footprint(
+        c64.preds.lengths, c64.preds.widths), c64.veh.mass)
+    cost64 = (res64.cost + w * reachable_set.responsibility_reach_grid(
+        res64.rollout, g64, risks64, dt)).numpy()
+    sel64 = res64.selectable.numpy()
+    spread = max(float(np.ptp((cost64[a] - res64.cost[a].numpy())[sel64[a]]))
+                 for a in range(A_BATCH))
+    check(spread > 0.0, "the responsibility term is the same for every candidate")
+    best = out["best"].cpu().numpy()
+    ties = 0
+    for a in range(A_BATCH):
+        b64 = int(np.argmin(np.where(sel64[a], cost64[a], np.inf)))
+        ties += _same_or_tie(int(best[a]), b64, cost64[a], f"responsibility agent {a}")
+    p50, lo, hi = timed_calls(lambda: fn(matrices, masks, ctx, grid))
+    base50, _, _ = timed_calls(lambda: plain(matrices, masks, ctx))
+    phase(9, f"batched cycle with responsibility {w} A={A_BATCH} M={M_BATCH} "
+             f"O={O_SLOTS}: best {best.tolist()} equals cpu f64 ({ties} ties within "
+             f"{ULPS} float32 ulps), the term spreads {spread:.3e} over the selectable "
+             f"candidates and moves the selected cost by up to {moved:.3e}; p50 "
+             f"{p50:.3f} ms over 20 calls (min {lo:.3f}, max {hi:.3f}); the same cycle "
+             f"without the term p50 {base50:.3f} ms (phase 6, 4 slots: "
+             f"{plain_p50:.3f} ms); with/without {p50 / base50:.2f} [{smi}]")
+
+
+def _blind_spot():
+    """A truck parked beside the lane hides what is behind it."""
+    scenario = scenario_factory.make_highway(ego_v=13.0, lead_v=13.0, lead_gap=120.0,
+                                             n_steps=150)
+    scenario.obstacles[200] = Obstacle(
+        obstacle_id=200, obstacle_type="truck", role="static", length=9.0, width=2.5,
+        initial_state=State(0, np.array([60.0, 2.6]), 0.0, 0.0))
+    return scenario
+
+
+def _blind_spot_run(dev, module_on, batched):
+    config = load_config()
+    config.dtype = "float32"
+    config.simulation.start_multiagent = True
+    config.simulation.batched_device_agents = batched
+    if module_on:
+        config.occlusion.use_occlusion_module = True
+        config.occlusion.harm_threshold = 0.02
+        config.external_cost_weights["occ_um"] = 2.0
+        config.external_cost_weights["occ_ve"] = 0.5
+        config.prediction.calc_occlusions = True
+    sim = Simulation(_blind_spot(), config, dev)
+    res = sim.run()
+    ego = next(iter(sim.scenario.planning_problems))
+    passing = [s.velocity for s in res.histories[ego] if 45.0 < s.position[0] < 65.0]
+    return sim, res, float(np.mean(passing))
+
+
+def phase_occlusion(dev, smi, launches):
+    launches.start()
+    sim, res, v_on = _blind_spot_run(dev, module_on=True, batched=True)
+    n_batched = launches.stop("blind spot with the occlusion module, batched")
+    check(len(sim.agents) == 2, f"blind spot: {len(sim.agents)} agents")
+    check(res.success, f"blind spot batched: {res.agent_status} {res.agent_messages}")
+    launches.start()
+    seq_sim, seq, v_seq = _blind_spot_run(dev, module_on=True, batched=False)
+    n_seq = launches.stop("blind spot with the occlusion module, sequential")
+    check(seq.agent_status == res.agent_status,
+          f"blind spot: sequential {seq.agent_status} vs batched {res.agent_status}")
+    # the ego's run must be the same in both modes.  The other agent's may
+    # differ after the ego has reached its goal: the batched step retires a
+    # finished agent before it builds the others' predictions, the
+    # sequential loop one step later (as in the JAX package)
+    ego = next(iter(sim.scenario.planning_problems))
+    h, h_seq = res.histories[ego], seq.histories[ego]
+    check(len(h) == len(h_seq), f"blind spot: the ego ran {len(h)} steps batched, "
+                                f"{len(h_seq)} sequential")
+    dev_seq = max(float(np.abs(np.asarray(a.position) - np.asarray(b.position)).max())
+                  for a, b in zip(h, h_seq))
+    check(dev_seq <= 1e-3, f"blind spot: the ego's batched and sequential runs are "
+                           f"{dev_seq} m apart")
+    stats = {k: sum(a.planner.gate_stats[k] for a in seq_sim.agents)
+             for k in ("levels", "changed", "rejected_all")}
+    check(stats["changed"] > 0, f"the gate never removed a first choice: {stats}")
+    launches.start()
+    _, off, v_off = _blind_spot_run(dev, module_on=False, batched=True)
+    launches.stop("blind spot without the module")
+    check(off.success, f"blind spot, module off: {off.agent_status}")
+    check(v_on < 0.7 * v_off,
+          f"the module does not slow the ego enough: {v_on} vs {v_off} m/s")
+    phase(10, f"blind spot, module on (occ_um 2.0, occ_ve 0.5, calc_occlusions), 2 "
+              f"agents on the card: batched COMPLETED_SUCCESS steps={res.steps} wall "
+              f"{res.wall_time:.3f} s, K1 launches {n_batched}; sequential equal "
+              f"statuses, steps={seq.steps}, wall {seq.wall_time:.3f} s, K1 launches "
+              f"{n_seq}, the ego's {len(h)} states at most {dev_seq:.3e} m apart; "
+              f"gated levels "
+              f"{stats['levels']}, first choice removed in {stats['changed']}, every "
+              f"candidate rejected in {stats['rejected_all']}; mean speed past the "
+              f"truck {v_on:.3f} m/s (sequential {v_seq:.3f}) against {v_off:.3f} m/s "
+              f"with the module off: {v_on / v_off:.3f}x [{smi}]")
+
+    # the polar ray cast on the card against the host's, 720 rays
+    scenario = _blind_spot()
+    segs = np.concatenate([
+        visible_area.road_boundary_segments(scenario),
+        *(visible_area.obstacle_obb_segments(ob.initial_state.position,
+                                             ob.initial_state.orientation, ob.length,
+                                             ob.width)
+          for ob in scenario.obstacles.values())])
+    eye = np.array([30.0, 0.3])
+    _, want = visible_area.polar_visibility(eye, segs, 50.0, 720)
+    errs = {}
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-2)):
+        got = visible_area.polar_visibility_batch(
+            torch.as_tensor(eye, dtype=dtype, device=dev),
+            torch.as_tensor(segs[:, 0], dtype=dtype, device=dev),
+            torch.as_tensor(segs[:, 1], dtype=dtype, device=dev),
+            torch.ones(len(segs), dtype=torch.bool, device=dev), 50.0, 720)
+        err = float(np.abs(got.cpu().numpy().astype(np.float64) - want).max())
+        check(err <= tol, f"polar_visibility_batch {dtype}: max |Δ| {err} > {tol}")
+        errs[str(dtype).split(".")[-1]] = err
+    phase(10, f"polar_visibility_batch on the card against the host, 720 rays, "
+              f"{len(segs)} segments, {int((want < 50.0).sum())} rays clipped: max |Δ| "
+              + ", ".join(f"{k} {v:.3e} m" for k, v in errs.items()) + f" [{smi}]")
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -522,9 +739,11 @@ def main() -> int:
     launches = Launches()
     phase_dense_cycle(dev, smi, launches)
     phase_simulation(dev, smi, launches)
-    phase_batched_cycle(dev, smi, launches)
+    batched_p50 = phase_batched_cycle(dev, smi, launches)
     phase_multiagent(dev, smi, launches)
     phase_risk(dev, smi, launches)
+    phase_responsibility(dev, smi, launches, batched_p50)
+    phase_occlusion(dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     print(smi)

@@ -11,10 +11,13 @@ and corridor checking, lane-center costs, the full cost stack), and every op
 reduces over trailing axes only, so a batched selection equals the
 sequential one on the same inputs.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-slice): a device mesh (slice 7), the in-batch responsibility term with reach
-grids (slice 3b), the occlusion gate with phantom masks and occluder
-geometry (slice 4).
+With a responsibility weight the reach-set term runs in the batch (stacked
+reach grids), with the occlusion module the safety gate and the soft costs
+do (phantom masks, stacked occluder geometry); see
+`parallel.mesh.batched_full_cycle`.
+
+A device mesh for the agent axis is not ported yet (ROADMAP.md slice 7) and
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.occlusion import PhantomThresholds
 from frenetix_tpu_torch.parallel.mesh import (
     _pad_table, _poses_from, batched_full_cycle,
 )
@@ -39,16 +43,10 @@ class BatchedAgentStepper:
     path (their cycles use other static flags)."""
 
     def __init__(self, config, agents, device: torch.device, mesh=None):
-        missing = []
         if mesh is not None:
-            missing.append("a device mesh for the agent axis (slice 7)")
-        if float(config.cost_weights.get("responsibility", 0.0)) != 0.0:
-            missing.append("the in-batch responsibility term (slice 3b)")
-        if config.occlusion.use_occlusion_module:
-            missing.append("the in-batch occlusion gate (slice 4)")
-        if missing:
             raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: " + "; ".join(missing))
+                "not yet ported to frenetix_tpu_torch: a device mesh for the "
+                "agent axis (slice 7)")
         self.config = config
         self.dt = config.planning.dt
         self.n_steps = config.planning.n_steps
@@ -79,8 +77,19 @@ class BatchedAgentStepper:
         self.lane_segments = self._tensor(segs)
         self.lane_valid = torch.as_tensor(valids, device=self.device)
 
+        # the responsibility term, the occlusion gate and the soft costs
+        # run in the batch when they are weighted / enabled
+        self.resp_weight = float(config.cost_weights.get("responsibility", 0.0))
+        self.use_occlusion = bool(config.occlusion.use_occlusion_module)
+        ew = config.external_cost_weights
+        w_um, w_ve = float(ew.get("occ_um", 0.0)), float(ew.get("occ_ve", 0.0))
+        self.use_occ_geom = self.use_occlusion and (w_um != 0.0 or w_ve != 0.0)
         self._cycle = batched_full_cycle(
             dt=self.dt, n_steps=self.n_steps, low_vel_mode=False,
+            resp_weight=self.resp_weight, occlusion=self.use_occlusion,
+            thresholds=PhantomThresholds.from_config(config.occlusion),
+            occ_pm_weight=float(ew.get("occ_pm", 0.0)),
+            occ_um_weight=w_um, occ_ve_weight=w_ve,
             compensated_sum=bool(config.planning.compensated_cost_sum),
         )
 
@@ -92,14 +101,31 @@ class BatchedAgentStepper:
              veh, weights, reach_grids=None, phantom_masks=None, occ_geom=None):
         """matrices (A, M, 13), masks (A, M), agent-stacked predictions
         (A, O, T, ...), x0_orients and v_desireds (A,) → (dict of (A, ...)
-        selected-trajectory tensors, poses_all (A, 4)), both on the device."""
-        if reach_grids is not None:
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: reach grids (slice 3b)")
-        if phantom_masks is not None or occ_geom is not None:
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: phantom masks and "
-                "occluder geometry (slice 4)")
+        selected-trajectory tensors, poses_all (A, 4)), both on the device.
+        `reach_grids`: an agent-stacked ReachSetGrid
+        (`mesh.stack_reach_grids`), needed iff the responsibility weight is
+        non-zero.  `phantom_masks`: (A, O) bool marking the phantom
+        prediction rows, needed iff the occlusion module is on.  `occ_geom`:
+        (ego (A, 2), r_vis (A, K), pts (A, Q, 2), pts_valid (A, Q)), needed
+        iff occ_um or occ_ve is weighted."""
+        extras = []
+        if self.resp_weight != 0.0:
+            if reach_grids is None:
+                raise ValueError("responsibility weight is non-zero but no "
+                                 "reach grids were passed to step()")
+            extras.append(reach_grids)
+        if self.use_occlusion:
+            if phantom_masks is None:
+                raise ValueError("occlusion module is enabled but no phantom "
+                                 "masks were passed to step()")
+            extras.append(torch.as_tensor(phantom_masks, device=self.device))
+            if self.use_occ_geom:
+                if occ_geom is None:
+                    raise ValueError("occ_um/occ_ve are weighted but no occluder "
+                                     "geometry was passed to step()")
+                ego, r_vis, pts, pts_valid = occ_geom
+                extras += [self._tensor(ego), self._tensor(r_vis), self._tensor(pts),
+                           torch.as_tensor(pts_valid, device=self.device)]
         v_des = self._tensor(v_desireds)
         ctx = CycleContext(
             ref=self.ref,
@@ -116,5 +142,5 @@ class BatchedAgentStepper:
             desired_avg_velocity=v_des,
         )
         out = self._cycle(self._tensor(matrices),
-                          torch.as_tensor(masks, device=self.device), ctx)
+                          torch.as_tensor(masks, device=self.device), ctx, *extras)
         return out, _poses_from(out)

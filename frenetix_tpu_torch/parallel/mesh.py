@@ -16,10 +16,13 @@ with `jax.vmap`; here every op of the cycle accepts leading batch dimensions
   - the selection (argmin, first index on ties) and the gather of the
     selected candidate's rows happen on the device, per agent.
 
-The multi-device variant (`make_agent_mesh`, `sharded_full_cycle`), the
-responsibility term with its reach-set grids (`stack_reach_grids`) and the
-occlusion gate are not ported yet; asking for them raises NotImplementedError
-naming the ROADMAP.md slice that brings them.
+With `resp_weight` the batched cycle adds the reach-set responsibility term
+(agent-stacked grids from `stack_reach_grids`), with `occlusion=True` the
+phantom safety gate and the soft occlusion costs, each over ONE pass of the
+risk stack for all agents, and then selects again per agent.
+
+The multi-device variant (`make_agent_mesh`, `sharded_full_cycle`) is not
+ported yet (ROADMAP.md slice 7).
 """
 from __future__ import annotations
 
@@ -27,11 +30,20 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.occlusion import (
+    PhantomThresholds, external_occlusion_costs, phantom_safety_mask,
+)
 from frenetix_tpu_torch.ops.costs import PredictionTensors
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+from frenetix_tpu_torch.risk.costs import trajectory_risks
+from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch.risk.reachable_set import (
+    ReachSetGrid, responsibility_reach_grid,
+)
 
 __all__ = [
     "stack_cycle_contexts",
+    "stack_reach_grids",
     "batched_full_cycle",
     "agent_pose_predictions",
     "agent_plan_predictions",
@@ -129,19 +141,37 @@ def stack_cycle_contexts(ctxs: list[CycleContext]) -> CycleContext:
     )
 
 
-def _select(res) -> dict:
+def stack_reach_grids(grids: list[ReachSetGrid]) -> ReachSetGrid:
+    """Stack per-agent ReachSetGrids along a new leading agent axis.  All
+    grids share O, T and G (the prediction pipeline pads every agent's
+    obstacles to the same slot count, and the rasterizer's time and grid
+    parameters are config-level); `dt_rs` stays a shared scalar."""
+    return ReachSetGrid(
+        origin=torch.stack([g.origin for g in grids]),
+        occupancy=torch.stack([g.occupancy for g in grids]),
+        valid=torch.stack([g.valid for g in grids]),
+        cell=torch.stack([g.cell for g in grids]),
+        dt_rs=grids[0].dt_rs,
+    )
+
+
+def _select(res, cost=None, best=None, found=None) -> dict:
     """Per-agent gather of the selected candidate: the 12 state rows (A, N+1),
-    best (A,), found (A,), cost (A,), terms (A, K), histogram (A, 11)."""
-    b = res.best_idx.long()
+    best (A,), found (A,), cost (A,), terms (A, K), histogram (A, 11).
+    `cost`, `best` and `found` replace the cycle's own after a post-pass."""
+    cost = res.cost if cost is None else cost
+    best = res.best_idx if best is None else best
+    found = res.found if found is None else found
+    b = best.long()
     n1 = res.rollout.x.shape[-1]
     row = b[..., None, None].expand(b.shape + (1, n1))
     out = {key: torch.gather(getattr(res.rollout, attr), -2, row)[..., 0, :]
            for attr, key in _SEL_FIELDS}
     k = res.cost_terms.shape[-1]
     out.update(
-        best=res.best_idx,
-        found=res.found,
-        cost=torch.gather(res.cost, -1, b[..., None])[..., 0],
+        best=best,
+        found=found,
+        cost=torch.gather(cost, -1, b[..., None])[..., 0],
         terms=torch.gather(res.cost_terms, -2,
                            b[..., None, None].expand(b.shape + (1, k)))[..., 0, :],
         histogram=res.histogram,
@@ -150,29 +180,71 @@ def _select(res) -> dict:
 
 
 def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
-                       resp_weight=0.0, occlusion=False, compensated_sum=False,
-                       occ_pm_weight=0.0, occ_um_weight=0.0, occ_ve_weight=0.0):
+                       resp_weight=0.0, occlusion=False, thresholds=None,
+                       occ_pm_weight=0.0, occ_um_weight=0.0, occ_ve_weight=0.0,
+                       compensated_sum=False):
     """The full multi-agent cycle on one device.
 
-    Returns fn(matrices (A, M, 13), masks (A, M), stacked_ctx) → dict of
-    (A, ...) selected-trajectory tensors + best/found/cost/terms/histogram,
-    all on the context's device.  One K1 launch per call."""
-    missing = []
-    if resp_weight != 0.0:
-        missing.append("the responsibility term with reach-set grids (slice 3b)")
-    if occlusion or occ_pm_weight or occ_um_weight or occ_ve_weight:
-        missing.append("the occlusion gate and its external costs (slice 4)")
-    if missing:
-        raise NotImplementedError(
-            "not yet ported to frenetix_tpu_torch: " + "; ".join(missing))
+    Returns fn(matrices (A, M, 13), masks (A, M), stacked_ctx, *extras) →
+    dict of (A, ...) selected-trajectory tensors + best/found/cost/terms/
+    histogram, all on the context's device.  One K1 launch per call.
 
-    def fn(matrices, masks, ctx):
+    Extras, in order: with `resp_weight` ≠ 0 an agent-stacked ReachSetGrid
+    (`stack_reach_grids`; the selection includes the responsibility term);
+    with `occlusion=True` an (A, O) bool mask of the phantom prediction rows
+    (the selection applies the occlusion safety gate: candidates whose
+    phantom metrics break `thresholds`, a PhantomThresholds, by default the
+    default gate, leave `selectable`); with occ_um or
+    occ_ve weighted, the per-agent occluder geometry ego (A, 2), r_vis
+    (A, K), pts (A, Q, 2), pts_valid (A, Q).
+
+    After either post-pass the argmin runs again over the agent's selectable
+    candidates.  When none is left (the gate rejected all), `found` comes
+    back False for that agent and `best` stays the cycle's own."""
+    use_resp = resp_weight != 0.0
+    use_ext = bool(occ_pm_weight or occ_um_weight or occ_ve_weight)
+    use_geom = occlusion and (occ_um_weight != 0.0 or occ_ve_weight != 0.0)
+    thr = thresholds or PhantomThresholds()
+
+    def fn(matrices, masks, ctx, *extras):
+        extras = list(extras)
+        grid = extras.pop(0) if use_resp else None
+        phantom_mask = extras.pop(0) if occlusion else None
+        occ_geom = tuple(extras[:4]) if use_geom else None
         res = evaluate_cycle(
             matrices, masks, ctx, dt=dt, n_steps=n_steps,
             low_vel_mode=low_vel_mode, check_boundary=True,
             table_window=table_window, compensated_sum=compensated_sum,
         )
-        return _select(res)
+        if not (use_resp or occlusion):
+            return _select(res)
+
+        cost, selectable = res.cost, res.selectable
+        risks = trajectory_risks(
+            res.rollout, ctx.preds,
+            meta_from_footprint(ctx.preds.lengths, ctx.preds.widths),
+            ctx.veh.mass)
+        if use_resp:
+            cost = cost + resp_weight * responsibility_reach_grid(
+                res.rollout, grid, risks, dt)
+        if occlusion:
+            # the SAME gate as the sequential planner's
+            safe = phantom_safety_mask(risks, phantom_mask, thr,
+                                       rollout=res.rollout, preds=ctx.preds,
+                                       veh=ctx.veh, dt=dt)
+            selectable = selectable & safe
+            if use_ext:
+                ego, r_vis, pts, pts_valid = occ_geom or (None,) * 4
+                cost = cost + external_occlusion_costs(
+                    res.rollout, w_pm=occ_pm_weight, w_um=occ_um_weight,
+                    w_ve=occ_ve_weight, risks=risks, phantom_mask=phantom_mask,
+                    ego=ego, r_vis=r_vis, occluder_pts=pts,
+                    occluder_valid=pts_valid)
+        masked = torch.where(selectable, cost, torch.full_like(cost, torch.inf))
+        found = torch.any(selectable, dim=-1)
+        best = torch.where(found, torch.argmin(masked, dim=-1),
+                           res.best_idx.long()).to(torch.int32)
+        return _select(res, cost, best, found)
 
     return fn
 

@@ -18,8 +18,18 @@ PyTorch port of `frenetix_tpu/planner/reactive.py`.  Per replanning cycle it
 With `debug.log_risk` every selected trajectory carries its ego and obstacle
 risk.
 
-Features this slice does not carry raise NotImplementedError at
-construction, naming the ROADMAP.md slice that brings them.
+Two post-passes on a level's result, each over the risk stack on the device:
+  - `cost_weights["responsibility"] != 0` and a reach grid (`set_reach_grid`):
+    the reach-set responsibility term is added to the costs and the masked
+    argmin runs again (`_apply_responsibility`);
+  - an armed occlusion module (`set_occlusion_module`): candidates whose
+    phantom metrics break the thresholds leave the selection, the soft
+    `external_cost_weights` terms are added, and the re-selected candidate
+    comes back in ONE more device→host copy (`_occlusion_pack`).  When the
+    gate rejects every candidate the level counts as missed.
+
+The behavior planner is not ported yet; a config that asks for it raises
+NotImplementedError at construction, naming the ROADMAP.md slice.
 """
 from __future__ import annotations
 
@@ -31,11 +41,13 @@ import torch
 
 from frenetix_tpu_torch.geometry.corridor import corridor_from_polygons, strip_corridor
 from frenetix_tpu_torch.geometry.refpath import RefPathTable, prepare_reference_path
+from frenetix_tpu_torch.occlusion import external_occlusion_costs, phantom_safety_mask
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, empty_predictions
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch.risk.reachable_set import responsibility_reach_grid
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 
 __all__ = ["PlannedTrajectory", "ReactivePlanner", "wants_stopping_mode"]
@@ -45,10 +57,6 @@ def _unsupported_features(config: FrenetixConfig) -> list[str]:
     """Enabled features of `config` that the port does not carry yet, each
     with the ROADMAP.md slice that brings it."""
     out = []
-    if config.cost_weights.get("responsibility", 0.0) != 0.0:
-        out.append("cost_weights.responsibility != 0 (responsibility: slice 3b)")
-    if config.occlusion.use_occlusion_module:
-        out.append("occlusion.use_occlusion_module (occlusion: slice 4)")
     if config.behavior.use_behavior_planner:
         out.append("behavior.use_behavior_planner (behavior planner: slice 6)")
     return out
@@ -139,6 +147,53 @@ def _replan_pack(res, mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([header, *_selected_rows(res, idx, length)])
 
 
+def _responsibility(ro, preds, meta, grid, cost, selectable, best0, *, w, dt, mass):
+    """Responsibility re-selection on the device: risk stack → reach-grid
+    term → cost + w·term → argmin over `selectable` again (first index on
+    ties; `best0` stays where nothing is selectable).  Returns (cost, best);
+    nothing is copied to the host."""
+    risks = trajectory_risks(ro, preds, meta, mass)
+    cost2 = cost + w * responsibility_reach_grid(ro, grid, risks, dt)
+    masked = torch.where(selectable, cost2, torch.full_like(cost2, torch.inf))
+    best = torch.where(torch.any(selectable, dim=-1), torch.argmin(masked, dim=-1),
+                       best0.long()).to(torch.int32)
+    return cost2, best
+
+
+def _occlusion_pack(res, preds, meta, phantom_mask, ego, r_vis, pts, pts_valid, *,
+                    dt, veh, thresholds, w_pm, w_um, w_ve) -> torch.Tensor:
+    """The occlusion-gated re-selection of one level as ONE (14, L) tensor:
+    header [found, idx, selection cost, ego_risk, obst_risk], the selected
+    candidate's 12 state rows and its [cost, cost_terms...] row.  Risk stack,
+    the shared `phantom_safety_mask`, the soft cost terms and the masked
+    argmin all run on the device.  The rows are garbage when found is
+    False."""
+    ro = res.rollout
+    risks = trajectory_risks(ro, preds, meta, veh.mass)
+    safe = phantom_safety_mask(risks, phantom_mask, thresholds,
+                               rollout=ro, preds=preds, veh=veh, dt=dt)
+    sel = res.selectable & safe
+    cost2 = res.cost
+    if w_pm != 0.0 or w_um != 0.0 or w_ve != 0.0:
+        cost2 = cost2 + external_occlusion_costs(
+            ro, w_pm=w_pm, w_um=w_um, w_ve=w_ve, risks=risks,
+            phantom_mask=phantom_mask, ego=ego, r_vis=r_vis,
+            occluder_pts=pts, occluder_valid=pts_valid)
+    masked = torch.where(sel, cost2, torch.full_like(cost2, torch.inf))
+    idx = torch.argmin(masked).reshape(1)
+    length = max(ro.x.shape[1], 1 + res.cost_terms.shape[1], 5)
+    header = torch.cat([
+        torch.any(sel).to(cost2.dtype).reshape(1),
+        idx.to(cost2.dtype),
+        torch.index_select(cost2, 0, idx),
+        torch.index_select(risks.ego_risk, 0, idx),
+        torch.index_select(risks.obst_risk, 0, idx),
+    ])
+    header = torch.nn.functional.pad(header, (0, length - 5))
+    return torch.stack([header,
+                        *_selected_rows(res._replace(cost=cost2), idx, length)])
+
+
 class ReactivePlanner:
     def __init__(self, config: FrenetixConfig, device: torch.device):
         unsupported = _unsupported_features(config)
@@ -176,6 +231,14 @@ class ReactivePlanner:
         self.desired_velocity = 0.0
         self.desired_avg_velocity = 0.0
         self.stop_point: Optional[tuple[float, float]] = None  # (s, v)
+        self.occlusion_module = None
+        self.phantom_mask = None
+        self._occ_ego_state = None
+        self._occ_time_step = None
+        self.reach_grid = None   # lanelet reach sets (responsibility cost)
+        # gated levels of all plan calls, how many of them changed the
+        # level's first choice, and how many rejected every candidate
+        self.gate_stats = {"levels": 0, "changed": 0, "rejected_all": 0}
         self.current_velocity = 0.0
         self.infeasible_histogram = np.zeros(11, int)
         self.stats = {}
@@ -229,6 +292,21 @@ class ReactivePlanner:
 
     def set_stop_point(self, stop_s, stop_v):
         self.stop_point = (float(stop_s), float(stop_v)) if stop_s is not None else None
+
+    def set_reach_grid(self, grid):
+        """Lanelet-following reach sets (a risk.reachable_set.ReachSetGrid
+        on the planner's device) for the responsibility cost."""
+        self.reach_grid = grid
+
+    def set_occlusion_module(self, module, phantom_mask=None, ego_state=None,
+                             time_step=None):
+        """Arm the occlusion gate: `phantom_mask` (O,) bool marks the phantom
+        rows of the predictions; `ego_state` and `time_step` feed the soft
+        cost terms (occ_um needs the polar visibility map around the pose)."""
+        self.occlusion_module = module
+        self.phantom_mask = phantom_mask
+        self._occ_ego_state = ego_state
+        self._occ_time_step = time_step
 
     # ---------------------------------------------------------------- planning
     def _sampling_ranges(self, level: int, x_cl):
@@ -302,12 +380,32 @@ class ReactivePlanner:
                 quintic_lon=quintic_lon,
                 compensated_sum=p.compensated_cost_sum,
             )
+            res = self._apply_responsibility(res)
             last_res, last_matrix, last_mask = res, matrix, mask
             # the ONE device→host copy of this level
             pack = _replan_pack(res, mask_t).cpu().numpy().astype(self.np_dtype)
             last_pack = pack
-            if bool(pack[0, 0]):
-                mode = "stopping_plan" if quintic_lon else "optimal"
+            found = bool(pack[0, 0])
+            mode = "stopping_plan" if quintic_lon else "optimal"
+            occ_ok = True
+            if (self.occlusion_module is not None and self.phantom_mask is not None
+                    and found):
+                # occlusion gate: select again among the candidates whose
+                # phantom metrics stay under the thresholds; one more copy.
+                # Its header carries the SELECTION cost (with the soft
+                # terms), so this path and the batched one log the same
+                pack_o = self._occlusion_pack(res, ctx)
+                self.gate_stats["levels"] += 1
+                if bool(pack_o[0, 0]):
+                    self.gate_stats["changed"] += int(pack_o[0, 1] != pack[0, 1])
+                    optimal = self._plan_from_rows(
+                        pack_o[1:], res, int(pack_o[0, 1]), matrix, mode,
+                        cost_override=float(pack_o[0, 2]),
+                        risk_scalars=(float(pack_o[0, 3]), float(pack_o[0, 4])))
+                else:
+                    self.gate_stats["rejected_all"] += 1
+                    occ_ok = False
+            if optimal is None and occ_ok and found:
                 optimal = self._plan_from_rows(pack[1:], res, int(pack[0, 1]),
                                                matrix, mode)
             if optimal is None and use_stopping:
@@ -364,6 +462,49 @@ class ReactivePlanner:
                                device=self.device), None
         risks = trajectory_risks(ro, preds, self._default_meta(preds), self.veh.mass)
         return risks.ego_risk + risks.obst_risk, risks
+
+    def _apply_responsibility(self, res):
+        """Add the reach-set responsibility term to the level's costs and
+        select again; active only with a non-zero weight, a reach grid and
+        predicted obstacles."""
+        w = self.config.cost_weights.get("responsibility", 0.0)
+        if w == 0.0 or self.reach_grid is None or self.preds is None \
+                or self.preds.num_obstacles == 0:
+            return res
+        cost2, best = _responsibility(
+            res.rollout, self.preds, self._default_meta(self.preds),
+            self.reach_grid, res.cost, res.selectable, res.best_idx,
+            w=w, dt=self.dt, mass=self.veh.mass)
+        return res._replace(cost=cost2, best_idx=best)
+
+    def _occlusion_pack(self, res, ctx) -> np.ndarray:
+        """The gated re-selection of this level on the host, (14, L): the
+        host work is gathering the polar map and the phantoms' silhouette
+        points for the soft cost terms."""
+        mod = self.occlusion_module
+        ew = self.config.external_cost_weights
+        w_pm = float(ew.get("occ_pm", 0.0))
+        w_um = float(ew.get("occ_um", 0.0))
+        w_ve = float(ew.get("occ_ve", 0.0))
+        ego_state = self._occ_ego_state
+        if ego_state is not None and w_um != 0.0:
+            r_vis, ego = mod.polar_map(ego_state, self._occ_time_step)
+        else:
+            r_vis = np.full(720, float(mod.sensor_radius))
+            ego = (np.asarray(ego_state.position, dtype=np.float64)
+                   if ego_state is not None else np.zeros(2))
+        if w_ve != 0.0 or w_um != 0.0 or w_pm != 0.0:
+            pts, pts_valid = mod.occluder_points()
+        else:
+            pts, pts_valid = np.zeros((1, 2)), np.zeros(1, bool)
+        pack = _occlusion_pack(
+            res, ctx.preds, self._default_meta(ctx.preds),
+            self._tensor(self.phantom_mask, torch.bool), self._tensor(ego),
+            self._tensor(r_vis), self._tensor(pts),
+            self._tensor(pts_valid, torch.bool),
+            dt=self.dt, veh=self.veh, thresholds=mod.thresholds,
+            w_pm=w_pm, w_um=w_um, w_ve=w_ve)
+        return pack.cpu().numpy().astype(self.np_dtype)
 
     def _stopping_matrix(self, level: int, x_cl):
         """End-position-constrained sampling matrix t1 × s1 × d1 with end
@@ -445,11 +586,13 @@ class ReactivePlanner:
         return self._plan_from_rows(rows.cpu().numpy().astype(self.np_dtype),
                                     res, idx, matrix, mode, risks=risks)
 
-    def _plan_from_rows(self, rows, res, idx: int, matrix,
-                        mode: str, risks=None) -> PlannedTrajectory:
+    def _plan_from_rows(self, rows, res, idx: int, matrix, mode: str, risks=None,
+                        cost_override=None, risk_scalars=None) -> PlannedTrajectory:
         """PlannedTrajectory from host rows: 12 state rows + [cost, terms...].
         With `debug.log_risk` and predicted obstacles, the selected
-        candidate's risks come from the full risk stack over the rollout."""
+        candidate's risks come from the full risk stack over the rollout,
+        or from `risk_scalars` (ego_risk, obst_risk) where the caller has
+        already copied them."""
         k = res.cost_terms.shape[1]
         n1 = res.rollout.x.shape[1]
         (x, y, theta, v, a_, kappa, s, s_dot, s_ddot, d, d_dot, d_ddot) = (
@@ -459,13 +602,16 @@ class ReactivePlanner:
             x=x, y=y, theta=theta, v=v, a=a_, kappa=kappa,
             s=s, s_dot=s_dot, s_ddot=s_ddot,
             d=d, d_dot=d_dot, d_ddot=d_ddot,
-            cost=float(extra[0]),
+            cost=float(extra[0]) if cost_override is None else float(cost_override),
             sampling_parameters=np.asarray(matrix[idx]),
             mode=mode,
             cost_terms=extra[1:1 + k],
         )
         if (self.config.debug.log_risk and self.preds is not None
                 and self.preds.num_obstacles > 0):
+            if risk_scalars is not None:
+                plan.ego_risk, plan.obst_risk = risk_scalars
+                return plan
             if risks is None:
                 _, risks = self._risk_totals(res.rollout)
             pair = torch.stack([risks.ego_risk[idx], risks.obst_risk[idx]])

@@ -5,8 +5,11 @@ idle share and the heaviest kernels, from `torch.profiler`.
 
 Profiles, in float32 on the CUDA device, each over `--calls` calls after a
 warm-up: the dense cycle (34,816 candidates), one simulation-sized cycle
-(M = 1024), the batched cycle of 8 agents (A = 8, M = 1024) and the risk
-stack on a simulation-sized rollout (4 obstacles).  The profiler slows the
+(M = 1024), the batched cycle of 8 agents (A = 8, M = 1024), the risk stack
+on a simulation-sized rollout (4 obstacles), and the batched cycle at 16
+obstacle slots alone, with the responsibility term (reach grids) and with
+the occlusion gate and its soft costs (phantom masks, occluder geometry).
+The profiler slows the
 host, so the wall time it reports per call is longer than an unprofiled
 call's; device times per kernel are not affected.  Needs a CUDA device.
 """
@@ -25,7 +28,9 @@ from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner.core import evaluate_cycle
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
-from frenetix_tpu_torch.workloads import dense_cycle_problem, stacked_cycle_problem
+from frenetix_tpu_torch.workloads import (
+    dense_cycle_problem, stacked_cycle_problem, stacked_post_pass_extras,
+)
 
 
 def profile_calls(name, fn, calls, top, card):
@@ -86,6 +91,23 @@ def main(argv=None) -> int:
     profile_calls("risk stack M=1024 O=4", lambda: trajectory_risks(
         res.rollout, preds, meta_from_footprint(preds.lengths, preds.widths),
         ctxs[0].veh.mass), args.calls, args.top, card)
+
+    # the post-passes of the batched cycle, at the simulations' 16 slots
+    matrices, masks, sctx, _, dt, n_steps = stacked_cycle_problem(
+        8, dev, torch.float32, m_bucket=1024, spread=12.0, ragged=True, o_slots=16)
+    grid, phantom_masks, geom = stacked_post_pass_extras(sctx)
+    plain = batched_full_cycle(dt=dt, n_steps=n_steps)
+    profile_calls("batched cycle A=8 M=1024 O=16", lambda: plain(matrices, masks, sctx),
+                  args.calls, args.top, card)
+    with_resp = batched_full_cycle(dt=dt, n_steps=n_steps, resp_weight=0.2)
+    profile_calls("batched cycle with responsibility A=8 M=1024 O=16",
+                  lambda: with_resp(matrices, masks, sctx, grid),
+                  args.calls, args.top, card)
+    gated = batched_full_cycle(dt=dt, n_steps=n_steps, occlusion=True,
+                               occ_um_weight=2.0, occ_ve_weight=0.5)
+    profile_calls("gated batched cycle (occ_um, occ_ve) A=8 M=1024 O=16",
+                  lambda: gated(matrices, masks, sctx, phantom_masks, *geom),
+                  args.calls, args.top, card)
     return 0
 
 

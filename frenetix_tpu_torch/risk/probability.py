@@ -38,10 +38,16 @@ _GL_X, _GL_W = np.polynomial.legendre.leggauss(24)
 _GL_X = ((_GL_X + 1.0) / 2.0).tolist()
 _GL_W = (_GL_W / 2.0).tolist()
 
-# cells (rectangle × mean × candidate × obstacle × step) per chunk of
+# cells (rectangle × mean × agent × candidate × obstacle × step) per chunk of
 # `collision_probability_fast`; a chunk's largest temporary is 4 corners ×
-# this many elements
+# this many elements.  On the card a chunk costs a whole pass of kernel
+# launches and memory is plentiful, so the bound is 16 times the host's: a
+# batch of 8 agents × 1024 candidates × 16 obstacles is one chunk there.
 _MAX_CELLS = 1 << 22
+_MAX_CELLS_CUDA = 1 << 26
+
+# (ego rectangle, obstacle mean) pairs in the order their terms are added
+_RECT_MEAN_PAIRS = [(r, k) for r in range(3) for k in range(3)]
 
 
 def bvn_cdf(x, y, rho):
@@ -81,27 +87,31 @@ def rectangle_probability(lower, upper, mean, cov):
 
 
 def collision_probability_fast(ro, preds, veh):
-    """(prob_per_obstacle (M, O, t), t): collision probability per candidate,
-    obstacle and step (3 ego rectangles × 3 obstacle means, 5 m gate, /3).
-    Output index j pairs ego step j+1 with prediction step j; the last
-    prediction step is never used."""
-    n1 = ro.x.shape[1]
+    """(prob_per_obstacle (..., M, O, t), t): collision probability per
+    candidate, obstacle and step (3 ego rectangles × 3 obstacle means, 5 m
+    gate, /3).  Output index j pairs ego step j+1 with prediction step j; the
+    last prediction step is never used.  Leading agent axes of the rollout
+    (..., M, N+1) and the predictions (..., O, T) ride along; the nine
+    rectangle × mean terms are added one by one, so an agent's slice of a
+    batched result equals its result alone."""
+    n1 = ro.x.shape[-1]
     t = min(n1 - 1, preds.horizon - 1)
-    m, o = ro.x.shape[0], preds.num_obstacles
+    m, o = ro.x.shape[-2], preds.num_obstacles
+    batch = tuple(ro.x.shape[:-2])
     dtype, device = ro.x.dtype, ro.x.device
 
-    mean_c = preds.means[:, :t]  # (O, t, 2)
+    mean_c = preds.means[..., :t, :]  # (..., O, t, 2)
     # the front/back mean points of prediction step j use the orientation of
     # step j+1 (a one-step yaw offset the JAX package pins against its source)
-    yaw = preds.orientations[:, 1 : t + 1]
+    yaw = preds.orientations[..., 1 : t + 1]
     half_len_vec = torch.stack([torch.cos(yaw), torch.sin(yaw)], dim=-1) * (
-        preds.lengths[:, None, None] / 2.0
+        preds.lengths[..., None, None] / 2.0
     )
     means3 = torch.stack(
         [mean_c, mean_c + half_len_vec, mean_c - half_len_vec], dim=0
-    )  # (3, O, t, 2)
+    )  # (3, ..., O, t, 2)
 
-    cov = preds.covs[:, :t]  # (O, t, 2, 2)
+    cov = preds.covs[..., :t, :, :]  # (..., O, t, 2, 2)
     # zero covariance (ground truth) falls back to 0.1·I
     cov_zero = torch.all((torch.abs(cov) < 1e-12).flatten(-2), dim=-1)
     eye = torch.eye(2, dtype=cov.dtype, device=device) * 0.1
@@ -110,53 +120,57 @@ def collision_probability_fast(ro, preds, veh):
     off = (2.0 / 3.0) * (veh.length / 2.0)
     offset = torch.tensor([veh.length / 6.0, veh.width / 2.0], dtype=dtype,
                           device=device)
-    valid = preds.valid[None, :, :t].to(dtype)
+    valid = preds.valid[..., None, :, :t].to(dtype)
 
-    chunk = max(1, _MAX_CELLS // max(9 * o * t, 1))
-    out = torch.empty((m, o, t), dtype=dtype, device=device)
+    n_batch = int(np.prod(batch)) if batch else 1
+    max_cells = _MAX_CELLS_CUDA if device.type == "cuda" else _MAX_CELLS
+    chunk = max(1, max_cells // max(9 * o * t * n_batch, 1))
+    out = torch.empty(batch + (m, o, t), dtype=dtype, device=device)
     for lo in range(0, m, chunk):
         hi = min(lo + chunk, m)
-        ego_xy = torch.stack([ro.x[lo:hi, 1 : t + 1], ro.y[lo:hi, 1 : t + 1]],
-                             dim=-1)                                # (m, t, 2)
-        ego_th = ro.theta_gl[lo:hi, 1 : t + 1]
+        ego_xy = torch.stack([ro.x[..., lo:hi, 1 : t + 1], ro.y[..., lo:hi, 1 : t + 1]],
+                             dim=-1)                                # (..., m, t, 2)
+        ego_th = ro.theta_gl[..., lo:hi, 1 : t + 1]
 
         # 5 m distance gate on the minimum of the three mean distances
-        delta = means3[:, None] - ego_xy[None, :, None]  # (3, m, O, t, 2)
+        delta = means3.unsqueeze(-4) - ego_xy.unsqueeze(-3)[None]  # (3, ..., m, O, t, 2)
         dist = torch.sqrt(torch.sum(delta * delta, dim=-1))
-        gate = torch.amin(dist, dim=0) <= 5.0  # (m, O, t)
+        gate = torch.amin(dist, dim=0) <= 5.0  # (..., m, O, t)
 
         # 3 axis-aligned ego rectangles: centers at 0, ±(2/3)(l/2) along heading
         heading = torch.stack([torch.cos(ego_th), torch.sin(ego_th)], dim=-1)
         centers3 = torch.stack(
             [ego_xy, ego_xy + off * heading, ego_xy - off * heading], dim=0
-        )  # (3, m, t, 2)
+        )  # (3, ..., m, t, 2)
         lower3 = centers3 - offset
         upper3 = centers3 + offset
 
-        # broadcast: rect r (3) × mean (3) × (m, O, t)
+        # broadcast: rect r (3) × mean (3) × (..., m, O, t)
         p = rectangle_probability(
-            lower3[:, None, :, None],          # (3, 1, m, 1, t, 2)
-            upper3[:, None, :, None],
-            means3[None, :, None],             # (1, 3, 1, O, t, 2)
-            cov[None, None, None],             # (1, 1, 1, O, t, 2, 2)
-        )  # (3, 3, m, O, t)
-        prob = torch.sum(p, dim=(0, 1)) / 3.0
-        out[lo:hi] = prob * gate.to(dtype) * valid
+            lower3.unsqueeze(1).unsqueeze(-3),     # (3, 1, ..., m, 1, t, 2)
+            upper3.unsqueeze(1).unsqueeze(-3),
+            means3[None].unsqueeze(-4),            # (1, 3, ..., 1, O, t, 2)
+            cov.unsqueeze(-5)[None, None],         # (1, 1, ..., 1, O, t, 2, 2)
+        )  # (3, 3, ..., m, O, t)
+        prob = p[0, 0]
+        for r, k in _RECT_MEAN_PAIRS[1:]:
+            prob = prob + p[r, k]
+        out[..., lo:hi, :, :] = prob / 3.0 * gate.to(dtype) * valid
     return out, t
 
 
 def inv_mahalanobis(ro, preds):
-    """(M, O, t) inverse-Mahalanobis surrogate; index j pairs ego step j+1
-    with prediction step j."""
-    n1 = ro.x.shape[1]
+    """(..., M, O, t) inverse-Mahalanobis surrogate; index j pairs ego step
+    j+1 with prediction step j."""
+    n1 = ro.x.shape[-1]
     t = min(n1 - 1, preds.horizon - 1)
-    mean = preds.means[None, :, :t]
-    icov = preds.inv_covs[None, :, :t]
-    dx = ro.x[:, None, 1 : t + 1] - mean[..., 0]
-    dy = ro.y[:, None, 1 : t + 1] - mean[..., 1]
+    mean = preds.means[..., None, :, :t, :]
+    icov = preds.inv_covs[..., None, :, :t, :, :]
+    dx = ro.x[..., :, None, 1 : t + 1] - mean[..., 0]
+    dy = ro.y[..., :, None, 1 : t + 1] - mean[..., 1]
     md2 = quadratic_form_2x2(dx, dy, icov)
     out = 1.0 / torch.clamp(md2 * md2, min=1e-12)
-    return out * preds.valid[None, :, :t].to(out.dtype), t
+    return out * preds.valid[..., None, :, :t].to(out.dtype), t
 
 
 def normalize_probability(prob):

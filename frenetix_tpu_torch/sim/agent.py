@@ -4,7 +4,9 @@ PyTorch port of `frenetix_tpu/sim/agent.py` with the default planner
 interface (`frenetix_tpu/sim/planner_interfaces.py::FrenetPlannerInterface`)
 folded in: per step collision → goal check → replan every k-th step (or when
 no plan exists) → execute the next planned state.  The planner is the port's
-`ReactivePlanner` on the agent's device.
+`ReactivePlanner` on the agent's device.  With a responsibility weight the
+agent rasterizes the obstacles' reach-set grids before each replan; with
+`occlusion.use_occlusion_module` it owns an `OcclusionModule`.
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch.io.commonroad import _point_in_ring
+from frenetix_tpu_torch.occlusion import OcclusionModule, PhantomThresholds
 from frenetix_tpu_torch.planner.initial_state import CartesianState, compute_initial_state_np
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, ReactivePlanner
 from frenetix_tpu_torch.planner.route import reference_path_for_problem
+from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
 
 __all__ = ["AgentStatus", "Agent", "EgoState"]
 
@@ -100,6 +104,30 @@ class Agent:
         self.x_cl = None              # curvilinear state carried between plans
         self._goal_s = self._compute_goal_s()
         self._goal_time = self._goal_time_interval()
+
+        self.occlusion = None
+        if config.occlusion.use_occlusion_module:
+            occ = config.occlusion
+            self.occlusion = OcclusionModule(
+                scenario,
+                sensor_radius=config.prediction.sensor_radius,
+                max_phantoms=occ.max_phantoms,
+                harm_threshold=occ.harm_threshold,
+                risk_threshold=occ.risk_threshold,
+                thresholds=PhantomThresholds.from_config(occ),
+                phantom_type=occ.phantom_type,
+                spawn_point_behind_dynamic_obstacle=occ.spawn_point_behind_dynamic_obstacle,
+                spawn_point_behind_static_obstacle=occ.spawn_point_behind_static_obstacle,
+                spawn_points_behind_turn=occ.spawn_points_behind_turn,
+                max_dynamic_spawn_points=occ.max_dynamic_spawn_points,
+                max_static_spawn_points=occ.max_static_spawn_points,
+                variance_factor=occ.variance_factor,
+                size_factor_length=occ.size_factor_length,
+                size_factor_width=occ.size_factor_width,
+                veh=config.vehicle,
+                dt=config.planning.dt,
+                route_xy=np.asarray(polyline),
+            )
 
     # ------------------------------------------------------------------ goal
     def _goal_polygons(self, goal):
@@ -207,8 +235,26 @@ class Agent:
         """Feed one cycle's predictions, obstacles and desired velocity."""
         self.planner.set_predictions(predictions)
         self.planner.set_obstacles(obstacle_xy, obstacle_valid)
+        if self.config.cost_weights.get("responsibility", 0.0) != 0.0 \
+                and predictions is not None:
+            self.planner.set_reach_grid(self.reach_grid_for(predictions))
         self.ensure_x_cl()  # desired_velocity() projects the goal against x_cl
         self.planner.set_desired_velocity(self.desired_velocity())
+
+    def reach_grid_for(self, predictions):
+        """Lanelet-following reach sets of the predicted obstacles' current
+        poses, rasterized on the host and uploaded to the planner's device.
+        The obstacles' first-step rows come to the host in one copy."""
+        first = torch.cat([
+            predictions.means[:, 0], predictions.orientations[:, :1],
+            predictions.velocities[:, :1], predictions.lengths[:, None],
+            predictions.widths[:, None],
+            predictions.valid[:, :1].to(predictions.means.dtype),
+        ], dim=1).cpu().numpy()
+        return build_reach_set_grids(
+            self.scenario, first[:, 0:2], first[:, 2], first[:, 3], first[:, 4],
+            first[:, 5], first[:, 6] != 0,
+            device=self.planner.device, dtype=self.planner.dtype)
 
     def step(self, predictions, obstacle_xy, obstacle_valid) -> AgentStatus:
         """One simulation step: maybe replan, then execute the next state."""

@@ -13,9 +13,16 @@ planning problems) step the agents one after the other, or with
 (`parallel.batched_sim.BatchedAgentStepper`) with ONE device→host copy per
 densification level.
 
-The sharded and device-resident paths, Wale-Net predictions, visible-area
-occlusion and plotting are not ported yet; a config that asks for them raises
-NotImplementedError naming the ROADMAP.md slice that brings them.
+With `prediction.calc_occlusions` the sensor filter drops obstacles hidden
+behind road walls, other obstacles and the other agents' live vehicles
+(`sim.visible_area`).  With `occlusion.use_occlusion_module` every agent's
+predictions get phantom rows behind the occluders it sees, and its planner
+(or the batched cycle) gates and prices the candidates against them; with a
+responsibility weight the batched path stacks the agents' reach-set grids.
+
+The sharded and device-resident paths, Wale-Net predictions and plotting are
+not ported yet; a config that asks for them raises NotImplementedError
+naming the ROADMAP.md slice that brings them.
 """
 from __future__ import annotations
 
@@ -30,14 +37,17 @@ from frenetix_tpu_torch import default_device
 from frenetix_tpu_torch.io.commonroad import GoalCondition, PlanningProblem, State
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
+from frenetix_tpu_torch.parallel.mesh import stack_reach_grids
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory
+from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
 from frenetix_tpu_torch.sim.agent import Agent, AgentStatus
 from frenetix_tpu_torch.sim.prediction import (
     constant_velocity_predictions, extrapolate_constant_velocity,
     ground_truth_predictions, to_device,
 )
 from frenetix_tpu_torch.sim.sensor_model import visible_obstacles
-from frenetix_tpu_torch.utils.config import FrenetixConfig
+from frenetix_tpu_torch.sim.visible_area import road_boundary_segments
+from frenetix_tpu_torch.utils.config import EXTERNAL_COST_KEYS, FrenetixConfig
 
 __all__ = ["Simulation", "SimulationResult"]
 
@@ -69,8 +79,6 @@ def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
         out.append("simulation.device_resident_sim (slice 6)")
     if config.prediction.mode not in ("ground_truth", "constant_velocity"):
         out.append(f"prediction.mode={config.prediction.mode!r} (Wale-Net: slice 5)")
-    if config.prediction.use_sensor_model and config.prediction.calc_occlusions:
-        out.append("prediction.calc_occlusions (visible-area occlusion: slice 4)")
     return out
 
 
@@ -96,6 +104,13 @@ class Simulation:
         raises where there is none); pass torch.device("cpu") to run there."""
         self.scenario = scenario
         self.config = config or FrenetixConfig()
+        ew = self.config.external_cost_weights
+        if (not self.config.occlusion.use_occlusion_module
+                and any(float(ew.get(k, 0.0)) != 0.0 for k in EXTERNAL_COST_KEYS)):
+            # the soft terms are evaluated only in the occlusion branch: a
+            # weight without the module must not be a silent no-op
+            raise ValueError(
+                "external_cost_weights require occlusion.use_occlusion_module")
         unsupported = _unsupported(self.config, scenario)
         if unsupported:
             raise NotImplementedError(
@@ -121,6 +136,8 @@ class Simulation:
         self._peer_rows_cache = None
         self._batched_stepper = None
         self._batched_max_m = 0
+        self._road_segments = None      # static wall segments, built at first use
+        self._dummy_reach_grid = None
 
     # ----------------------------------------------------------- multi-agent
     def _create_obstacle_agents(self):
@@ -211,18 +228,36 @@ class Simulation:
         pcfg = self.config.prediction
         if not pcfg.use_sensor_model:
             return pd
+        if pcfg.calc_occlusions and self._road_segments is None:
+            # static geometry: dissolve the lanelet union's boundary once
+            self._road_segments = road_boundary_segments(self.scenario)
         vis = set(visible_obstacles(
             self.scenario, agent.id, agent.state, agent.state.time_step,
             sensor_radius=pcfg.sensor_radius,
+            occlusions=pcfg.calc_occlusions,
             veh_length=self.config.vehicle.length,
             cone_angle=pcfg.cone_angle,
             cone_safety_dist=pcfg.cone_safety_dist,
             agent_ids=self.agent_obstacle_ids,
+            road_segments=self._road_segments,
+            extra_occluders=self._live_peer_boxes(agent),
         ))
         for k, oid in enumerate(ids[: pd["valid"].shape[0]]):
             if oid not in vis:
                 pd["valid"][k] = False
         return pd
+
+    def _live_peer_boxes(self, agent):
+        """(position, orientation, length, width) of the other live agents:
+        their vehicles occlude although their scenario trajectories went
+        stale when they became agents."""
+        veh = self.config.vehicle
+        return [
+            (a.state.position, a.state.orientation, veh.length, veh.width)
+            for a in self.agents
+            if a.id != agent.id
+            and a.status in (AgentStatus.IDLE, AgentStatus.RUNNING)
+        ]
 
     def _peer_future(self, a: Agent, t: int, horizon: int):
         """The future of one live peer agent as the others see it.
@@ -345,11 +380,76 @@ class Simulation:
 
     def _agent_predictions(self, pd_base, ids, agent):
         """One agent's predictions: a copy of the global step, sensor-filtered,
-        with the other live agents added.  The one definition shared by the
-        sequential and the batched path."""
+        with the other live agents added and, with the occlusion module, the
+        phantom rows (which also arms the planner's gate).  The one
+        definition shared by the sequential and the batched path.  Returns
+        (pd, phantom mask (O,) or None)."""
         pd = {k: v.copy() for k, v in pd_base.items()}
         pd = self._filter_for_agent(pd, ids, agent)
-        return self._augment_with_agents(pd, agent)
+        pd = self._augment_with_agents(pd, agent)
+        phantom_mask = None
+        if agent.occlusion is not None:
+            # as in the sensor path: agents' recorded trajectories are stale,
+            # so they are excluded as occluders and their live poses are used
+            agent.occlusion.occluder_exclude = frozenset(p.id for p in self.agents)
+            agent.occlusion.extra_occluders = tuple(self._live_peer_boxes(agent))
+            before = pd["valid"].any(axis=1).copy()
+            pd, _ = agent.occlusion.augment_predictions(
+                pd, agent.state, agent.state.time_step, self.dt)
+            phantom_mask = pd["valid"].any(axis=1) & ~before
+            # the host fallbacks (low velocity, batched misses) apply the
+            # same gate through the planner; the pose feeds the soft terms
+            agent.planner.set_occlusion_module(
+                agent.occlusion, phantom_mask, ego_state=agent.state,
+                time_step=agent.state.time_step)
+        return pd, phantom_mask
+
+    def _reach_grid_from(self, pd, valid=None):
+        """Reach-set grids of a host prediction dict's first-step poses, on
+        the simulation's device; `valid` overrides the dict's mask."""
+        return build_reach_set_grids(
+            self.scenario, pd["means"][:, 0], pd["orientations"][:, 0],
+            pd["velocities"][:, 0], pd["lengths"], pd["widths"],
+            pd["valid"][:, 0] if valid is None else valid,
+            device=self.device, dtype=self.dtype)
+
+    def _stacked_reach_grids(self, pd_base, per_pd, batchable):
+        """Agent-stacked reach grids for the batched responsibility term:
+        real grids only for the agents whose batch rows are consumed; the
+        others share one cached all-invalid grid."""
+        o_slots = pd_base["valid"].shape[0]
+        dummy = self._dummy_reach_grid
+        if dummy is None or dummy.occupancy.shape[0] != o_slots:
+            dummy = self._reach_grid_from(pd_base, np.zeros(o_slots, bool))
+            self._dummy_reach_grid = dummy
+        batch_ids = {a.id for a in batchable}
+        return stack_reach_grids([
+            self._reach_grid_from(per_pd[a.id]) if a.id in batch_ids else dummy
+            for a in self.agents])
+
+    def _stacked_occluder_geometry(self, np_dtype):
+        """(ego (A, 2), r_vis (A, K), pts (A, Q, 2), pts_valid (A, Q)) for the
+        batched occ_um / occ_ve terms: the polar maps and phantom silhouette
+        points the sequential planner gathers one agent at a time.  Agents
+        without a module keep an open map (r_vis = sensor radius)."""
+        a_n = len(self.agents)
+        egos = np.zeros((a_n, 2), np_dtype)
+        r_all = pts_all = vld_all = None
+        for i, a in enumerate(self.agents):
+            mod = a.occlusion
+            if mod is None:
+                continue
+            r_vis, ego = mod.polar_map(a.state, a.state.time_step)
+            pts, vld = mod.occluder_points()
+            if r_all is None:
+                r_all = np.full((a_n, len(r_vis)), mod.sensor_radius, np_dtype)
+                pts_all = np.zeros((a_n,) + pts.shape, np_dtype)
+                vld_all = np.zeros((a_n,) + vld.shape, bool)
+            egos[i] = ego
+            r_all[i] = r_vis
+            pts_all[i] = pts
+            vld_all[i] = vld
+        return None if r_all is None else (egos, r_all, pts_all, vld_all)
 
     # ------------------------------------------------------------- collisions
     def _check_collisions(self, t: int):
@@ -407,9 +507,28 @@ class Simulation:
         low_thr = self.config.planning.low_vel_mode_threshold
         replanners = [a for a in active if a.needs_replan()]
         # only replanners consume predictions
-        per_pd = {a.id: self._agent_predictions(pd_base, ids, a) for a in replanners}
+        per_pd, phantom_masks = {}, {}
+        for a in replanners:
+            per_pd[a.id], pm = self._agent_predictions(pd_base, ids, a)
+            if pm is not None:
+                phantom_masks[a.id] = pm
         batchable = [a for a in replanners if a.state.velocity >= low_thr]
         host_only = [a for a in replanners if a.state.velocity < low_thr]
+
+        # the extras of the batched post-passes, the same for every level
+        reach_grids = all_phantom_masks = occ_geom = None
+        if stepper.resp_weight != 0.0 and batchable:
+            reach_grids = self._stacked_reach_grids(pd_base, per_pd, batchable)
+        if stepper.use_occlusion and batchable:
+            # all-False rows for agents without phantoms this step: the gate
+            # then changes nothing for them
+            all_phantom_masks = np.zeros(
+                (len(self.agents), pd_base["valid"].shape[0]), bool)
+            for i, a in enumerate(self.agents):
+                if a.id in phantom_masks:
+                    all_phantom_masks[i] = phantom_masks[a.id]
+            if stepper.use_occ_geom:
+                occ_geom = self._stacked_occluder_geometry(self.np_dtype)
 
         # progressive densification stays batched: agents that miss at one
         # sampling level run again in the next level's batch; only the
@@ -465,6 +584,8 @@ class Simulation:
             out, poses_all = stepper.step(
                 all_mats, all_masks, preds_stacked, all_th, all_vdes,
                 self.config.vehicle, self._batched_weights,
+                reach_grids=reach_grids, phantom_masks=all_phantom_masks,
+                occ_geom=occ_geom,
             )
             # the agents' next poses stay on the device for a caller that
             # rebuilds obstacle tensors there (mesh.agent_pose_predictions)
@@ -557,7 +678,7 @@ class Simulation:
                 # every agent's predictions from the SAME pre-step snapshot,
                 # before any agent executes (lockstep; it also keeps the
                 # sequential and the batched path equal)
-                per_pd = {a.id: self._agent_predictions(pd_base, ids, a)
+                per_pd = {a.id: self._agent_predictions(pd_base, ids, a)[0]
                           for a in running}
                 for a in running:
                     pd = per_pd[a.id]

@@ -1,11 +1,11 @@
 """Configuration of the port: typed dataclasses + optional YAML-directory merge.
 
-A JAX-free copy of the parts of `frenetix_tpu/utils/config.py` that the
-single-agent replanning slice reads (the JAX module imports `VehicleParams`
-from a JAX module, so it cannot be imported where JAX is absent).  Field
-names and defaults are identical to the JAX package's; the tests pin that.
-Only fields the slice reads are carried; the flags of features it does not
-carry yet are among them, so that the planner can refuse them loudly.
+A JAX-free copy of the parts of `frenetix_tpu/utils/config.py` that the port
+reads (the JAX module imports `VehicleParams` from a JAX module, so it cannot
+be imported where JAX is absent).  Field names and defaults are identical to
+the JAX package's; the tests pin that.  Only fields the port reads are
+carried; the flags of features it does not carry yet are among them, so that
+the planner can refuse them loudly.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ __all__ = [
     "BehaviorConfig",
     "DebugConfig",
     "DEFAULT_COST_WEIGHTS",
+    "EXTERNAL_COST_KEYS",
     "FrenetixConfig",
     "OcclusionConfig",
     "PlanningConfig",
@@ -115,7 +116,31 @@ class BehaviorConfig:
 
 @dataclass
 class OcclusionConfig:
+    """Occlusion module (off by default).
+
+    `metric_thresholds` activates the full metric gate (keys: harm, risk, cp,
+    ttc, wttc, ttce, dce, be; None = deactivated).  `harm_threshold` and
+    `risk_threshold` are the default gate's shorthand."""
+
     use_occlusion_module: bool = False
+    harm_threshold: float = 0.1
+    risk_threshold: float = 1.0
+    metric_thresholds: dict = field(default_factory=dict)
+    max_phantoms: int = 4
+    phantom_type: str = "pedestrian"   # pedestrian | bicycle | car | truck
+    # where phantoms spawn
+    spawn_point_behind_dynamic_obstacle: bool = True
+    spawn_point_behind_static_obstacle: bool = True
+    spawn_points_behind_turn: bool = False
+    max_dynamic_spawn_points: int = 4
+    max_static_spawn_points: int = 4
+    # inflation of the phantoms' predictions
+    variance_factor: float = 1.05
+    size_factor_length: float = 1.2
+    size_factor_width: float = 1.3
+
+
+EXTERNAL_COST_KEYS = ("occ_pm", "occ_um", "occ_ve")
 
 
 @dataclass
@@ -128,7 +153,26 @@ class FrenetixConfig:
     occlusion: OcclusionConfig = field(default_factory=OcclusionConfig)
     vehicle: VehicleParams = field(default_factory=VehicleParams)
     cost_weights: dict = field(default_factory=lambda: dict(DEFAULT_COST_WEIGHTS))
+    # soft occlusion cost terms (occlusion.external_occlusion_costs); they
+    # need occlusion.use_occlusion_module
+    external_cost_weights: dict = field(
+        default_factory=lambda: dict.fromkeys(EXTERNAL_COST_KEYS, 0.0))
     dtype: str = "float32"      # "float32" on the card, "float64" for CPU parity
+
+
+def _dict_key_schema(path: str):
+    """The known keys of a fixed-schema dict field (a misspelled key there
+    must not be a silent no-op), else None."""
+    if path == "cost_weights":
+        return set(DEFAULT_COST_WEIGHTS)
+    if path == "external_cost_weights":
+        return set(EXTERNAL_COST_KEYS)
+    if path == "occlusion.metric_thresholds":
+        # imported here: the occlusion package imports this module
+        from frenetix_tpu_torch.occlusion import PhantomThresholds
+
+        return set(PhantomThresholds._fields)
+    return None
 
 
 def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
@@ -155,9 +199,9 @@ def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
                 **{kk: vv for kk, vv in v.items()
                    if kk in cur._fields and vv is not None}))
         elif isinstance(cur, dict) and isinstance(v, dict):
-            if k == "cost_weights":
-                unknown.extend(f"{path}{k}.{kk}" for kk in v
-                               if kk not in DEFAULT_COST_WEIGHTS)
+            allowed = _dict_key_schema(f"{path}{k}")
+            if allowed is not None:
+                unknown.extend(f"{path}{k}.{kk}" for kk in v if kk not in allowed)
             cur.update(v)
         else:
             setattr(obj, k, v)
@@ -166,8 +210,9 @@ def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
 def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = None,
                 strict_overrides: bool = False) -> FrenetixConfig:
     """Defaults ← `<config_dir>/*.yaml` (each file merges under its stem;
-    cost.yaml's `cost_weights` at the root) ← `overrides`.  YAML keys this
-    slice does not know are ignored; with `strict_overrides` an unknown key
+    cost.yaml's `cost_weights` and `external_cost_weights` at the root) ←
+    `overrides`.  YAML keys the port does not know are ignored; with
+    `strict_overrides` an unknown key
     in `overrides` raises.  PyYAML is imported only when a directory is
     given."""
     cfg = FrenetixConfig()
@@ -182,8 +227,10 @@ def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = No
                 data = yaml.safe_load(f) or {}
             stem = os.path.splitext(fname)[0]
             if stem == "cost":
-                if "cost_weights" in data:
-                    merged.setdefault("cost_weights", {}).update(data["cost_weights"])
+                # cost.yaml's two maps are root-level config fields
+                for key in ("cost_weights", "external_cost_weights"):
+                    if key in data:
+                        merged.setdefault(key, {}).update(data[key])
             else:
                 merged.setdefault(stem, {}).update(data)
         _apply_overrides(cfg, merged, "", [])

@@ -12,7 +12,11 @@ reference path (R = 868 rows at ds ≈ 0.25 m), a ±3.5 m drivable corridor,
 padded to the bucket), 4 predicted obstacles per agent, stacked along the
 agent axis for `parallel.mesh.batched_full_cycle`.  With `ragged=True` the
 agents' arcs differ in length, so their tables have different R and are
-padded to a common one.
+padded to a common one.  With `o_slots` the predictions are padded to that
+many obstacle slots (the simulations' 16) and obstacle 0 of every agent
+stands next to the candidates' end points, so that the risk stack has risk
+to price; `stacked_post_pass_extras` makes the reach grids, phantom masks and
+occluder geometry that the batched cycle's post-passes take.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from frenetix_tpu_torch.ops.sampling import (
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
 from frenetix_tpu_torch.planner.core import context_from_numpy
+from frenetix_tpu_torch.risk.reachable_set import ReachSetGrid
 
-__all__ = ["dense_cycle_problem", "stacked_cycle_problem"]
+__all__ = ["dense_cycle_problem", "stacked_cycle_problem",
+           "stacked_post_pass_extras"]
 
 N_STEPS = 30
 DT = 0.1
@@ -105,9 +111,15 @@ def dense_cycle_problem(device: torch.device, dtype=torch.float32, density=5,
             int(mask.sum()))
 
 
+def _pad_slots(arr, o_slots):
+    """First axis zero-padded to `o_slots` rows."""
+    pad = np.zeros((o_slots - arr.shape[0],) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, pad])
+
+
 def _stacked_cycle_numpy(a: int, dtype=np.float32, n_steps: int = N_STEPS,
                          m_bucket: int = 256, spread: float = 3.0,
-                         ragged: bool = False):
+                         ragged: bool = False, o_slots=None):
     """Host arrays of the stacked problem: the shared (matrix, mask) and one
     dict of context fields per agent."""
     matrix = build_sampling_matrix(
@@ -132,6 +144,9 @@ def _stacked_cycle_numpy(a: int, dtype=np.float32, n_steps: int = N_STEPS,
         )
         covs = np.tile(np.eye(2, dtype=dtype) * 0.5, (o, t_pred, 1, 1))
         means = np.tile(np.array([60.0 + spread * i, 5.0], dtype), (o, t_pred, 1))
+        if o_slots is not None:
+            # obstacle 0 next to the end points of the candidates' fan
+            means[0] = np.array([40.0 + spread * i, 5.0], dtype)
         preds = dict(
             means=means, inv_covs=np.linalg.inv(covs).astype(dtype), covs=covs,
             orientations=np.zeros((o, t_pred), dtype),
@@ -139,6 +154,9 @@ def _stacked_cycle_numpy(a: int, dtype=np.float32, n_steps: int = N_STEPS,
             lengths=np.full((o,), 4.5, dtype), widths=np.full((o,), 1.8, dtype),
             valid=np.ones((o, t_pred), bool),
         )
+        if o_slots is not None:
+            preds = {k: _pad_slots(v, o_slots) for k, v in preds.items()}
+            means = preds["means"]
         agents.append(dict(
             ref=ref, veh=VehicleParams(), weights=weights, preds=preds,
             obstacle_xy=means[:, 0], obstacle_valid=preds["valid"][:, 0],
@@ -154,7 +172,7 @@ def _stacked_cycle_numpy(a: int, dtype=np.float32, n_steps: int = N_STEPS,
 
 def stacked_cycle_problem(a: int, device: torch.device, dtype=torch.float32,
                           n_steps: int = N_STEPS, m_bucket: int = 256,
-                          spread: float = 3.0, ragged: bool = False):
+                          spread: float = 3.0, ragged: bool = False, o_slots=None):
     """(matrices (A, M, 13), masks (A, M), stacked ctx, per-agent ctxs, dt,
     n_steps) on `device`: the stacked context for
     `parallel.mesh.batched_full_cycle` and the A single-agent contexts it
@@ -163,9 +181,44 @@ def stacked_cycle_problem(a: int, device: torch.device, dtype=torch.float32,
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     matrix, mask, agents = _stacked_cycle_numpy(a, np_dtype, n_steps, m_bucket,
-                                                spread, ragged)
+                                                spread, ragged, o_slots)
     ctxs = [context_from_numpy(**f, device=device, dtype=dtype) for f in agents]
     matrices = torch.as_tensor(np.tile(matrix[None], (a, 1, 1)), dtype=dtype,
                                device=device)
     masks = torch.as_tensor(np.tile(mask[None], (a, 1)), device=device)
     return matrices, masks, stack_cycle_contexts(ctxs), ctxs, DT, n_steps
+
+
+def stacked_post_pass_extras(ctx, seed: int = 0, grid_n: int = 64, n_rays: int = 720,
+                             n_points: int = 4):
+    """The extras of the batched cycle's post-passes for a stacked context of
+    `stacked_cycle_problem(..., o_slots=...)`, on its device:
+
+    - an agent-stacked ReachSetGrid in which only obstacle 0 is valid and
+      reaches the +y half of its grid at every step, so that the
+      responsibility term differs between candidates;
+    - phantom masks (A, O) marking obstacle 0;
+    - occluder geometry: egos 25 m before obstacle 1, polar maps with ranges
+      drawn from `seed` between 8 and 35 m, and `n_points` silhouette points
+      around obstacle 0 of which the first two are valid.
+
+    Returns (grid, phantom_masks, (ego, r_vis, pts, pts_valid))."""
+    xy = ctx.preds.means[:, :, 0]                          # (A, O, 2)
+    a, o = xy.shape[0], xy.shape[1]
+    device, dtype = xy.device, xy.dtype
+    occupancy = torch.zeros((a, o, 11, grid_n, grid_n), dtype=torch.bool, device=device)
+    occupancy[:, 0, :, :, grid_n // 2:] = True
+    first = torch.zeros((a, o), dtype=torch.bool, device=device)
+    first[:, 0] = True
+    grid = ReachSetGrid(origin=xy, occupancy=occupancy, valid=first,
+                        cell=torch.full((a, o), 1.5, dtype=dtype, device=device),
+                        dt_rs=0.2)
+    rng = np.random.default_rng(seed)
+    r_vis = torch.as_tensor(rng.uniform(8.0, 35.0, (a, n_rays)), dtype=dtype,
+                            device=device)
+    offsets = torch.as_tensor(rng.normal(size=(a, n_points, 2)), dtype=dtype,
+                              device=device)
+    pts_valid = torch.zeros((a, n_points), dtype=torch.bool, device=device)
+    pts_valid[:, :2] = True
+    ego = xy[:, 1] - torch.tensor([25.0, 3.0], dtype=dtype, device=device)
+    return grid, first.clone(), (ego, r_vis, xy[:, :1] + offsets, pts_valid)

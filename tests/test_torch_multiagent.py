@@ -245,9 +245,19 @@ def test_dummy_agents_are_not_found_and_touch_nobody(ragged_problem):
 
 
 def test_unported_batched_options_raise():
-    for kw in (dict(resp_weight=0.2), dict(occlusion=True), dict(occ_um_weight=1.0)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tmesh.batched_full_cycle(dt=DT, n_steps=N, **kw)
+    """The device mesh of the agent axis is the one batched option still to
+    come; the responsibility term and the occlusion gate construct."""
+    from frenetix_tpu_torch.io.scenario_factory import make_highway
+    from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
+
+    cfg = tconfig.FrenetixConfig(dtype="float64")
+    cfg.simulation.start_multiagent = True
+    sim = Simulation(make_highway(n_steps=80), cfg, CPU)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        BatchedAgentStepper(cfg, sim.agents, CPU, mesh=object())
+    for kw in (dict(resp_weight=0.2), dict(occlusion=True),
+               dict(occlusion=True, occ_um_weight=1.0)):
+        assert callable(tmesh.batched_full_cycle(dt=DT, n_steps=N, **kw))
 
 
 # --------------------------------------------------------- peer predictions
@@ -459,7 +469,7 @@ def test_peer_rows_and_eviction_match_jax():
     assert jids == tids
     for ja, ta in zip(jsim.agents, tsim.agents):
         want = jsim._agent_predictions(jpd, jids, ja)[0]
-        got = tsim._agent_predictions(tpd, tids, ta)
+        got = tsim._agent_predictions(tpd, tids, ta)[0]
         for key in want:
             np.testing.assert_allclose(got[key], want[key], rtol=1e-12, atol=1e-12,
                                        err_msg=f"agent {ja.id} {key}")

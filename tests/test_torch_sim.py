@@ -91,14 +91,11 @@ def test_run_scenario_cuda_without_cuda_raises():
 
 @pytest.mark.parametrize("override", [
     {"simulation": {"sharded_device_agents": True}},
-    {"cost_weights": {"responsibility": 0.5}},
     {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
-    {"occlusion": {"use_occlusion_module": True}},
     {"behavior": {"use_behavior_planner": True}},
     {"simulation": {"batched_device_agents": True, "device_resident_sim": True}},
     {"simulation": {"device_resident_sim": True}},
     {"prediction": {"mode": "walenet"}},
-    {"prediction": {"calc_occlusions": True}},
 ])
 def test_features_outside_the_slice_raise(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -113,6 +110,11 @@ def test_features_outside_the_slice_raise(override):
     {"debug": {"log_risk": True}},
     {"simulation": {"start_multiagent": True}},
     {"simulation": {"start_multiagent": True, "batched_device_agents": True}},
+    {"cost_weights": {"responsibility": 0.5}},
+    {"occlusion": {"use_occlusion_module": True}},
+    {"prediction": {"calc_occlusions": True}},
+    {"occlusion": {"use_occlusion_module": True},
+     "external_cost_weights": {"occ_um": 2.0, "occ_ve": 0.5}},
 ])
 def test_features_of_this_slice_construct(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -150,6 +152,11 @@ def test_config_defaults_match_jax():
         for f in dataclasses.fields(tsec):
             assert getattr(tsec, f.name) == getattr(getattr(jcfg, section), f.name), \
                 f"{section}.{f.name}"
+    # the occlusion section is carried whole
+    assert ({f.name for f in dataclasses.fields(tcfg.occlusion)}
+            == {f.name for f in dataclasses.fields(jcfg.occlusion)})
+    assert len(dataclasses.fields(tcfg.occlusion)) == 14
+    assert tcfg.external_cost_weights == jcfg.external_cost_weights
     assert tcfg.planning.n_steps == jcfg.planning.n_steps
     assert tcfg.vehicle._fields == jcfg.vehicle._fields
     assert tuple(tcfg.vehicle) == tuple(jcfg.vehicle)
@@ -192,7 +199,9 @@ for name in names:
 for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "io.commonroad", "io.scenario_factory", "parallel.mesh",
                  "parallel.batched_sim", "risk.probability", "risk.harm",
-                 "risk.costs", "run_scenario", "workloads"):
+                 "risk.costs", "risk.reachable_set", "sim.visible_area",
+                 "sim.sensor_model", "occlusion", "occlusion.occlusion_module",
+                 "run_scenario", "workloads"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

@@ -79,3 +79,71 @@ def torch_rollout(jro):
         else:
             fields[f] = t64(v)
     return Rollout(**fields)
+
+
+def reach_grid_to_torch(jgrid, device=CPU, dtype=torch.float64):
+    """The port's ReachSetGrid carrying a JAX ReachSetGrid's values."""
+    from frenetix_tpu_torch.risk.reachable_set import reach_grid_from_numpy
+
+    return reach_grid_from_numpy(
+        to_np(jgrid.origin), to_np(jgrid.occupancy), to_np(jgrid.valid),
+        to_np(jgrid.cell), jgrid.dt_rs, device=device, dtype=dtype)
+
+
+def lanelet_tensors_to_torch(jlane, device=CPU, dtype=torch.float64):
+    """The port's LaneletTensors carrying a JAX LaneletTensors' values."""
+    from frenetix_tpu_torch.risk.reachable_set import lanelet_tensors_from_numpy
+
+    return lanelet_tensors_from_numpy(
+        to_np(jlane.rings), to_np(jlane.ring_valid), to_np(jlane.closure),
+        device=device, dtype=dtype)
+
+
+def random_risks(rng, m, o, lead=()):
+    """(JAX TrajectoryRisks, the port's) with the same random values; `lead`
+    are leading agent axes of the port's copy (the JAX one is built without
+    them when `lead` is empty, else not at all: None)."""
+    import jax.numpy as jnp
+    from frenetix_tpu.risk.costs import TrajectoryRisks as JRisks
+    from frenetix_tpu_torch.risk.costs import TrajectoryRisks as TRisks
+
+    shape = tuple(lead) + (m, o)
+    per = {k: rng.uniform(0.0, 1.0, shape) for k in (
+        "ego_risk_per_obst", "obst_risk_per_obst", "ego_harm_per_obst",
+        "obst_harm_per_obst", "coll_prob_per_obst")}
+    # some exactly-zero risks, so that the maximin mask has both sides
+    per["ego_risk_per_obst"][..., ::2, :] = 0.0
+    present = rng.uniform(size=tuple(lead) + (o,)) < 0.7
+    fields = dict(per, ego_risk=per["ego_risk_per_obst"].max(-1, initial=0.0),
+                  obst_risk=per["obst_risk_per_obst"].max(-1, initial=0.0),
+                  obst_present=present)
+    jr = None if lead else JRisks(**{k: jnp.asarray(v) for k, v in fields.items()})
+    return jr, TRisks(**{k: t64(v) for k, v in fields.items()})
+
+
+class Arrays:
+    """A stand-in for a rollout or predictions: the given arrays as
+    attributes, each passed through `xp` (`jnp_array` or `t64`)."""
+
+    def __init__(self, xp, **arrays):
+        for k, v in arrays.items():
+            setattr(self, k, xp(v))
+
+
+def jnp_array(a):
+    import jax.numpy as jnp
+
+    return jnp.asarray(a)
+
+
+def agent_states(sim):
+    """Per agent the executed (x, y, v) rows of a simulation of either package."""
+    return {a.id: np.array([[*s.position, s.velocity] for s in a.record.states])
+            for a in sim.agents}
+
+
+def coarse_sampling(cfg):
+    """Sampling level 1 only (a few dozen candidates per cycle): the risk
+    stack on one CPU thread is slow."""
+    cfg.planning.sampling_min, cfg.planning.sampling_max = 1, 2
+    return cfg
