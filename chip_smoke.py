@@ -11,7 +11,8 @@ Phases, each printed on lines of its own:
 3. K1 against its plain PyTorch twin on the card, at the dense cycle's
    shapes (R = 868, C = 7, P = 1,079,296), at the simulations' P = 1024 x 31
    and at a ragged P, in float32 and float64: the outputs must be bitwise
-   equal.  Times both with CUDA events.
+   equal.  Times both with CUDA events, and an empty kernel launched the
+   same way: the floor of one launch, which bounds K1 at small P.
 4. dense cycle: the bench problem (34,816 candidates, 4 obstacles,
    corridor) through planner.core.evaluate_cycle on the card in float32;
    `found` must hold, the kernel must have launched, and best_idx must equal
@@ -51,7 +52,21 @@ Phases, each printed on lines of its own:
    `polar_visibility_batch` on the card against `polar_visibility` on the
    host at 720 rays.
 
-Each path (phases 4 to 10) is driven with K1's launch count set to 0 just
+11. device-resident run: the convoy (A = 8, 264 steps) and the highway with
+   start_multiagent (A = 2) through parallel.device_sim.DeviceSimulation on
+   the card in float32, as the eager loop and as the replayed CUDA graph,
+   against phase 7's sequential host run: the loop runs under
+   torch.cuda.set_sync_debug_mode("error"), each run makes one device-to-host
+   copy, the replayed run equals the eager run bitwise, statuses and steps
+   equal the host run's and positions lie within 1e-4 m of it, and K1's
+   launches are programs per cycle x cycles (counted launches of the eager
+   loop; for the replayed run the launches recorded in the graph x replays).
+12. fleet: workloads.device_fleet(8) through parallel.device_sim.run_fleet on
+   the card, every member against its solo run (equal statuses and steps,
+   positions within 1e-4 m), then timed at S = 1, 8, 32: wall, scenarios per
+   second, peak device memory.
+
+Each path (phases 4 to 12) is driven with K1's launch count set to 0 just
 before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -72,6 +87,7 @@ from frenetix_tpu_torch.io import scenario_factory
 from frenetix_tpu_torch.io.commonroad import Obstacle, State
 from frenetix_tpu_torch.ops import _kernels, table_interp
 from frenetix_tpu_torch.ops.kinematics import rollout_candidates
+from frenetix_tpu_torch.parallel import device_sim
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner import reactive
 from frenetix_tpu_torch.planner.core import evaluate_cycle
@@ -83,7 +99,7 @@ from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.workloads import (
-    dense_cycle_problem, stacked_cycle_problem, stacked_post_pass_extras,
+    dense_cycle_problem, device_fleet, stacked_cycle_problem, stacked_post_pass_extras,
 )
 
 KERNEL_SOURCE = "frenetix_tpu_torch/csrc/table_interp.cu"
@@ -93,6 +109,8 @@ P_SIM = 1024 * 31      # level-2 sampling of the simulations, padded
 A_BATCH, M_BATCH = 8, 1024
 O_SLOTS = 16           # obstacle slots of the simulations' prediction tensors
 ULPS = 4
+POS_TOL = 1e-4         # metres: device-resident run against the host run, float32
+FLEET_SIZES = (1, 8, 32)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # float32 outside the tensor cores
 
@@ -201,17 +219,25 @@ class Launches:
     def start(self):
         table_interp.reset_launches()
 
-    def stop(self, path):
+    def stop(self, path, replayed=None):
+        """`replayed`: the path replays a CUDA graph, which the counter does
+        not see (it counted the launches recorded at capture); the path's
+        launches are then the run's own figure, recorded × replays."""
         n = table_interp.LAUNCHES
         check(n > 0, f"{path} launched K1 no time")
-        self.by_path[path] = n
-        return n
+        self.by_path[path] = n if replayed is None else replayed
+        return self.by_path[path]
 
 
 def phase_k1(dev, smi):
     rng = np.random.default_rng(0)
     results = {}
     max_err = 0.0
+    table_interp.launch_empty(dev)
+    torch.cuda.synchronize()
+    floor = cuda_ms(lambda: table_interp.launch_empty(dev), 200, 5)
+    phase(3, f"empty kernel, launched as K1 is: {floor:.5f} ms per launch, the floor "
+             f"of any K1 call [{smi}]")
     # (rows, columns, queries): the dense cycle, the simulations' cycle, the
     # batched cycle on the stacked table (7 + 2 corridor columns), a ragged P
     shapes = ((R_ROWS, C_COLS, P_DENSE), (R_ROWS, C_COLS, P_SIM),
@@ -237,12 +263,15 @@ def phase_k1(dev, smi):
             plain_ms = cuda_ms(
                 lambda: table_interp.interp_rows_plain(table, gidx, lam), reps, 3)
             bound, by, n_bytes = k1_bound_ms(rows, cols, p, table.element_size())
-            results[(dtype, rows, p)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                             bound_by=by, bytes=n_bytes)
+            with_floor = max(bound, floor)
+            results[(dtype, rows, p)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes=n_bytes,
+                launch_floor_ms=floor, bound_with_floor_ms=with_floor)
             phase(3, f"K1 {str(dtype).split('.')[-1]} R={rows} P={p}: bitwise "
                      f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                     f"{bound:.4f} ms by {by} ({n_bytes / 1e6:.2f} MB at 3.35 TB/s) "
-                     f"[{smi}]")
+                     f"{bound:.4f} ms by {by} ({n_bytes / 1e6:.2f} MB at 3.35 TB/s), "
+                     f"max(bound, launch floor) {with_floor:.4f} ms = "
+                     f"{with_floor / ms:.2f} of the kernel's time [{smi}]")
     return results, max_err
 
 
@@ -409,6 +438,9 @@ def _end_positions(res):
 
 
 def phase_multiagent(dev, smi, launches):
+    """Returns {family: (batched result, sequential result)} of the runs on
+    the card, which phase 11 holds the device-resident run against."""
+    runs = {}
     for family, n_agents in (("convoy", 8), ("highway", 2)):
         launches.start()
         sim, res = _multiagent_run(family, dev, "float32", batched=True)
@@ -441,6 +473,8 @@ def phase_multiagent(dev, smi, launches):
                  f"{seq.wall_time:.3f} s, max end-position deviation {dev_seq:.3e} m; "
                  f"cpu f64 batched: steps {ref.steps}, success {ref.success}, max "
                  f"end-position deviation {dev_ref:.3e} m [{smi}]")
+        runs[family] = (res, seq)
+    return runs
 
 
 def _risk_problem(device, dtype):
@@ -732,6 +766,141 @@ def phase_occlusion(dev, smi, launches):
               + ", ".join(f"{k} {v:.3e} m" for k, v in errs.items()) + f" [{smi}]")
 
 
+def _device_sim(family, dev):
+    config = load_config()
+    config.dtype = "float32"
+    config.simulation.start_multiagent = True
+    scenario = getattr(scenario_factory, f"make_{family}")()
+    return device_sim.DeviceSimulation(Simulation(scenario, config, dev))
+
+
+def _run_once(ds, graph):
+    """One device-resident run under the sync debug mode; checks that it
+    made exactly one device-to-host copy."""
+    fetches = device_sim.FETCHES
+    res = ds.run(graph=graph, sync_debug=True)
+    check(device_sim.FETCHES == fetches + 1, "a device-resident run fetches once")
+    return res
+
+
+def _position_gap(dres, host):
+    """Largest distance in any coordinate between the device run's executed
+    positions and the host run's recorded ones, over every agent and step."""
+    gap = 0.0
+    for col, aid in enumerate(dres.agent_ids):
+        pos = np.array([s.position for s in host.histories[aid][1:]], dtype=np.float64)
+        gap = max(gap, float(np.abs(dres.trajectories[:len(pos), col, :2] - pos).max()))
+    return gap
+
+
+def phase_device_run(dev, smi, launches, host_runs):
+    for family, n_agents in (("convoy", 8), ("highway", 2)):
+        host_batched, host = host_runs[family]
+        ds = _device_sim(family, dev)
+        check(len(ds.agents) == n_agents, f"{family}: {len(ds.agents)} agents")
+        programs = 2 * len(ds.levels)            # kinematics modes x levels
+        _run_once(ds, graph=False)               # warms the allocator, builds nothing new
+        launches.start()
+        eager = _run_once(ds, graph=False)
+        n_eager = launches.stop(f"device-resident {family}, eager")
+        check(n_eager == eager.extras["k1_launches"] == programs * ds.n_cycles,
+              f"{family} eager: {n_eager} K1 launches, expected {programs} programs x "
+              f"{ds.n_cycles} cycles")
+        launches.start()
+        first = _run_once(ds, graph=True)        # warm-up, capture, then the replays
+        launches.stop(f"device-resident {family}, replayed",
+                      replayed=first.extras["k1_launches"])
+        check(first.extras["graph"] and first.extras["k1_launches"] == programs * ds.n_cycles,
+              f"{family} replayed: {first.extras['k1_launches']} K1 launches, expected "
+              f"{programs} programs x {ds.n_cycles} cycles")
+        replayed = _run_once(ds, graph=True)
+        for name in ("status", "trajectories", "status_per_step", "selections", "found"):
+            for other, what in ((first, "first replayed run"), (eager, "eager run")):
+                check(np.array_equal(getattr(replayed, name), getattr(other, name)),
+                      f"{family}: {name} of the replayed run differs from the {what}")
+        check(np.array_equal(replayed.extras["x_cl_cycles"], eager.extras["x_cl_cycles"]),
+              f"{family}: replan states of the replayed run differ from the eager run")
+        check(np.isfinite(replayed.trajectories[:replayed.steps]).all(),
+              f"{family}: non-finite executed states")
+        status = {aid: int(s) for aid, s in zip(replayed.agent_ids, replayed.status)}
+        check(status == {aid: int(s) for aid, s in host.agent_status.items()}
+              and replayed.steps == host.steps,
+              f"{family}: device run {status} steps {replayed.steps} vs host sequential "
+              f"{host.agent_status} steps {host.steps}")
+        gap = _position_gap(replayed, host)
+        check(gap <= POS_TOL, f"{family}: device run {gap} m from the host sequential "
+                              f"run (limit {POS_TOL})")
+        adapted = ds.to_simulation_result(replayed)
+        check(adapted.agent_status == host.agent_status and adapted.steps == host.steps,
+              f"{family}: adapted result {adapted.agent_status} steps {adapted.steps}")
+        c_n = ds.n_cycles
+        phase(11, f"{family} device-resident on the card, {n_agents} agents, {c_n} "
+                  f"cycles of {programs} programs, no synchronisation in the loop, 1 "
+                  f"fetch per run: eager {eager.wall_time:.3f} s = "
+                  f"{1e3 * eager.wall_time / c_n:.3f} ms per cycle (K1 launches "
+                  f"{n_eager}); replayed {replayed.wall_time:.3f} s = "
+                  f"{1e3 * replayed.wall_time / c_n:.3f} ms per cycle (K1 launches "
+                  f"{first.extras['k1_launches']} = recorded x replays; first run with "
+                  f"warm-up and capture {first.wall_time:.3f} s, capture "
+                  f"{first.extras['capture_s']:.3f} s); replayed equals eager bitwise; "
+                  f"statuses and steps ({replayed.steps}) equal the host sequential "
+                  f"run, positions within {gap:.3e} m (limit {POS_TOL}); host "
+                  f"sequential wall {host.wall_time:.3f} s, host batched wall "
+                  f"{host_batched.wall_time:.3f} s; host batched / replayed "
+                  f"{host_batched.wall_time / replayed.wall_time:.2f} [{smi}]")
+
+
+def phase_fleet(dev, smi, launches):
+    for size in FLEET_SIZES:
+        t0 = time.perf_counter()
+        sims = device_fleet(size, dev, "float32")
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fetches = device_sim.FETCHES
+        launches.start()
+        t0 = time.perf_counter()
+        results = device_sim.run_fleet(sims, sync_debug=True)
+        wall = time.perf_counter() - t0
+        n_k1 = results[0].extras["k1_launches"]
+        launches.stop(f"fleet S={size}, replayed", replayed=n_k1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(device_sim.FETCHES == fetches + 1, "a fleet run fetches once")
+        check(len(results) == size and results[0].extras["fleet_size"] == size,
+              f"fleet S={size}: {len(results)} results")
+        for i, r in enumerate(results):
+            check(np.isfinite(r.trajectories[:r.steps]).all(),
+                  f"fleet S={size} member {i}: non-finite executed states")
+        done = sum(int((r.status == 2).all()) for r in results)
+        note = ""
+        if size == 8:
+            # every member against its solo run
+            gap = 0.0
+            for i, (fleet_res, sim) in enumerate(zip(results, sims)):
+                solo = sim.run()
+                check(np.array_equal(fleet_res.status, solo.status)
+                      and fleet_res.steps == solo.steps,
+                      f"fleet member {i}: status {fleet_res.status} steps "
+                      f"{fleet_res.steps} vs solo {solo.status} steps {solo.steps}")
+                n = solo.steps
+                gap = max(gap, float(np.abs(
+                    fleet_res.trajectories[:n, :, :2].astype(np.float64)
+                    - solo.trajectories[:n, :, :2]).max()))
+            check(gap <= POS_TOL, f"fleet members {gap} m from their solo runs "
+                                  f"(limit {POS_TOL})")
+            note = (f"; every member equals its solo run in status and steps, "
+                    f"positions within {gap:.3e} m (limit {POS_TOL})")
+        a_max = max(len(s.agents) for s in sims)
+        c_max = max(s.n_cycles for s in sims)
+        phase(12, f"fleet S={size} (a_max {a_max}, {c_max} cycles) on the card, "
+                  f"replayed, 1 fetch: wall {wall:.3f} s with warm-up and capture "
+                  f"({results[0].extras['capture_s']:.3f} s), {size / wall:.3f} "
+                  f"scenarios/s, {1e3 * wall / c_max:.3f} ms per cycle, peak memory "
+                  f"{peak:.3f} GiB, K1 launches {n_k1}, members all at their goal "
+                  f"{done}/{size}, host set-up of the members {build_s:.3f} s{note} "
+                  f"[{smi}]")
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -740,12 +909,15 @@ def main() -> int:
     phase_dense_cycle(dev, smi, launches)
     phase_simulation(dev, smi, launches)
     batched_p50 = phase_batched_cycle(dev, smi, launches)
-    phase_multiagent(dev, smi, launches)
+    host_runs = phase_multiagent(dev, smi, launches)
     phase_risk(dev, smi, launches)
     phase_responsibility(dev, smi, launches, batched_p50)
     phase_occlusion(dev, smi, launches)
+    phase_device_run(dev, smi, launches, host_runs)
+    phase_fleet(dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
+    sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "table_interp", "route": "cuda", "source": KERNEL_SOURCE,
@@ -755,7 +927,11 @@ def main() -> int:
         "bound_ms": dense["bound_ms"], "bound_by": dense["bound_by"],
         "library_ms": None,     # no one PyTorch call gathers two rows and lerps
         "shape": f"R={R_ROWS} C={C_COLS} P={P_DENSE} float32",
+        "launch_floor_ms": dense["launch_floor_ms"],
+        "bound_with_floor_ms": dense["bound_with_floor_ms"],
+        # a replayed path counts the launches recorded in its graph x replays
         "launches_by_path": launches.by_path,
+        "sim_sized": dict(sim_sized, shape=f"R={R_ROWS} C={C_COLS} P={P_SIM} float32"),
         "stacked": dict(stacked, shape=f"R={A_BATCH * R_ROWS} C={C_COLS} "
                                        f"P={A_BATCH * M_BATCH * 31} float32"),
     }]}))

@@ -54,8 +54,10 @@ def prediction_collisions(ro, preds, veh):
 
     ego_c = ego_centers(ro, veh.wb_rear_axle)[..., 1 : t + 1, :]  # (M, t, 2)
     ego_th = ro.theta_gl[..., 1 : t + 1]
-    ego_h = torch.tensor([veh.length / 2.0, veh.width / 2.0], dtype=ro.x.dtype,
-                         device=ro.x.device)
+    # two fills, not a host list: no host→device copy, so the cycle can be
+    # captured into a CUDA graph and never waits for the host
+    ego_h = torch.full((2,), veh.length / 2.0, dtype=ro.x.dtype, device=ro.x.device)
+    ego_h[1:].fill_(veh.width / 2.0)
 
     obs_c = preds.means[..., :t, :]                                # (O, t, 2)
     obs_th = preds.orientations[..., :t]

@@ -22,9 +22,14 @@ import torch
 
 from frenetix_tpu_torch.ops import _kernels
 
-__all__ = ["LAUNCHES", "interp_rows", "interp_rows_plain", "reset_launches"]
+__all__ = ["LAUNCHES", "interp_rows", "interp_rows_plain", "launch_empty",
+           "reset_launches"]
 
-# kernel launches made by `interp_rows` (plain-twin calls are not counted)
+# Kernel launches made by `interp_rows` (plain-twin calls are not counted).
+# It counts calls of the wrapper: a call recorded while a CUDA graph is being
+# captured counts once, and replays of the graph do not move it.  A run that
+# replays a graph reports its launches as (count while capturing) × (replays)
+# (`parallel.device_sim`, `extras["k1_launches"]`).
 LAUNCHES = 0
 
 _KERNEL = "table_interp"
@@ -56,6 +61,20 @@ def _entry(dtype):
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ]
     return fn
+
+
+def launch_empty(device: torch.device) -> None:
+    """Launch the library's empty kernel (one thread, no work) on `device`'s
+    current stream, through the same ctypes path as `interp_rows`: its device
+    time is the floor of one launch.  Not counted in LAUNCHES."""
+    fn = _kernels.load_library(_KERNEL).table_interp_empty
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
+    with torch.cuda.device(device):
+        err = fn(ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def interp_rows(table: torch.Tensor, gidx: torch.Tensor,

@@ -1,0 +1,1181 @@
+"""Device-resident multi-agent simulation: one fetch per RUN.
+
+PyTorch port of the core of `frenetix_tpu/parallel/device_sim.py`.  The host
+loop (`sim.simulation.Simulation.run`) copies a selection to the host after
+every replanning pass and then steps the agents in NumPy.  Here the whole
+run stays on the device:
+
+    carry: per-agent curvilinear state, pose, status, the peers' plan bank
+    body:  goal check → desired velocity → this cycle's prediction window,
+           sensor filter and peer rows → sampling matrices built on the
+           device → `planner.core.evaluate_cycle` for all agents at once, in
+           both kinematics modes and at every densification level → the
+           emergency ladder → `replanning_frequency` executed sub-steps with
+           the status ladder and the in-order collision sweep
+    fetch: ONE device→host copy of statuses, trajectories and selections.
+
+The JAX package compiles the body into a `lax.scan`.  Here the body is a
+plain function that only enqueues work: it reads no tensor on the host, so
+nothing in the run waits for the device.  Its three runtime branches in the
+JAX package (the low-velocity program, a further densification level, each
+behind a `lax.cond`) are value-identical to computing both sides and merging
+with `where`, which is what this port does.  On a CUDA device the body is the
+same program every cycle, so `run()` warms it up once (which also builds the
+K1 kernel), captures it into a CUDA graph and replays the graph `n_cycles`
+times: the carry lives in fixed buffers updated with `copy_`, the cycle
+counter is a device tensor incremented inside the graph, per-cycle inputs are
+read with `index_select` on it and outputs go into preallocated (C, ...)
+buffers with `index_copy_`.  On the CPU the same body runs eagerly.
+
+K1 (`ops.table_interp`) runs once per program (kinematics mode × level) per
+cycle on the stacked (S·A·R, C) table.  Its `LAUNCHES` counter counts calls
+of the wrapper, so a graph replay does not move it; a run reports its kernel
+launches in `extras["k1_launches"]` as (launches counted while the body was
+captured) × (replays), or the counter's own difference for an eager run.
+
+A fleet (`run_fleet`) pads every member to the fleet's maxima with inert
+rows and runs the same body over one more leading axis, (S, A, ...).
+
+What this module carries of the JAX original: ground-truth and
+constant-velocity predictions with mode-faithful peers, the radius and
+rear-cone sensor filter, progressive densification, low-velocity kinematics,
+the emergency ladder in both modes ("stopping", "min_risk"), fleets and
+chunks.  The responsibility term, the visible-area sensor stage and the
+occlusion module inside the run (ROADMAP.md slice 6b), the behavior planner
+(6c), Wale-Net predictions (5) and a device mesh (7) raise
+NotImplementedError here and keep working on the host path where they did.
+The road-departure check of executed poses is skipped, as in the JAX
+package: selected plans are corridor-checked inside the cycle.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field, fields
+
+import numpy as np
+import torch
+
+from frenetix_tpu_torch.geometry.refpath import RefPathTable
+from frenetix_tpu_torch.ops import sampling as smp
+from frenetix_tpu_torch.ops import table_interp
+from frenetix_tpu_torch.ops.collision import obb_overlap
+from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, PredictionTensors
+from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
+from frenetix_tpu_torch.parallel.mesh import (
+    _SEL_FIELDS, _pad_table, agent_plan_predictions, agent_pose_predictions,
+    concat_obstacles,
+)
+from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+from frenetix_tpu_torch.risk.costs import trajectory_risks
+from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch.sim.agent import AgentStatus, EgoState
+
+__all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet"]
+
+# AgentStatus values as plain ints: the status carry is an int32 tensor
+_RUNNING, _SUCCESS, _TIMELIMIT, _COLLISION, _ERROR = 1, 2, 3, 4, 5
+
+# device→host copies made by runs of this module (one per run, or per chunk)
+FETCHES = 0
+
+
+@dataclass
+class SimTensors:
+    """Every per-scenario input of the run.  On the host the leaves are NumPy
+    arrays (padded and stacked for fleets there); `to` gives the same
+    structure as tensors on a device.  A fleet's leaves start with S."""
+
+    ref: RefPathTable          # (A, R, ...) leaves
+    corridors: object          # (A, R, 2)
+    lane_segments: object      # (A, S, 2, 2)
+    lane_valid: object         # (A, S)
+    pred_windows: dict         # per-cycle scenario-obstacle windows (C, O, ...)
+    cur_obst: object           # (C, O, 3) row-aligned CURRENT obstacle poses
+    cur_obst_valid: object     # (C, O) rows present at that cycle's step
+    obst_poses: object         # (T+1, O', 3)
+    obst_valid: object         # (T+1, O')
+    obst_half: object          # (O', 2)
+    g_rings: object            # (A, G, E, 2)
+    g_ring_valid: object       # (A, G)
+    g_ring_v: object           # (A, G, 2)
+    g_vo_has: object           # (A,)
+    g_vo_int: object           # (A, 2)
+    goal_s: object             # (A,)
+    has_goal_s: object         # (A,)
+    goal_t_hi: object          # (A,)
+    has_goal_t: object         # (A,)
+    goal_v_mean: object        # (A,)
+    max_steps: object          # () int32, the scenario's step budget
+    active0: object            # (A,) bool, False rows are fleet padding
+    x_cl0: object              # (A, 6)
+    pose0: object              # (A, 4) center x, y, theta, v
+    acc0: object               # (A,)
+    # peer plan-bank seed: bank0[i, j] = agent i's center (x, y, theta, v) at
+    # global step j from its converted obstacle's recorded trajectory, or a
+    # constant-velocity pseudo-plan when none exists
+    bank0: object              # (A, W, 4)
+    bank_len0: object          # (A,) int32 readable entries
+
+    def to(self, device, dtype) -> "SimTensors":
+        """The same structure as tensors on `device`: floats as `dtype`,
+        masks bool, counters int32."""
+        def leaf(a):
+            a = np.require(a, requirements="C")     # keeps a 0-d leaf 0-d
+            if a.dtype.kind == "f":
+                return torch.as_tensor(a, dtype=dtype, device=device)
+            return torch.as_tensor(a, device=device)
+
+        return _map_leaves(leaf, self)
+
+
+def _map_leaves(fn, first: SimTensors, *rest: SimTensors) -> SimTensors:
+    """`fn` over the corresponding leaves of one or more SimTensors."""
+    out = {}
+    for f in fields(SimTensors):
+        vals = [getattr(t, f.name) for t in (first, *rest)]
+        if f.name == "ref":
+            out[f.name] = RefPathTable(*(fn(*xs) for xs in zip(*vals)))
+        elif f.name == "pred_windows":
+            out[f.name] = {k: fn(*(v[k] for v in vals)) for k in vals[0]}
+        else:
+            out[f.name] = fn(*vals)
+    return SimTensors(**out)
+
+
+@dataclass
+class DeviceSimResult:
+    """Host-side result of one device-resident run (single fetch)."""
+
+    agent_ids: list
+    status: np.ndarray            # (A,) AgentStatus ints (TIMELIMIT applied)
+    steps: int                    # executed global steps (host loop parity)
+    trajectories: np.ndarray      # (T, A, 5): center x, y, theta, v, a
+    status_per_step: np.ndarray   # (T, A)
+    selections: np.ndarray        # (C, A, 3): chosen (t1, ss1_target, d1)
+    found: np.ndarray             # (C, A) bool
+    wall_time: float = 0.0
+    extras: dict = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# host tensors
+# ---------------------------------------------------------------------------
+
+
+def _goal_tensors(agents, dtype):
+    """Every agent's goal test as fixed-shape arrays (`Agent.goal_reached`):
+    per goal, (position in any ring) and (velocity in its interval); rings
+    are the goal lanelets' polygons and the goal's position shape; a goal
+    without rings is a velocity-only goal."""
+    ring_lists = []     # per agent: list[(ring (E, 2), vlo, vhi)]
+    velonly = []        # per agent: (has, lo, hi)
+    for a in agents:
+        rows = []
+        vo = (False, -np.inf, np.inf)
+        for g in a.problem.goals:
+            vlo, vhi = (-np.inf, np.inf)
+            if g.velocity_interval is not None:
+                vlo, vhi = g.velocity_interval
+            rings = [a.scenario.lanelets[lid].polygon
+                     for lid in g.position_lanelets if lid in a.scenario.lanelets]
+            if g.position_shape is not None:
+                rings.append(g.position_shape)
+            if rings:
+                rows.extend((np.asarray(r, float), vlo, vhi) for r in rings)
+            else:
+                vo = (True, vlo, vhi)
+        ring_lists.append(rows)
+        velonly.append(vo)
+
+    g_max = max((len(r) for r in ring_lists), default=0) or 1
+    e_max = max((len(ring) for rows in ring_lists for ring, _, _ in rows),
+                default=0) or 3
+    a_n = len(agents)
+    rings = np.zeros((a_n, g_max, e_max, 2), dtype)
+    ring_valid = np.zeros((a_n, g_max), bool)
+    ring_v = np.zeros((a_n, g_max, 2), dtype)
+    ring_v[..., 0], ring_v[..., 1] = -1e30, 1e30
+    for i, rows in enumerate(ring_lists):
+        for j, (ring, vlo, vhi) in enumerate(rows):
+            # padded by repeating the last vertex: degenerate edges add no
+            # crossings and the closing edge stays last → first
+            e = len(ring)
+            rings[i, j, :e] = ring
+            rings[i, j, e:] = ring[-1]
+            ring_valid[i, j] = True
+            ring_v[i, j] = (max(vlo, -1e30), min(vhi, 1e30))
+    vo_has = np.array([v[0] for v in velonly])
+    vo_int = np.array([[max(v[1], -1e30), min(v[2], 1e30)] for v in velonly], dtype)
+    return rings, ring_valid, ring_v, vo_has, vo_int
+
+
+def _velocity_goal_tensors(agents, dtype):
+    """Static inputs of the simulation's velocity planner
+    (`Agent.desired_velocity`)."""
+    a_n = len(agents)
+    goal_s = np.zeros(a_n, dtype)
+    has_goal_s = np.zeros(a_n, bool)
+    goal_t_hi = np.zeros(a_n, dtype)
+    has_goal_t = np.zeros(a_n, bool)
+    goal_v_mean = np.zeros(a_n, dtype)
+    for i, a in enumerate(agents):
+        if a._goal_s is not None:
+            goal_s[i] = a._goal_s
+            has_goal_s[i] = True
+        if a._goal_time is not None:
+            goal_t_hi[i] = a._goal_time[1]
+            has_goal_t[i] = True
+        for g in a.problem.goals:
+            if g.velocity_interval is not None:
+                lo, hi = g.velocity_interval
+                goal_v_mean[i] = max(0.0, (lo + hi) / 2.0)
+                break
+    return goal_s, has_goal_s, goal_t_hi, has_goal_t, goal_v_mean
+
+
+def _obstacle_step_poses(scenario, agent_obstacle_ids, n_steps_total, dtype):
+    """(T+1, O, 3) poses, (T+1, O) valid and (O, 2) half sizes of every
+    scenario obstacle that is no agent (the side of `_check_collisions`)."""
+    obs = [ob for ob in scenario.obstacles.values()
+           if ob.obstacle_id not in agent_obstacle_ids]
+    o_n = len(obs) or 1
+    poses = np.zeros((n_steps_total + 1, o_n, 3), dtype)
+    valid = np.zeros((n_steps_total + 1, o_n), bool)
+    half = np.zeros((o_n, 2), dtype)
+    for j, ob in enumerate(obs):
+        half[j] = (ob.length / 2.0, ob.width / 2.0)
+        for t in range(n_steps_total + 1):
+            st = ob.state_at_time(t)
+            if st is None:
+                continue
+            poses[t, j, :2] = st.position
+            poses[t, j, 2] = st.orientation
+            valid[t, j] = True
+    return poses, valid, half
+
+
+# ---------------------------------------------------------------------------
+# device functions (any leading scenario axes ride along)
+# ---------------------------------------------------------------------------
+
+
+def goal_check(g: SimTensors, center, vel):
+    """`Agent.goal_reached` for all agents: (..., A) bool from the centers
+    (..., A, 2) and velocities (..., A).  The ring test is the crossing-number
+    test of `io.commonroad._point_in_ring`."""
+    a = g.g_rings                                      # (..., A, G, E, 2)
+    b = torch.roll(g.g_rings, -1, dims=-2)
+    p = center[..., None, None, :]                     # (..., A, 1, 1, 2)
+    cond = (a[..., 1] > p[..., 1]) != (b[..., 1] > p[..., 1])
+    den = b[..., 1] - a[..., 1]
+    den = torch.where(den == 0.0, torch.ones_like(den), den)
+    x_int = a[..., 0] + (p[..., 1] - a[..., 1]) * (b[..., 0] - a[..., 0]) / den
+    crossings = torch.sum(cond & (p[..., 0] < x_int), dim=-1)        # (..., A, G)
+    inside = (crossings % 2).bool() & g.g_ring_valid
+    vel_ok = ((vel[..., None] >= g.g_ring_v[..., 0])
+              & (vel[..., None] <= g.g_ring_v[..., 1]))
+    pos_goal = torch.any(inside & vel_ok, dim=-1)
+    vo_ok = (g.g_vo_has & (vel >= g.g_vo_int[..., 0]) & (vel <= g.g_vo_int[..., 1]))
+    return pos_goal | vo_ok
+
+
+def desired_velocity(g: SimTensors, x_cl, v_cur, t_step, dt: float):
+    """`Agent.desired_velocity` for all agents; `t_step` is the global step
+    as a tensor of the working type."""
+    dist = g.goal_s - x_cl[..., 0]
+    rem_t = (g.goal_t_hi - t_step) * dt
+    rem_d = torch.clamp(dist, min=0.0) / torch.clamp(v_cur, min=1.0)
+    remaining = torch.where(g.has_goal_t, rem_t, rem_d)
+    safe_rem = torch.where(remaining == 0.0, torch.ones_like(remaining), remaining)
+    v = torch.clamp(dist / safe_rem, min=torch.clamp(v_cur - 5.0, min=0.0),
+                    max=v_cur + 5.0)
+    v = torch.where(remaining <= 0.0, torch.clamp(v_cur, min=1.0), v)
+    v = torch.where(dist <= 2.0, g.goal_v_mean, v)
+    return torch.where(g.has_goal_s, v, v_cur)
+
+
+def _linspace64(lo, hi, n: int):
+    """`np.linspace(lo, hi, n)` on float64 tensors (...,) → (..., n), by
+    NumPy's own algorithm: arange · step + start, end point pinned."""
+    step = (hi - lo) / (n - 1)
+    grid = torch.arange(n, dtype=torch.float64, device=lo.device) * step[..., None] \
+        + lo[..., None]
+    grid[..., -1] = hi
+    return grid
+
+
+def build_sampling_matrices(x_cl, v_cur, t_grid, n_v: int, n_d: int, *, veh,
+                            horizon: float, d_min: float, d_max: float,
+                            d_ego_pos: bool):
+    """Per-agent sampling matrix of one densification level, (..., A, M, 13),
+    built on the device (`ReactivePlanner._sampling_ranges` +
+    `ops.sampling.build_sampling_matrix`).
+
+    `t_grid` (nt,) is the level's static end-time grid.  The velocity grid
+    comes from the current velocity and the lateral grid from the config (or
+    the current d with `d_ego_pos`), both as the host computes them: in
+    float64 by `np.linspace`'s algorithm, cast once to the working type.  The
+    current ṡ and d are appended where the host unions them in, so a value
+    already on a grid gives duplicate rows: identical candidates.  Rows vary
+    d fastest, then v, then t."""
+    dtype = x_cl.dtype
+    lead = tuple(x_cl.shape[:-1])                        # (..., A)
+    s0, ss0, sss0, d0, dd0, ddd0 = (x_cl[..., i] for i in range(6))
+    v64 = v_cur.double()
+    v_lo = torch.clamp(v64 - veh.a_max * horizon, min=0.001)
+    v_hi = torch.clamp(v64 + (veh.a_max / 6.0) * horizon, max=veh.v_max)
+    vs = torch.cat([_linspace64(v_lo, v_hi, n_v).to(dtype), ss0[..., None]], dim=-1)
+    if d_ego_pos:
+        # the host adds the bounds to its current d in the working type
+        d_lo, d_hi = (d0 + d_min).double(), (d0 + d_max).double()
+    else:
+        d_lo, d_hi = torch.full_like(v64, d_min), torch.full_like(v64, d_max)
+    ds = torch.cat([_linspace64(d_lo, d_hi, n_d).to(dtype), d0[..., None]], dim=-1)
+    t_n, v_n, d_n = t_grid.shape[0], n_v + 1, n_d + 1
+    grid = lead + (t_n, v_n, d_n)
+    rows = lead + (t_n * v_n * d_n,)
+
+    def col(x):
+        return x.expand(grid).reshape(rows)
+
+    def pin(x):
+        return x[..., None].expand(rows)
+
+    zero = torch.zeros(rows, dtype=dtype, device=x_cl.device)
+    return torch.stack([
+        zero, col(t_grid[:, None, None]), pin(s0), pin(ss0), pin(sss0),
+        col(vs[..., None, :, None]), zero, pin(d0), pin(dd0), pin(ddd0),
+        col(ds[..., None, None, :]), zero, zero], dim=-1)
+
+
+def _rank(col):
+    """Per row of (..., M), the number of strictly smaller entries; equal
+    values share a rank."""
+    return torch.searchsorted(torch.sort(col, dim=-1).values, col.contiguous())
+
+
+def stopping_rank_key(matrix, d0):
+    """The "stopping" fallback's order as one integer key per candidate:
+    (rank(v)·M + rank(t))·M + rank(|d − d0|), v = column 5, t = column 1,
+    d = column 10 (`ReactivePlanner._select_stopping_index`: v ascending,
+    then t, then the distance of d from the current d).  int64: the key
+    passes 2^31 from M = 1291 on."""
+    m = matrix.shape[-2]
+    v, t = matrix[..., 5], matrix[..., 1]
+    d = torch.abs(matrix[..., 10] - d0[..., None])
+    return (_rank(v) * m + _rank(t)) * m + _rank(d)
+
+
+def _gather_rows(x, idx):
+    """x (..., M, W) at candidate idx (...,) → (..., W)."""
+    w = x.shape[-1]
+    return torch.gather(x, -2, idx[..., None, None].expand(idx.shape + (1, w)))[..., 0, :]
+
+
+def select_with_fallback(res, matrix, mask, d0, emergency: str, risks=None):
+    """The cycle's selection, or the emergency ladder's when no candidate is
+    selectable (`ReactivePlanner.plan`): with "stopping" the first feasible
+    candidate in the order of `stopping_rank_key`, with "min_risk" the
+    feasible candidate of lowest ego + obstacle risk; first index on ties.
+    Returns the selected candidate's state rows (..., N+1), `found`, `fb_ok`
+    (the ladder had a feasible candidate), `best` and `sel` (t1, ṡ1, d1)."""
+    ro = res.rollout
+    feas = ro.feasible & ro.valid & mask
+    if emergency == "min_risk":
+        total = risks.ego_risk + risks.obst_risk
+        key = torch.where(feas, total, torch.full_like(total, torch.inf))
+    else:
+        key = stopping_rank_key(matrix, d0)
+        key = torch.where(feas, key, torch.full_like(key, torch.iinfo(torch.int64).max))
+    fb_idx = torch.argmin(key, dim=-1)
+    idx = torch.where(res.found, res.best_idx.long(), fb_idx)
+    out = {key_: _gather_rows(getattr(ro, attr), idx) for attr, key_ in _SEL_FIELDS}
+    params = _gather_rows(matrix, idx)
+    out.update(found=res.found, fb_ok=torch.any(feas, dim=-1), best=idx,
+               sel=torch.stack([params[..., 1], params[..., 5], params[..., 10]],
+                               dim=-1))
+    return out
+
+
+def _merge(take_b, a: dict, b: dict) -> dict:
+    """Per agent, b's entries where `take_b` (..., A), else a's."""
+    return {k: torch.where(take_b.reshape(take_b.shape + (1,) * (a[k].dim()
+                                                                 - take_b.dim())),
+                           b[k], a[k]) for k in a}
+
+
+# ---------------------------------------------------------------------------
+# the run
+# ---------------------------------------------------------------------------
+
+
+class _Runner:
+    """The body of the run over fixed buffers, eager or as a CUDA graph.
+
+    `proto` gives the statics (config, levels, vehicle); `g_host` the inputs,
+    whose leading axes before the agent axis (none, or the scenario axis) the
+    body carries along.  `load` copies another input set of the same shapes
+    into the input buffers (a fleet's next chunk), `run` resets the carry,
+    drives `n_cycles` cycles and fetches once."""
+
+    def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int):
+        self.p = proto
+        self.device = proto.device
+        self.dtype = proto.dtype
+        self.n_cycles = int(n_cycles)
+        self.g = g = g_host.to(self.device, self.dtype)
+        self.lead = lead = tuple(g.x_cl0.shape[:-2])
+        self.nl = len(lead)
+        self.a_n = a_n = int(g.x_cl0.shape[-2])
+        dev, dtype = self.device, self.dtype
+        k, c_n = proto.k_replan, self.n_cycles
+
+        def buf(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        self.state = dict(
+            x_cl=buf(lead + (a_n, 6)), center=buf(lead + (a_n, 2)),
+            theta=buf(lead + (a_n,)), v=buf(lead + (a_n,)), acc=buf(lead + (a_n,)),
+            status=buf(lead + (a_n,), torch.int32),
+            bank=buf(tuple(g.bank0.shape)), bank_len=buf(lead + (a_n,), torch.int32),
+            cycle=buf((1,), torch.int64),
+        )
+        self.out = dict(
+            traj=buf((c_n,) + lead + (k, a_n, 5)),
+            status_steps=buf((c_n,) + lead + (k, a_n), torch.int32),
+            sel=buf((c_n,) + lead + (a_n, 3)),
+            found=buf((c_n,) + lead + (a_n,), torch.bool),
+            x_cl=buf((c_n,) + lead + (a_n, 6)),
+        )
+        veh = proto.veh
+        self.h_agent = torch.as_tensor([veh.length / 2.0, veh.width / 2.0],
+                                       dtype=dtype, device=dev)
+        self.eye = torch.eye(a_n, dtype=torch.bool, device=dev)
+        self.hold_cols = torch.as_tensor([True, False, False, True, False, False],
+                                         device=dev)
+        self.weights = torch.as_tensor(proto.weights_np, dtype=dtype, device=dev)
+        self.t_grids = [torch.as_tensor(lvl[0], dtype=dtype, device=dev)
+                        for lvl in proto.levels]
+        self.masks = [torch.ones(lead + (a_n, lvl[3]), dtype=torch.bool, device=dev)
+                      for lvl in proto.levels]
+        self.graph = None
+        self.k1_per_cycle = None
+        self.capture_s = 0.0
+
+    # ------------------------------------------------------------- buffers
+    def load(self, g_host: SimTensors) -> None:
+        """Copy another input set of the same shapes into the input buffers."""
+        def copy(dst, src):
+            src = torch.as_tensor(np.require(src, requirements="C"))
+            if dst.shape != src.shape:
+                raise ValueError(f"input of shape {tuple(src.shape)} does not fit "
+                                 f"the run's buffer {tuple(dst.shape)}")
+            dst.copy_(src)
+            return dst
+
+        _map_leaves(copy, self.g, g_host)
+
+    def reset(self) -> None:
+        g, st = self.g, self.state
+        st["x_cl"].copy_(g.x_cl0)
+        st["center"].copy_(g.pose0[..., :2])
+        st["theta"].copy_(g.pose0[..., 2])
+        st["v"].copy_(g.pose0[..., 3])
+        st["acc"].copy_(g.acc0)
+        st["status"].copy_(torch.where(g.active0, _RUNNING, _ERROR))
+        st["bank"].copy_(g.bank0)
+        st["bank_len"].copy_(g.bank_len0)
+        st["cycle"].zero_()
+
+    # ---------------------------------------------------------------- body
+    def _cycle_all_agents(self, level: int, x_cl, v, ctx):
+        """One densification level for all agents, both kinematics modes
+        merged per agent by the host's rule v < low_vel_mode_threshold."""
+        p = self.p
+        pl = p.config.planning
+        t_grid, (_, n_v, n_d, _) = self.t_grids[level], p.levels[level]
+        matrix = build_sampling_matrices(
+            x_cl, v, t_grid, n_v, n_d, veh=p.veh, horizon=p.horizon,
+            d_min=pl.d_min, d_max=pl.d_max, d_ego_pos=p.d_ego_pos)
+        mask = self.masks[level]
+        d0 = x_cl[..., 3]
+        outs = []
+        for low_vel in (False, True):
+            res = evaluate_cycle(
+                matrix, mask, ctx, dt=p.dt, n_steps=p.n_steps, low_vel_mode=low_vel,
+                table_window=768, compensated_sum=p.compensated_sum)
+            risks = None
+            if p.emergency_mode == "min_risk":
+                risks = trajectory_risks(
+                    res.rollout, ctx.preds,
+                    meta_from_footprint(ctx.preds.lengths, ctx.preds.widths),
+                    p.veh.mass)
+            outs.append(select_with_fallback(res, matrix, mask, d0,
+                                             p.emergency_mode, risks))
+        return _merge(v < pl.low_vel_mode_threshold, outs[0], outs[1])
+
+    def step(self) -> None:
+        """One replanning cycle of all agents: enqueues device work only."""
+        p, g, st, nl, lead, a_n = self.p, self.g, self.state, self.nl, self.lead, self.a_n
+        dtype = self.dtype
+        veh, pcfg = p.veh, p.config.prediction
+        k, dt, n_steps = p.k_replan, p.dt, p.n_steps
+        wb = veh.wb_rear_axle
+        c = st["cycle"]                                   # (1,) int64
+        x_cl, center, theta = st["x_cl"], st["center"], st["theta"]
+        v, acc, status = st["v"], st["acc"], st["status"]
+        bank, bank_len = st["bank"], st["bank_len"]
+        max_steps = g.max_steps[..., None]                # (..., 1)
+
+        def at(x, index):
+            """x (..., T, ...) at time/cycle `index` (1,) on the device."""
+            return torch.index_select(x, nl, index).squeeze(nl)
+
+        t0 = c * k
+        # --- goal check at the cycle's start state ---------------------------
+        # every transition is gated on the member's OWN step budget: in a
+        # fleet a member that ends TIMELIMIT alone must not change status in
+        # the padding cycles
+        in_horizon = t0 < max_steps
+        running = status == _RUNNING
+        # peers see one another by the statuses BEFORE this step's goal check
+        # (the sequential host order): an agent that reaches its goal now is
+        # still visible for this replan
+        running_pre = running
+        reached = goal_check(g, center, v) & running & in_horizon
+        status = torch.where(reached, _SUCCESS, status)
+        running = status == _RUNNING
+
+        x_cl_replan = x_cl
+        v_des = desired_velocity(g, x_cl, v, t0.to(dtype), dt)
+
+        # --- this cycle's predictions ----------------------------------------
+        def window_field(name):
+            w = at(g.pred_windows[name], c)               # (..., O, ...)
+            return w.unsqueeze(nl).expand(lead + (a_n,) + tuple(w.shape[nl:]))
+
+        window = PredictionTensors(*(window_field(f) for f in PredictionTensors._fields))
+        horizon = window.means.shape[-2]
+        if pcfg.use_sensor_model:
+            # radius and rear-cone filter on the scenario obstacles' rows
+            # (`sensor_model.obstacles_in_radius`, `filter_cone_angle`),
+            # applied before the peers are appended
+            cur = at(g.cur_obst, c)                       # (..., O, 3)
+            rel = cur[..., None, :, :2] - center[..., :, None, :]     # (..., A, O, 2)
+            in_radius = (torch.linalg.norm(rel, dim=-1) < float(pcfg.sensor_radius)) \
+                & at(g.cur_obst_valid, c)[..., None, :]
+            c0 = torch.cos(-theta)[..., None]
+            s0 = torch.sin(-theta)[..., None]
+            loc_x = c0 * rel[..., 0] - s0 * rel[..., 1] - veh.length / 2.0
+            loc_y = s0 * rel[..., 0] + c0 * rel[..., 1]
+            dist = torch.sqrt(loc_x ** 2 + loc_y ** 2)
+            ang = torch.atan2(loc_y, loc_x)
+            cone_half = float(pcfg.cone_angle) * np.pi / 180.0 / 2.0
+            dropped = ((loc_x < 0) & (dist > float(pcfg.cone_safety_dist))
+                       & (torch.abs(torch.abs(ang) - np.pi) < cone_half))
+            window = window._replace(
+                valid=window.valid & (in_radius & ~dropped)[..., None])
+        peer_kw = dict(horizon=horizon, length=veh.length + 0.5, width=veh.width + 0.2,
+                       cov_pos=pcfg.cov_pos, active=running_pre)
+        if pcfg.mode == "ground_truth":
+            # the rest of each peer's executing plan from the carried bank:
+            # offset 1 at cycle 0 (the seed holds the states of the current
+            # step), k + 1 afterwards (selected one cycle ago, k steps done)
+            agent_preds = agent_plan_predictions(
+                bank, bank_len, torch.where(c == 0, 1, k + 1), **peer_kw)
+        else:
+            poses_all = torch.cat([center, theta[..., None], v[..., None]], dim=-1)
+            agent_preds = agent_pose_predictions(poses_all, dt=dt, **peer_kw)
+        preds = concat_obstacles(window, agent_preds)
+        ctx = CycleContext(
+            ref=g.ref, veh=veh, weights=self.weights, preds=preds,
+            obstacle_xy=preds.means[..., 0, :], obstacle_valid=preds.valid[..., 0],
+            corridor=g.corridors, lane_segments=g.lane_segments,
+            lane_valid=g.lane_valid, x0_orientation=theta,
+            desired_velocity=v_des, desired_avg_velocity=v_des)
+
+        # --- progressive densification: every level runs, the first level
+        # that found a candidate wins per agent; when none did, the LAST
+        # level's ladder applies ------------------------------------------------
+        out = self._cycle_all_agents(0, x_cl, v, ctx)
+        for level in range(1, len(p.levels)):
+            out = _merge(~out["found"], out, self._cycle_all_agents(level, x_cl, v, ctx))
+        found = out["found"]
+        # the emergency ladder: standstill at v <= 0.1 first, then the
+        # fallback selection, else the agent fails
+        std = running & ~found & (v <= 0.1)
+        fail = running & ~found & ~std & ~out["fb_ok"] & in_horizon
+        status = torch.where(fail, _ERROR, status)
+        running = status == _RUNNING
+
+        # --- publish this cycle's plans into the peer bank -------------------
+        # (a standstill agent publishes a constant pose with v = 0)
+        plan_th = out["theta"]                                        # (..., A, N+1)
+        bank_plan = torch.stack([
+            out["x"] + wb * torch.cos(plan_th), out["y"] + wb * torch.sin(plan_th),
+            plan_th, out["v"]], dim=-1)                               # (..., A, N+1, 4)
+        w_bank = bank.shape[-2]
+        if w_bank > bank_plan.shape[-2]:
+            pad = bank_plan[..., -1:, :].expand(
+                lead + (a_n, w_bank - bank_plan.shape[-2], 4))
+            bank_plan = torch.cat([bank_plan, pad], dim=-2)
+        std_row = torch.cat([center, theta[..., None], torch.zeros_like(v)[..., None]],
+                            dim=-1)                                   # (..., A, 4)
+        bank = torch.where(std[..., None, None],
+                           std_row[..., None, :].expand(bank.shape),
+                           bank_plan[..., :w_bank, :])
+        bank_len = torch.full_like(bank_len, n_steps + 1)
+
+        # --- execute k sub-steps with the status ladder ----------------------
+        traj_steps, status_steps = [], []
+        for j in range(1, k + 1):
+            t_glob = t0 + j
+            if j > 1:
+                reached = goal_check(g, center, v) & running & (t_glob <= max_steps)
+                status = torch.where(reached, _SUCCESS, status)
+                running = status == _RUNNING
+            step_ok = running & (t_glob <= max_steps)
+            mov = step_ok & ~std
+            hold = step_ok & std
+            th_j = out["theta"][..., j]
+            c_j = torch.stack([out["x"][..., j] + wb * torch.cos(th_j),
+                               out["y"][..., j] + wb * torch.sin(th_j)], dim=-1)
+            center = torch.where(mov[..., None], c_j, center)
+            theta = torch.where(mov, th_j, theta)
+            # a standstill agent holds its pose and brakes to zero
+            zero = torch.zeros_like(v)
+            v = torch.where(mov, out["v"][..., j], torch.where(hold, zero, v))
+            acc = torch.where(mov, out["a"][..., j], torch.where(hold, zero, acc))
+            hold_cl = torch.where(self.hold_cols, x_cl, torch.zeros_like(x_cl))
+            x_cl = torch.where(mov[..., None], torch.stack(
+                [out["s"][..., j], out["s_dot"][..., j], out["s_ddot"][..., j],
+                 out["d"][..., j], out["d_dot"][..., j], out["d_ddot"][..., j]],
+                dim=-1), torch.where(hold[..., None], hold_cl, x_cl))
+
+            # collisions at the new poses, in the host's order
+            # (`Simulation._check_collisions`): each agent checks the
+            # obstacles, then the live peers; an agent marked COLLISION has
+            # left the world for the agents after it, so of two agents that
+            # overlap each other only the first in order is marked
+            op = at(g.obst_poses, t_glob)                             # (..., O, 3)
+            ov = at(g.obst_valid, t_glob)
+            hit_obs = torch.any(
+                obb_overlap(center[..., :, None, :], theta[..., :, None], self.h_agent,
+                            op[..., None, :, :2], op[..., None, :, 2],
+                            g.obst_half[..., None, :, :]) & ov[..., None, :], dim=-1)
+            pair = obb_overlap(center[..., :, None, :], theta[..., :, None],
+                               self.h_agent, center[..., None, :, :],
+                               theta[..., None, :], self.h_agent) & ~self.eye
+            marked = torch.zeros_like(step_ok)
+            for i in range(a_n):
+                hit = hit_obs[..., i] | torch.any(pair[..., i, :] & step_ok & ~marked,
+                                                  dim=-1)
+                marked = torch.where(self.eye[i], (hit & step_ok[..., i])[..., None],
+                                     marked)
+            status = torch.where(marked, _COLLISION, status)
+            running = status == _RUNNING
+            traj_steps.append(torch.cat(
+                [center, theta[..., None], v[..., None], acc[..., None]], dim=-1))
+            status_steps.append(status)
+
+        # --- outputs of this cycle, then the carry ---------------------------
+        o = self.out
+        o["traj"].index_copy_(0, c, torch.stack(traj_steps, dim=nl)[None])
+        o["status_steps"].index_copy_(0, c, torch.stack(status_steps, dim=nl)[None])
+        o["sel"].index_copy_(0, c, out["sel"][None])
+        o["found"].index_copy_(0, c, found[None])
+        o["x_cl"].index_copy_(0, c, x_cl_replan[None])
+        for name, value in (("x_cl", x_cl), ("center", center), ("theta", theta),
+                            ("v", v), ("acc", acc), ("status", status),
+                            ("bank", bank), ("bank_len", bank_len)):
+            st[name].copy_(value)
+        c.add_(1)
+
+    # ----------------------------------------------------------------- run
+    def _capture(self) -> None:
+        """Warm the body up once on a side stream (this builds K1 and leaves
+        the allocator warm), then capture it into a CUDA graph."""
+        t_start = time.perf_counter()
+        dev = self.device
+        self.reset()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.reset()
+        before = table_interp.LAUNCHES
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.step()
+        self.k1_per_cycle = table_interp.LAUNCHES - before
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t_start
+
+    def run(self, graph: bool = True, sync_debug: bool = False) -> dict:
+        """Drive the whole run and fetch once.  Returns the host arrays
+        final_status, trajectories, status_per_step, selections, found,
+        x_cl_cycles (cycle or step axis first, then the leading axes) and
+        the run's facts (`k1_launches`, `graph`, `capture_s`)."""
+        global FETCHES
+        use_graph = bool(graph) and self.device.type == "cuda"
+        guard = contextlib.nullcontext()
+        if self.device.type == "cuda":
+            guard = torch.cuda.device(self.device)
+        with torch.no_grad(), guard:
+            capture_s = 0.0
+            if use_graph and self.graph is None:
+                self._capture()
+                capture_s = self.capture_s
+            self.reset()
+            before = table_interp.LAUNCHES
+            with _no_sync_allowed(sync_debug and self.device.type == "cuda"):
+                for _ in range(self.n_cycles):
+                    if use_graph:
+                        self.graph.replay()
+                    else:
+                        self.step()
+            if use_graph:
+                k1_launches = self.k1_per_cycle * self.n_cycles
+            else:
+                k1_launches = table_interp.LAUNCHES - before
+            parts = [self.state["status"], *(self.out[n] for n in (
+                "traj", "status_steps", "sel", "found", "x_cl"))]
+            # statuses and flags are small integers: exact in float32
+            packed = torch.cat([t.to(self.dtype).reshape(-1) for t in parts])
+            host = packed.cpu().numpy()       # THE one fetch
+            FETCHES += 1
+        arrays, pos = [], 0
+        for t in parts:
+            arrays.append(host[pos:pos + t.numel()].reshape(tuple(t.shape)))
+            pos += t.numel()
+        status, traj, status_steps, sel, found, x_cl = arrays
+        return dict(final_status=status.astype(np.int32), trajectories=traj,
+                    status_per_step=status_steps.astype(np.int32), selections=sel,
+                    found=found != 0, x_cl_cycles=x_cl, k1_launches=int(k1_launches),
+                    graph=use_graph, capture_s=capture_s)
+
+
+@contextlib.contextmanager
+def _no_sync_allowed(on: bool):
+    """With `on`, any operation that makes the host wait for the CUDA device
+    raises inside the block (`torch.cuda.set_sync_debug_mode("error")`)."""
+    if not on:
+        yield
+        return
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+def _member_arrays(out: dict, member=None) -> dict:
+    """The fetched arrays of one scenario with the step axis merged:
+    trajectories (C·k, A, 5), status_per_step (C·k, A); `member` picks a
+    fleet's scenario."""
+    pick = (lambda x, axis: x) if member is None else (
+        lambda x, axis: np.take(x, member, axis=axis))
+    traj = pick(out["trajectories"], 1)                  # (C, k, A, 5)
+    sps = pick(out["status_per_step"], 1)                # (C, k, A)
+    return dict(
+        final_status=pick(out["final_status"], 0),
+        trajectories=traj.reshape((-1,) + traj.shape[2:]),
+        status_per_step=sps.reshape((-1,) + sps.shape[2:]),
+        selections=pick(out["selections"], 1),
+        found=pick(out["found"], 1),
+        x_cl_cycles=pick(out["x_cl_cycles"], 1),
+    )
+
+
+class DeviceSimulation:
+    """Device-resident run of an (already constructed) host `Simulation`.
+
+        sim = Simulation(scenario, config)       # host set-up only, not run
+        dres = DeviceSimulation(sim).run()
+
+    The host Simulation provides the agents (routes, reference paths,
+    corridors), which are stacked once; everything per step happens on the
+    device.  `device` defaults to the simulation's own, which defaults to
+    the CUDA device and raises where there is none."""
+
+    def __init__(self, sim, device=None, mesh=None):
+        config = sim.config
+        if mesh is not None:
+            raise NotImplementedError(
+                "not yet ported to frenetix_tpu_torch: a device mesh for the "
+                "device-resident run (slice 7)")
+        pcfg, p = config.prediction, config.planning
+        if pcfg.mode == "walenet":
+            raise NotImplementedError(
+                "not yet ported to frenetix_tpu_torch: prediction.mode='walenet' in "
+                "the device-resident run (Wale-Net: slice 5)")
+        if pcfg.mode not in ("ground_truth", "constant_velocity"):
+            raise ValueError(f"unknown prediction mode {pcfg.mode!r}")
+        if p.emergency_mode not in ("stopping", "min_risk"):
+            raise ValueError(f"unknown emergency_mode {p.emergency_mode!r}")
+        waiting = []
+        if float(config.cost_weights.get("responsibility", 0.0)) != 0.0:
+            waiting.append("cost_weights['responsibility'] (slice 6b)")
+        if pcfg.use_sensor_model and pcfg.calc_occlusions:
+            waiting.append("prediction.calc_occlusions (slice 6b)")
+        if config.occlusion.use_occlusion_module:
+            waiting.append("occlusion.use_occlusion_module (slice 6b)")
+        if config.behavior.use_behavior_planner:
+            waiting.append("behavior.use_behavior_planner (slice 6c)")
+        if waiting:
+            raise NotImplementedError(
+                "not yet ported to the device-resident run of frenetix_tpu_torch "
+                "(the host path carries them): " + "; ".join(waiting))
+
+        self.sim = sim
+        self.config = config
+        self.device = torch.device(device) if device is not None else sim.device
+        self.agents = sim.agents
+        self.veh = config.vehicle
+        self.dt = p.dt
+        self.n_steps = p.n_steps
+        self.horizon = p.planning_horizon
+        self.k_replan = int(p.replanning_frequency)
+        self.max_steps = int(sim.max_steps)
+        self.n_cycles = (self.max_steps + self.k_replan - 1) // self.k_replan
+        self.np_dtype = dtype = np.float64 if config.dtype == "float64" else np.float32
+        self.dtype = torch.float64 if config.dtype == "float64" else torch.float32
+        self.emergency_mode = str(p.emergency_mode)
+        self.compensated_sum = bool(p.compensated_cost_sum)
+        self.d_ego_pos = bool(p.d_ego_pos)
+        self.weights_np = np.array(
+            [config.cost_weights.get(k, 0.0) for k in COST_TERM_ORDER], dtype)
+
+        # static grids per densification level (the host loop evaluates
+        # levels sampling_min .. sampling_max - 1 until one finds a candidate)
+        self.levels = []          # [(t_grid, n_v, n_d, m_total)]
+        for level in range(p.sampling_min, max(p.sampling_max, p.sampling_min + 1)):
+            t1 = smp.time_samples(p.t_min, self.horizon, self.dt, level)
+            t1 = np.unique(np.concatenate([t1, [self.n_steps * self.dt]]))
+            n_v = len(smp.linspace_samples(0.0, 1.0, level))
+            n_d = len(smp.linspace_samples(p.d_min, p.d_max, level))
+            self.levels.append((t1.astype(dtype), n_v, n_d,
+                                len(t1) * (n_v + 1) * (n_d + 1)))
+
+        # initial per-agent state
+        a_n = len(self.agents)
+        x_cl0 = np.zeros((a_n, 6), dtype)
+        pose0 = np.zeros((a_n, 4), dtype)   # center x, y, theta, v
+        acc0 = np.zeros(a_n, dtype)
+        for i, a in enumerate(self.agents):
+            lon, lat = a.ensure_x_cl()
+            x_cl0[i] = np.concatenate([np.asarray(lon), np.asarray(lat)])
+            pose0[i] = (*a.state.position, a.state.orientation, a.state.velocity)
+            acc0[i] = a.state.acceleration
+        self.pose0 = pose0
+
+        # peer plan-bank seed (`Simulation._peer_future` before the first
+        # plan): the converted obstacle's recorded trajectory, or a
+        # constant-velocity pseudo-plan.  bank[j] is the center state at
+        # global step j; entries 1 .. bank_len - 1 are read
+        self.bank_w = w_bank = max(self.n_steps + 1, int(pcfg.horizon_steps) + 1)
+        bank0 = np.zeros((a_n, w_bank, 4), dtype)
+        bank_len0 = np.zeros(a_n, np.int32)
+        for i, a in enumerate(self.agents):
+            ob = sim.scenario.obstacles.get(a.id)
+            n_rec = 0
+            if ob is not None:
+                for j in range(w_bank):
+                    st = ob.state_at_time(j)
+                    if st is None:
+                        break
+                    bank0[i, j] = (*st.position, st.orientation, st.velocity)
+                    n_rec += 1
+            if n_rec > 1:
+                bank0[i, n_rec:] = bank0[i, n_rec - 1]
+                bank_len0[i] = n_rec
+            else:
+                x, y, th, v0 = pose0[i]
+                steps = np.arange(w_bank, dtype=dtype)
+                bank0[i, :, 0] = x + v0 * self.dt * steps * np.cos(th)
+                bank0[i, :, 1] = y + v0 * self.dt * steps * np.sin(th)
+                bank0[i, :, 2] = th
+                bank0[i, :, 3] = v0
+                bank_len0[i] = w_bank
+
+        g_rings, g_ring_valid, g_ring_v, g_vo_has, g_vo_int = _goal_tensors(
+            self.agents, dtype)
+        goal_s, has_goal_s, goal_t_hi, has_goal_t, goal_v_mean = \
+            _velocity_goal_tensors(self.agents, dtype)
+
+        # the scenario obstacles' prediction window of every cycle, from the
+        # host's own routine, and their row-aligned current poses for the
+        # sensor filter (the host filter reads the pose at the replan step)
+        pds, cur_obst, cur_valid = [], [], []
+        for c in range(self.n_cycles):
+            t_c = c * self.k_replan
+            pd, ids = sim._predictions_for_step(t_c)
+            pds.append(pd)
+            o_slots = pd["valid"].shape[0]
+            cur = np.zeros((o_slots, 3), dtype)
+            cv = np.zeros(o_slots, bool)
+            for row, oid in enumerate(ids[:o_slots]):
+                st = sim.scenario.obstacles[oid].state_at_time(t_c)
+                if st is None:
+                    continue
+                cur[row, :2] = st.position
+                cur[row, 2] = st.orientation
+                cv[row] = True
+            cur_obst.append(cur)
+            cur_valid.append(cv)
+        obst_poses, obst_valid, obst_half = _obstacle_step_poses(
+            sim.scenario, sim.agent_obstacle_ids, self.max_steps + self.k_replan, dtype)
+
+        # per-agent tables, stacked as on the batched host path
+        cpu = torch.device("cpu")
+        stepper = BatchedAgentStepper(config, self.agents, cpu)
+        self.tensors = SimTensors(
+            ref=RefPathTable(*(f.numpy() for f in stepper.ref)),
+            corridors=stepper.corridors.numpy(),
+            lane_segments=stepper.lane_segments.numpy(),
+            lane_valid=stepper.lane_valid.numpy(),
+            pred_windows={k: np.stack([pd[k] for pd in pds])
+                          for k in PredictionTensors._fields},
+            cur_obst=np.stack(cur_obst), cur_obst_valid=np.stack(cur_valid),
+            obst_poses=obst_poses, obst_valid=obst_valid, obst_half=obst_half,
+            g_rings=g_rings, g_ring_valid=g_ring_valid, g_ring_v=g_ring_v,
+            g_vo_has=g_vo_has, g_vo_int=g_vo_int, goal_s=goal_s,
+            has_goal_s=has_goal_s, goal_t_hi=goal_t_hi, has_goal_t=has_goal_t,
+            goal_v_mean=goal_v_mean,
+            max_steps=np.asarray(self.max_steps, np.int32),
+            active0=np.ones(a_n, bool), x_cl0=x_cl0, pose0=pose0, acc0=acc0,
+            bank0=bank0, bank_len0=bank_len0,
+        )
+        # what fleet members must share: everything the body reads from the
+        # prototype member instead of the stacked tensors
+        self.statics = (
+            self.dt, self.n_steps, self.k_replan, self.horizon,
+            tuple((tuple(l[0].tolist()), l[1], l[2], l[3]) for l in self.levels),
+            str(self.dtype), str(self.device), self.emergency_mode,
+            self.compensated_sum, self.d_ego_pos, p.d_min, p.d_max,
+            p.low_vel_mode_threshold, tuple(self.veh), tuple(self.weights_np.tolist()),
+            pcfg.mode, pcfg.use_sensor_model, pcfg.sensor_radius, pcfg.cone_angle,
+            pcfg.cone_safety_dist, pcfg.cov_pos, pcfg.max_obstacles,
+            pcfg.horizon_steps, self.bank_w,
+        )
+        self._runner = None
+
+    # ------------------------------------------------------------------- run
+    def run(self, graph: bool = True, sync_debug: bool = False) -> DeviceSimResult:
+        """The whole run on the device and one fetch.
+
+        On a CUDA device the body is captured into a CUDA graph at the first
+        call and replayed; `graph=False` keeps the eager loop there (what the
+        CPU always runs), for checks of the replayed run against it.  With
+        `sync_debug` the loop raises on a CUDA device if anything in it makes
+        the host wait for the device."""
+        t_start = time.perf_counter()
+        if self._runner is None:
+            self._runner = _Runner(self, self.tensors, self.n_cycles)
+        out = self._runner.run(graph=graph, sync_debug=sync_debug)
+        res = self._finalize(_member_arrays(out), out)
+        res.wall_time = time.perf_counter() - t_start
+        return res
+
+    def _finalize(self, arrays: dict, facts: dict) -> DeviceSimResult:
+        """Host epilogue on one scenario's fetched arrays: cut to this
+        scenario's max_steps, cycles and agents (a fleet pads all three);
+        agents still RUNNING at the end get TIMELIMIT."""
+        a_n, c_n = len(self.agents), self.n_cycles
+        status = np.array(arrays["final_status"][:a_n])
+        status[status == _RUNNING] = _TIMELIMIT
+        traj = arrays["trajectories"][: self.max_steps, :a_n]
+        sps = arrays["status_per_step"][: self.max_steps, :a_n]
+        # the host loop stops once no agent is RUNNING after a step
+        # (sps[i] is the status after executed step i + 1)
+        alive = (sps == _RUNNING).any(axis=1)
+        steps = self.max_steps if alive.all() else int(np.argmin(alive)) + 1
+        return DeviceSimResult(
+            agent_ids=[a.id for a in self.agents], status=status, steps=steps,
+            trajectories=traj, status_per_step=sps,
+            selections=arrays["selections"][:c_n, :a_n],
+            found=arrays["found"][:c_n, :a_n],
+            extras={"x_cl_cycles": arrays["x_cl_cycles"][:c_n, :a_n],
+                    "k1_launches": facts["k1_launches"], "graph": facts["graph"],
+                    "capture_s": facts["capture_s"]},
+        )
+
+    def to_simulation_result(self, dres: DeviceSimResult):
+        """A device run in the host `SimulationResult` shape.  Histories
+        follow the host's recording: the initial state, then every state
+        executed while RUNNING, the colliding state included (the host
+        appends it before the collision check marks the agent)."""
+        from frenetix_tpu_torch.sim.simulation import SimulationResult
+
+        wb = self.veh.wheelbase
+        messages = {
+            int(AgentStatus.COMPLETED_SUCCESS): "success",
+            int(AgentStatus.TIMELIMIT): "time limit reached",
+            int(AgentStatus.COLLISION): "collision",
+            int(AgentStatus.ERROR): "no feasible trajectory",
+        }
+        running, collision = int(AgentStatus.RUNNING), int(AgentStatus.COLLISION)
+        histories, statuses, msgs = {}, {}, {}
+        for col, (aid, agent) in enumerate(zip(dres.agent_ids, self.agents)):
+            states = [agent.record.states[0]]
+            prev_theta = float(self.pose0[col, 2])
+            for i in range(dres.steps):
+                s_i = int(dres.status_per_step[i, col])
+                executed = s_i == running or (
+                    s_i == collision
+                    and (i == 0 or int(dres.status_per_step[i - 1, col]) == running))
+                if not executed:
+                    break
+                x, y, th, v, a = (float(f) for f in dres.trajectories[i, col])
+                yaw_rate = (th - prev_theta) / self.dt
+                prev_theta = th
+                states.append(EgoState(
+                    time_step=i + 1, position=np.array([x, y]), orientation=th,
+                    velocity=v, acceleration=a, yaw_rate=yaw_rate,
+                    steering_angle=float(np.arctan2(wb * yaw_rate, max(v, 1e-3)))))
+            histories[aid] = states
+            statuses[aid] = AgentStatus(int(dres.status[col]))
+            msgs[aid] = messages.get(int(dres.status[col]), "")
+        return SimulationResult(
+            scenario_id=self.sim.scenario.scenario_id, agent_status=statuses,
+            agent_messages=msgs, steps=dres.steps, wall_time=dres.wall_time,
+            planning_times=[], histories=histories)
+
+    # ----------------------------------------------------------------- fleet
+    def _padded_tensors(self, dims: dict) -> SimTensors:
+        """This scenario's SimTensors padded to a fleet's maxima.
+
+        The padding is inert: extra agents carry active0 = False (status
+        ERROR from step 0, left out of predictions and collisions) and
+        repeat agent 0's state and tables, so their dead computation stays
+        finite; extra obstacle and goal rows carry valid = False; extra
+        cycles repeat the last prediction window (every agent is frozen by
+        its own max_steps long before)."""
+        g = self.tensors
+        a_max = dims["a"]
+
+        def pad_a(x, axis=0):
+            n = a_max - x.shape[axis]
+            if n <= 0:
+                return x
+            return np.concatenate(
+                [x, np.repeat(np.take(x, [0], axis=axis), n, axis=axis)], axis=axis)
+
+        def pad_zero(x, size, axis):
+            n = size - x.shape[axis]
+            if n <= 0:
+                return x
+            shape = list(x.shape)
+            shape[axis] = n
+            return np.concatenate([x, np.zeros(shape, x.dtype)], axis=axis)
+
+        def pad_repeat(x, size, axis):
+            n = size - x.shape[axis]
+            if n <= 0:
+                return x
+            last = np.take(x, [x.shape[axis] - 1], axis=axis)
+            return np.concatenate([x, np.repeat(last, n, axis=axis)], axis=axis)
+
+        c, r = dims["c"], dims["r"]
+        return SimTensors(
+            ref=RefPathTable(**{
+                name: pad_a(np.stack([
+                    _pad_table(row, r, is_pathlength=(name == "s"))
+                    for row in getattr(g.ref, name)]))
+                for name in RefPathTable._fields}),
+            corridors=pad_a(np.stack([_pad_table(row, r) for row in g.corridors])),
+            lane_segments=pad_a(pad_zero(g.lane_segments, dims["s"], 1)),
+            lane_valid=pad_a(pad_zero(g.lane_valid, dims["s"], 1)),
+            pred_windows={k: pad_repeat(v, c, 0) for k, v in g.pred_windows.items()},
+            cur_obst=pad_repeat(g.cur_obst, c, 0),
+            cur_obst_valid=pad_repeat(g.cur_obst_valid, c, 0),
+            obst_poses=pad_zero(pad_zero(g.obst_poses, dims["t1"], 0), dims["o"], 1),
+            obst_valid=pad_zero(pad_zero(g.obst_valid, dims["t1"], 0), dims["o"], 1),
+            obst_half=pad_zero(g.obst_half, dims["o"], 0),
+            # ring vertices are padded by repeating the last one (no new
+            # crossings), ring rows with valid = False
+            g_rings=pad_a(pad_zero(pad_repeat(g.g_rings, dims["e"], 2), dims["g"], 1)),
+            g_ring_valid=pad_a(pad_zero(g.g_ring_valid, dims["g"], 1)),
+            g_ring_v=pad_a(pad_zero(g.g_ring_v, dims["g"], 1)),
+            g_vo_has=pad_a(g.g_vo_has), g_vo_int=pad_a(g.g_vo_int),
+            goal_s=pad_a(g.goal_s), has_goal_s=pad_a(g.has_goal_s),
+            goal_t_hi=pad_a(g.goal_t_hi), has_goal_t=pad_a(g.has_goal_t),
+            goal_v_mean=pad_a(g.goal_v_mean), max_steps=g.max_steps,
+            active0=np.concatenate([np.ones(len(self.agents), bool),
+                                    np.zeros(a_max - len(self.agents), bool)]),
+            x_cl0=pad_a(g.x_cl0), pose0=pad_a(g.pose0), acc0=pad_a(g.acc0),
+            bank0=pad_a(g.bank0), bank_len0=pad_a(g.bank_len0),
+        )
+
+
+def _fleet_dims(sims) -> dict:
+    """The fleet's maxima: agents, cycles, table rows, lane segments,
+    collision obstacles, steps, goal rings and ring vertices."""
+    def top(fn):
+        return max(int(fn(s.tensors)) for s in sims)
+
+    return dict(
+        a=top(lambda g: g.x_cl0.shape[0]), c=max(s.n_cycles for s in sims),
+        r=top(lambda g: g.ref.s.shape[1]), s=top(lambda g: g.lane_segments.shape[1]),
+        o=top(lambda g: g.obst_half.shape[0]), t1=top(lambda g: g.obst_poses.shape[0]),
+        g=top(lambda g: g.g_rings.shape[1]), e=top(lambda g: g.g_rings.shape[2]),
+    )
+
+
+def _fleet_stack(sims, dims=None) -> SimTensors:
+    """Every member's SimTensors padded to the fleet's maxima and stacked on
+    the host along a new leading scenario axis (one upload per leaf)."""
+    dims = dims or _fleet_dims(sims)
+    return _map_leaves(lambda *xs: np.stack(xs), *(s._padded_tensors(dims)
+                                                   for s in sims))
+
+
+def run_fleet(sims: list, chunk: int = None, graph: bool = True,
+              sync_debug: bool = False) -> list:
+    """Run S device simulations as ONE run over a leading scenario axis with
+    ONE fetch: the same body, on (S, A, ...) tensors, so every kernel of a
+    cycle serves all scenarios and K1 runs on the (S·A·R, C) table.
+
+    All members must share the planning and prediction statics (dt, horizon,
+    replanning frequency, sampling levels, dtype, device, emergency mode,
+    vehicle, cost weights, prediction mode and sensor settings); their sizes
+    (agents, reference length, cycles, obstacles, goal geometry) are padded
+    to the fleet's maxima with inert rows (`_padded_tensors`).  Returns one
+    DeviceSimResult per simulation, equal to running each alone.
+
+    `chunk`: run the S simulations as ceil(S / chunk) runs of `chunk` members
+    through the SAME buffers (and, on a CUDA device, the same captured
+    graph): all groups are padded to the maxima of the whole fleet, the last
+    group is filled with repeats of its first member, and every group is one
+    fetch.  `graph` and `sync_debug` as in `DeviceSimulation.run`."""
+    t_start = time.perf_counter()
+    base = sims[0]
+    for s in sims:
+        if s.statics != base.statics:
+            raise ValueError(
+                "fleet members must share planning statics (dt, horizon, "
+                "replanning frequency, sampling levels, dtype, device, emergency "
+                "mode, compensated-sum flag, vehicle, cost weights, prediction "
+                "mode and sensor settings)")
+    group = len(sims) if chunk is None else min(int(chunk), len(sims))
+    dims = _fleet_dims(sims)
+    runner, results = None, []
+    for lo in range(0, len(sims), group):
+        members = sims[lo:lo + group]
+        filled = members + [members[0]] * (group - len(members))
+        stacked = _fleet_stack(filled, dims)
+        if runner is None:
+            runner = _Runner(base, stacked, dims["c"])
+        else:
+            runner.load(stacked)
+        out = runner.run(graph=graph, sync_debug=sync_debug)
+        results.extend(s._finalize(_member_arrays(out, i), out)
+                       for i, s in enumerate(members))
+    wall = time.perf_counter() - t_start
+    for res in results:
+        res.wall_time = wall
+        res.extras["fleet_size"] = len(sims)
+    return results

@@ -259,25 +259,27 @@ def _poses_from(out):
 
 def _peer_rows(means, orientations, velocities, in_plan, cov_pos, length, width,
                active):
-    """PredictionTensors (A observers, A obstacles, T, ...) from per-agent
-    rows (A, T, ...): every observer sees all rows but its own."""
-    a, horizon = means.shape[0], means.shape[1]
+    """PredictionTensors (..., A observers, A obstacles, T, ...) from per-agent
+    rows (..., A, T, ...): every observer sees all rows but its own.  Leading
+    axes (a scenario axis) ride along."""
+    lead = tuple(means.shape[:-3])
+    a, horizon = means.shape[-3], means.shape[-2]
     dtype, device = means.dtype, means.device
     eye2 = torch.eye(2, dtype=dtype, device=device)
     not_self = ~torch.eye(a, dtype=torch.bool, device=device)
     if active is not None:
-        not_self = not_self & active[None, :]
-    valid = not_self[:, :, None].expand(a, a, horizon)
+        not_self = not_self & active[..., None, :]
+    valid = not_self[..., None].expand(lead + (a, a, horizon))
     if in_plan is not None:
-        valid = valid & in_plan[None]
+        valid = valid & in_plan[..., None, :, :]
     return PredictionTensors(
-        means=means[None].expand(a, a, horizon, 2),
-        inv_covs=(eye2 / cov_pos).expand(a, a, horizon, 2, 2),
-        covs=(eye2 * cov_pos).expand(a, a, horizon, 2, 2),
-        orientations=orientations[None].expand(a, a, horizon),
-        velocities=velocities[None].expand(a, a, horizon),
-        lengths=torch.full((a, a), length, dtype=dtype, device=device),
-        widths=torch.full((a, a), width, dtype=dtype, device=device),
+        means=means[..., None, :, :, :].expand(lead + (a, a, horizon, 2)),
+        inv_covs=(eye2 / cov_pos).expand(lead + (a, a, horizon, 2, 2)),
+        covs=(eye2 * cov_pos).expand(lead + (a, a, horizon, 2, 2)),
+        orientations=orientations[..., None, :, :].expand(lead + (a, a, horizon)),
+        velocities=velocities[..., None, :, :].expand(lead + (a, a, horizon)),
+        lengths=torch.full(lead + (a, a), length, dtype=dtype, device=device),
+        widths=torch.full(lead + (a, a), width, dtype=dtype, device=device),
         valid=valid,
     )
 
@@ -286,19 +288,20 @@ def agent_pose_predictions(poses_all, *, horizon: int, dt: float, length: float,
                            width: float, cov_pos: float, active=None):
     """Obstacle tensors from all agents' poses, on their device.
 
-    poses_all (A, 4: x, y, θ, v) → PredictionTensors with O = A obstacles per
-    observing agent: constant-velocity extrapolation of every agent's pose;
-    `valid[i, j] = (i != j)` masks each agent's own row, and an optional
-    `active` (A,) bool masks terminated agents.  The variance is
+    poses_all (..., A, 4: x, y, θ, v) → PredictionTensors with O = A obstacles
+    per observing agent: constant-velocity extrapolation of every agent's
+    pose; `valid[i, j] = (i != j)` masks each agent's own row, and an optional
+    `active` (..., A) bool masks terminated agents.  The variance is
     max(cov_pos, 0.1)."""
     dtype = poses_all.dtype
-    pos, th, v = poses_all[:, :2], poses_all[:, 2], poses_all[:, 3]
+    pos, th, v = poses_all[..., :2], poses_all[..., 2], poses_all[..., 3]
     steps = torch.arange(1, horizon + 1, dtype=dtype, device=poses_all.device) * dt
     heading = torch.stack([torch.cos(th), torch.sin(th)], dim=-1)       # (A, 2)
-    means = pos[:, None, :] + (v[:, None] * steps[None, :])[:, :, None] \
-        * heading[:, None, :]                                           # (A, T, 2)
-    return _peer_rows(means, th[:, None].expand(-1, horizon),
-                      v[:, None].expand(-1, horizon), None,
+    means = pos[..., None, :] + (v[..., None] * steps)[..., None] \
+        * heading[..., None, :]                                         # (A, T, 2)
+    shape = th.shape + (horizon,)
+    return _peer_rows(means, th[..., None].expand(shape),
+                      v[..., None].expand(shape), None,
                       max(cov_pos, 0.1), length, width, active)
 
 
@@ -306,21 +309,30 @@ def agent_plan_predictions(bank, bank_len, offset, *, horizon: int, length: floa
                            width: float, cov_pos: float, active=None):
     """Peer rows from the agents' currently executing plans.
 
-    `bank` (A, W, 4: center x, y, θ, v): bank[a, j] is agent a's state j steps
-    after its last replan; `bank_len` (A,) the number of valid rows; `offset`
-    the index of the first predicted step.  Row i gathers bank[offset + i],
+    `bank` (..., A, W, 4: center x, y, θ, v): bank[a, j] is agent a's state j
+    steps after its last replan; `bank_len` (..., A) the number of valid rows;
+    `offset` the index of the first predicted step (an int, or a one-element
+    integer tensor on the bank's device).  Row i gathers bank[offset + i],
     clamped to bank_len − 1 (the last valid pose pads the tail), and is valid
     while offset + i < bank_len."""
     device = bank.device
     idx = offset + torch.arange(horizon, device=device)                 # (T,)
-    idx_c = torch.clamp(torch.minimum(idx[None, :], bank_len[:, None] - 1), min=0)
-    rows = torch.gather(bank, 1, idx_c[:, :, None].expand(-1, -1, 4).long())
-    in_plan = idx[None, :] < bank_len[:, None]                          # (A, T)
+    idx_c = torch.clamp(torch.minimum(idx, bank_len[..., None] - 1), min=0)
+    rows = torch.gather(
+        bank, -2, idx_c[..., None].expand(idx_c.shape + (4,)).long())
+    in_plan = idx < bank_len[..., None]                                 # (A, T)
     return _peer_rows(rows[..., :2], rows[..., 2], rows[..., 3], in_plan,
                       cov_pos, length, width, active)
 
 
+# the obstacle axis of every PredictionTensors field, counted from the end
+_OBSTACLE_AXIS = dict(means=-3, inv_covs=-4, covs=-4, orientations=-2,
+                      velocities=-2, lengths=-1, widths=-1, valid=-2)
+
+
 def concat_obstacles(p1: PredictionTensors, p2: PredictionTensors) -> PredictionTensors:
-    """Concatenate two (A, O, ...) prediction-tensor sets along the obstacle
-    axis (scenario obstacles + agent poses)."""
-    return PredictionTensors(*(torch.cat([a, b], dim=1) for a, b in zip(p1, p2)))
+    """Concatenate two (..., A, O, ...) prediction-tensor sets along the
+    obstacle axis (scenario obstacles + agent poses)."""
+    return PredictionTensors(*(
+        torch.cat([getattr(p1, f), getattr(p2, f)], dim=_OBSTACLE_AXIS[f])
+        for f in PredictionTensors._fields))

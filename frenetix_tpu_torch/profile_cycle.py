@@ -9,6 +9,9 @@ warm-up: the dense cycle (34,816 candidates), one simulation-sized cycle
 on a simulation-sized rollout (4 obstacles), and the batched cycle at 16
 obstacle slots alone, with the responsibility term (reach grids) and with
 the occlusion gate and its soft costs (phantom masks, occluder geometry).
+Last the body of the device-resident run (`parallel.device_sim`): the first
+`--run-cycles` cycles of the convoy of 8 agents, as the eager loop and as the
+replayed CUDA graph, reported per cycle.
 The profiler slows the
 host, so the wall time it reports per call is longer than an unprofiled
 call's; device times per kernel are not affected.  Needs a CUDA device.
@@ -24,17 +27,22 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from frenetix_tpu_torch import default_device
+from frenetix_tpu_torch.io.scenario_factory import make_convoy
+from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner.core import evaluate_cycle
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch.sim.simulation import Simulation
+from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.workloads import (
     dense_cycle_problem, stacked_cycle_problem, stacked_post_pass_extras,
 )
 
 
-def profile_calls(name, fn, calls, top, card):
-    """Print one summary line and the `top` heaviest kernels of `fn`."""
+def profile_calls(name, fn, calls, top, card, units=1, unit="call"):
+    """Print one summary line and the `top` heaviest kernels of `fn`, per
+    `unit`; one call of `fn` does `units` of them."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -44,6 +52,8 @@ def profile_calls(name, fn, calls, top, card):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    calls *= units
+    wall_ms /= units
     by_kernel = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -51,8 +61,8 @@ def profile_calls(name, fn, calls, top, card):
             by_kernel[ev.name] = (n + 1, us + ev.device_time)
     launches = sum(n for n, _ in by_kernel.values()) / calls
     busy_ms = sum(us for _, us in by_kernel.values()) / 1e3 / calls
-    print(f"[profile] {name}: {launches:.0f} kernels per call, device busy "
-          f"{busy_ms:.3f} ms per call, profiled wall {wall_ms:.3f} ms per call, "
+    print(f"[profile] {name}: {launches:.0f} kernels per {unit}, device busy "
+          f"{busy_ms:.3f} ms per {unit}, profiled wall {wall_ms:.3f} ms per {unit}, "
           f"idle share {1.0 - busy_ms / wall_ms:.2f} [{card}]")
     for kernel, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"    {us / 1e3 / calls:8.4f} ms  {n / calls:6.1f}x  "
@@ -64,6 +74,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--run-cycles", type=int, default=10,
+                    help="cycles of the device-resident run in each profiled run")
     args = ap.parse_args(argv)
     dev = default_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,6 +120,19 @@ def main(argv=None) -> int:
     profile_calls("gated batched cycle (occ_um, occ_ve) A=8 M=1024 O=16",
                   lambda: gated(matrices, masks, sctx, phantom_masks, *geom),
                   args.calls, args.top, card)
+
+    # the body of the device-resident run: a whole run of a few cycles is one
+    # call (reset, the cycles, the one fetch)
+    config = load_config()
+    config.dtype = "float32"
+    config.simulation.start_multiagent = True
+    sim = Simulation(make_convoy(), config, dev)
+    sim.max_steps = args.run_cycles * config.planning.replanning_frequency
+    run = DeviceSimulation(sim)
+    for graph, how in ((False, "eager"), (True, "replayed CUDA graph")):
+        profile_calls(f"device-resident run, convoy A=8, {how}",
+                      lambda: run.run(graph=graph), max(args.calls // 5, 2), args.top,
+                      card, units=run.n_cycles, unit="cycle")
     return 0
 
 

@@ -118,8 +118,9 @@ def collision_probability_fast(ro, preds, veh):
     cov = torch.where(cov_zero[..., None, None], eye, cov)
 
     off = (2.0 / 3.0) * (veh.length / 2.0)
-    offset = torch.tensor([veh.length / 6.0, veh.width / 2.0], dtype=dtype,
-                          device=device)
+    # two fills, not a host list: no host→device copy (CUDA-graph capture)
+    offset = torch.full((2,), veh.length / 6.0, dtype=dtype, device=device)
+    offset[1:].fill_(veh.width / 2.0)
     valid = preds.valid[..., None, :, :t].to(dtype)
 
     n_batch = int(np.prod(batch)) if batch else 1

@@ -20,9 +20,12 @@ predictions get phantom rows behind the occluders it sees, and its planner
 (or the batched cycle) gates and prices the candidates against them; with a
 responsibility weight the batched path stacks the agents' reach-set grids.
 
-The sharded and device-resident paths, Wale-Net predictions and plotting are
-not ported yet; a config that asks for them raises NotImplementedError
-naming the ROADMAP.md slice that brings them.
+With `simulation.device_resident_sim` the whole run stays on the device and
+the host fetches once (`parallel.device_sim.DeviceSimulation`).
+
+The sharded path, Wale-Net predictions and plotting are not ported yet; a
+config that asks for them raises NotImplementedError naming the ROADMAP.md
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -75,8 +78,6 @@ def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
     out = []
     if sim.sharded_device_agents:
         out.append("simulation.sharded_device_agents (multi-GPU: slice 7)")
-    if sim.device_resident_sim:
-        out.append("simulation.device_resident_sim (slice 6)")
     if config.prediction.mode not in ("ground_truth", "constant_velocity"):
         out.append(f"prediction.mode={config.prediction.mode!r} (Wale-Net: slice 5)")
     return out
@@ -664,6 +665,13 @@ class Simulation:
 
     # -------------------------------------------------------------- main loop
     def run(self) -> SimulationResult:
+        if self.config.simulation.device_resident_sim:
+            # the whole run on the device, ONE fetch; the adapter gives the
+            # host result's shape
+            from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
+
+            ds = DeviceSimulation(self)
+            return ds.to_simulation_result(ds.run())
         t_start = time.perf_counter()
         t = 0
         while t < self.max_steps:

@@ -17,6 +17,12 @@ many obstacle slots (the simulations' 16) and obstacle 0 of every agent
 stands next to the candidates' end points, so that the risk stack has risk
 to price; `stacked_post_pass_extras` makes the reach grids, phantom masks and
 occluder geometry that the batched cycle's post-passes take.
+
+`device_fleet` builds S device-resident simulations for
+`parallel.device_sim.run_fleet`: members cycle through the highway, the
+overtake with its lead as a second agent, the curve and the convoy of eight
+agents, each with gaps and speeds drawn from a seed, so that no two members
+are the same run.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from frenetix_tpu_torch.planner.core import context_from_numpy
 from frenetix_tpu_torch.risk.reachable_set import ReachSetGrid
 
 __all__ = ["dense_cycle_problem", "stacked_cycle_problem",
-           "stacked_post_pass_extras"]
+           "stacked_post_pass_extras", "device_fleet"]
 
 N_STEPS = 30
 DT = 0.1
@@ -222,3 +228,44 @@ def stacked_post_pass_extras(ctx, seed: int = 0, grid_n: int = 64, n_rays: int =
     pts_valid[:, :2] = True
     ego = xy[:, 1] - torch.tensor([25.0, 3.0], dtype=dtype, device=device)
     return grid, first.clone(), (ego, r_vis, xy[:, :1] + offsets, pts_valid)
+
+
+def device_fleet(n_members: int, device=None, dtype: str = "float32", seed: int = 0,
+                 n_steps=None, config=None):
+    """`n_members` DeviceSimulations for `parallel.device_sim.run_fleet`.
+
+    Member i is of family i mod 4: highway (one agent), overtake with
+    `start_multiagent` (two agents), curve (one agent), convoy with
+    `start_multiagent` (eight agents).  Speeds and gaps vary around the
+    factory's defaults by up to ±10 % (speeds) and ±15 % (gaps), drawn from
+    `seed`.  `n_steps` shortens every scenario (a CPU rehearsal); `config`
+    replaces the default config (its `dtype` and `start_multiagent` are set
+    per member).  `device` as in `Simulation`: the CUDA device by default."""
+    import copy
+
+    from frenetix_tpu_torch.io import scenario_factory as factory
+    from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
+    from frenetix_tpu_torch.sim.simulation import Simulation
+    from frenetix_tpu_torch.utils.config import load_config
+
+    rng = np.random.default_rng(seed)
+    extra = {} if n_steps is None else {"n_steps": int(n_steps)}
+    sims = []
+    for i in range(n_members):
+        speed, gap = rng.uniform(0.9, 1.1), rng.uniform(0.85, 1.15)
+        family = i % 4
+        if family == 0:
+            scenario = factory.make_highway(ego_v=15.0 * speed, lead_gap=40.0 * gap,
+                                            **extra)
+        elif family == 1:
+            scenario = factory.make_overtake(ego_v=14.0 * speed, lead_gap=35.0 * gap,
+                                             **extra)
+        elif family == 2:
+            scenario = factory.make_curve(ego_v=12.0 * speed, lead_v=8.0 * gap, **extra)
+        else:
+            scenario = factory.make_convoy(ego_v=10.0 * speed, gap=30.0 * gap, **extra)
+        cfg = copy.deepcopy(config) if config is not None else load_config()
+        cfg.dtype = dtype
+        cfg.simulation.start_multiagent = family in (1, 3)
+        sims.append(DeviceSimulation(Simulation(scenario, cfg, device)))
+    return sims

@@ -93,8 +93,9 @@ def test_run_scenario_cuda_without_cuda_raises():
     {"simulation": {"sharded_device_agents": True}},
     {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
     {"behavior": {"use_behavior_planner": True}},
-    {"simulation": {"batched_device_agents": True, "device_resident_sim": True}},
-    {"simulation": {"device_resident_sim": True}},
+    {"simulation": {"device_resident_sim": True},
+     "behavior": {"use_behavior_planner": True}},
+    {"simulation": {"device_resident_sim": True}, "prediction": {"mode": "walenet"}},
     {"prediction": {"mode": "walenet"}},
 ])
 def test_features_outside_the_slice_raise(override):
@@ -115,6 +116,8 @@ def test_features_outside_the_slice_raise(override):
     {"prediction": {"calc_occlusions": True}},
     {"occlusion": {"use_occlusion_module": True},
      "external_cost_weights": {"occ_um": 2.0, "occ_ve": 0.5}},
+    {"simulation": {"device_resident_sim": True}},
+    {"simulation": {"start_multiagent": True, "device_resident_sim": True}},
 ])
 def test_features_of_this_slice_construct(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -198,8 +201,8 @@ for name in names:
     importlib.import_module(name)
 for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "io.commonroad", "io.scenario_factory", "parallel.mesh",
-                 "parallel.batched_sim", "risk.probability", "risk.harm",
-                 "risk.costs", "risk.reachable_set", "sim.visible_area",
+                 "parallel.batched_sim", "parallel.device_sim", "risk.probability",
+                 "risk.harm", "risk.costs", "risk.reachable_set", "sim.visible_area",
                  "sim.sensor_model", "occlusion", "occlusion.occlusion_module",
                  "run_scenario", "workloads"):
     assert "frenetix_tpu_torch." + expected in names, expected
