@@ -66,7 +66,25 @@ Phases, each printed on lines of its own:
    positions within 1e-4 m), then timed at S = 1, 8, 32: wall, scenarios per
    second, peak device memory.
 
-Each path (phases 4 to 12) is driven with K1's launch count set to 0 just
+13. behavior planner (float64 for the hard checks, float32 reported beside):
+   (a) the host path, one agent: traffic_light, stop_sign and lane_change in
+   float32 and float64 on the card; the float64 run must equal the CPU
+   float64 run of the port (statuses, steps, positions within 1e-6 m);
+   (b) the convoy with behavior, host batched against host sequential on the
+   card: equal statuses, positions within 1e-4 m up to the first retirement;
+   (c) the device-resident run with the FSM in the run on traffic_light,
+   stop_sign, yield_sign, crosswalk and convoy: float32 eager and replayed
+   (bitwise equal, one fetch, sync debug mode "error"), then float64 equal
+   to the hybrid run and the host sequential run (statuses, steps, positions
+   within 1e-6 m); ms per cycle eager and replayed, capture time;
+   (d) hybrid: lane_change falls back at construction, behavior_overtake
+   bails at run time; both equal the forced "hybrid" run (float64); ms per
+   cycle, fetches and captures per run;
+   (e) a behavior fleet of traffic_light, stop_sign and convoy (float32,
+   FSM in the run) against the members' solo runs; scenarios per second and
+   peak memory.
+
+Each path (phases 4 to 13) is driven with K1's launch count set to 0 just
 before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -110,6 +128,7 @@ A_BATCH, M_BATCH = 8, 1024
 O_SLOTS = 16           # obstacle slots of the simulations' prediction tensors
 ULPS = 4
 POS_TOL = 1e-4         # metres: device-resident run against the host run, float32
+BEH_POS_TOL = 1e-6     # metres: behavior runs against each other, float64
 FLEET_SIZES = (1, 8, 32)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # float32 outside the tensor cores
@@ -901,6 +920,206 @@ def phase_fleet(dev, smi, launches):
                   f"[{smi}]")
 
 
+def _behavior_sim(family, dev, dtype, device_fsm="auto", batched=False):
+    config = load_config()
+    config.dtype = dtype
+    config.behavior.use_behavior_planner = True
+    config.behavior.device_fsm = device_fsm
+    config.simulation.start_multiagent = family == "convoy"
+    config.simulation.batched_device_agents = batched
+    return Simulation(getattr(scenario_factory, f"make_{family}")(), config, dev)
+
+
+def _history_gap(a, b, steps=None):
+    """Largest coordinate distance between two host results' executed
+    positions, over every agent and the first `steps` states."""
+    gap = 0.0
+    for aid, ha in a.histories.items():
+        n = min(len(ha), len(b.histories[aid]))
+        n = n if steps is None else min(n, steps)
+        pa = np.array([s.position for s in ha[:n]], dtype=np.float64)
+        pb = np.array([s.position for s in b.histories[aid][:n]], dtype=np.float64)
+        gap = max(gap, float(np.abs(pa - pb).max()))
+    return gap
+
+
+def _statuses(res):
+    return {aid: int(s) for aid, s in res.agent_status.items()}
+
+
+def _dres_statuses(dres):
+    return {aid: int(s) for aid, s in zip(dres.agent_ids, dres.status)}
+
+
+def _dres_gap(a, b):
+    n = min(a.steps, b.steps)
+    return float(np.abs(a.trajectories[:n, :, :2].astype(np.float64)
+                        - b.trajectories[:n, :, :2]).max())
+
+
+def phase_behavior(dev, smi, launches):
+    cpu = torch.device("cpu")
+    # (a) the host path, one agent
+    for family in ("traffic_light", "stop_sign", "lane_change"):
+        runs = {}
+        for dtype in ("float32", "float64"):
+            launches.start()
+            runs[dtype] = _behavior_sim(family, dev, dtype).run()
+            launches.stop(f"behavior host {family}, {dtype}")
+        ref = _behavior_sim(family, cpu, "float64").run()
+        r64, r32 = runs["float64"], runs["float32"]
+        check(r64.success and _statuses(r64) == _statuses(ref) and r64.steps == ref.steps,
+              f"behavior {family}: card f64 {r64.agent_status} steps {r64.steps} vs cpu "
+              f"f64 {ref.agent_status} steps {ref.steps}")
+        gap64 = _history_gap(r64, ref)
+        check(gap64 <= BEH_POS_TOL, f"behavior {family}: card f64 {gap64} m from cpu f64")
+        gap32 = _history_gap(r32, ref)
+        phase(13, f"(a) behavior host {family}: card f64 = cpu f64 (steps {r64.steps}, "
+                  f"success, positions within {gap64:.3e} m), wall {r64.wall_time:.3f} s; "
+                  f"card f32: {[s.name for s in r32.agent_status.values()]} steps "
+                  f"{r32.steps}, wall {r32.wall_time:.3f} s, gap to f64 over the common "
+                  f"steps {gap32:.3e} m [{smi}]")
+
+    # (b) host batched against host sequential, many agents
+    host = {}
+    for batched in (True, False):
+        how = "batched" if batched else "sequential"
+        launches.start()
+        host[how] = _behavior_sim("convoy", dev, "float32", batched=batched).run()
+        launches.stop(f"behavior convoy host {how}")
+    b, s = host["batched"], host["sequential"]
+    check(_statuses(b) == _statuses(s),
+          f"behavior convoy: batched {b.agent_status} vs sequential {s.agent_status}")
+    retire = min(len(h) for r in (b, s) for h in r.histories.values())
+    gap = _history_gap(b, s, steps=retire)
+    check(gap <= POS_TOL, f"behavior convoy: batched {gap} m from sequential up to step "
+                          f"{retire} (limit {POS_TOL})")
+    phase(13, f"(b) behavior convoy, 8 agents, host on the card f32, statuses "
+              f"{sorted(set(_statuses(b).values()))}: batched "
+              f"{b.wall_time:.3f} s (steps {b.steps}), sequential {s.wall_time:.3f} s "
+              f"(steps {s.steps}), equal statuses, positions within {gap:.3e} m up to "
+              f"the first retirement (step {retire - 1}) [{smi}]")
+
+    # (c) the device-resident run with the FSM in the run
+    for family in ("traffic_light", "stop_sign", "yield_sign", "crosswalk", "convoy"):
+        ds = device_sim.DeviceSimulation(_behavior_sim(family, dev, "float32"))
+        check(ds.fsm_in_scan, f"behavior {family}: FSM not in the run ({ds.fsm_reason})")
+        programs = 2 * len(ds.levels) + 2        # + the stopping program's two modes
+        _run_once(ds, graph=False)
+        launches.start()
+        eager = _run_once(ds, graph=False)
+        n_eager = launches.stop(f"behavior device run {family}, eager")
+        check(n_eager == eager.extras["k1_launches"] == programs * ds.n_cycles,
+              f"behavior {family} eager: {n_eager} K1 launches, expected {programs} x "
+              f"{ds.n_cycles}")
+        launches.start()
+        first = _run_once(ds, graph=True)
+        launches.stop(f"behavior device run {family}, replayed",
+                      replayed=first.extras["k1_launches"])
+        replayed = _run_once(ds, graph=True)
+        for other, what in ((first, "first replayed run"), (eager, "eager run")):
+            for name in ("status", "trajectories", "status_per_step", "selections",
+                         "found"):
+                check(np.array_equal(getattr(replayed, name), getattr(other, name)),
+                      f"behavior {family}: {name} of the replayed run differs from "
+                      f"the {what}")
+        check(not replayed.extras.get("bailed"), f"behavior {family} bailed")
+        ds64 = device_sim.DeviceSimulation(_behavior_sim(family, dev, "float64"))
+        launches.start()
+        d64 = ds64.run()
+        launches.stop(f"behavior device run {family}, f64",
+                      replayed=d64.extras["k1_launches"])
+        launches.start()
+        hyb = device_sim.DeviceSimulation(
+            _behavior_sim(family, dev, "float64", device_fsm="hybrid")).run()
+        launches.stop(f"behavior hybrid run {family}, f64",
+                      replayed=hyb.extras["k1_launches"])
+        launches.start()
+        seq = _behavior_sim(family, dev, "float64").run()
+        launches.stop(f"behavior host sequential {family}, f64")
+        check(_dres_statuses(d64) == _dres_statuses(hyb) == _statuses(seq)
+              and d64.steps == hyb.steps == seq.steps,
+              f"behavior {family} f64: in-run {_dres_statuses(d64)} steps {d64.steps}, "
+              f"hybrid {_dres_statuses(hyb)} steps {hyb.steps}, host {seq.agent_status} "
+              f"steps {seq.steps}")
+        gap_h, gap_s = _dres_gap(d64, hyb), _position_gap(d64, seq)
+        check(max(gap_h, gap_s) <= BEH_POS_TOL,
+              f"behavior {family} f64: in-run {gap_h} m from hybrid, {gap_s} m from host")
+        gap32 = _dres_gap(replayed, d64)
+        c_n = ds.n_cycles
+        phase(13, f"(c) behavior device run {family}, {len(ds.agents)} agents, FSM in the "
+                  f"run, {c_n} cycles of {programs} programs, 1 fetch: f32 eager "
+                  f"{1e3 * eager.wall_time / c_n:.3f} ms per cycle, replayed "
+                  f"{1e3 * replayed.wall_time / c_n:.3f} ms per cycle (capture "
+                  f"{first.extras['capture_s']:.3f} s), replayed = eager bitwise; f64: "
+                  f"in-run = hybrid = host sequential (steps {d64.steps}, statuses "
+                  f"{sorted(set(_dres_statuses(d64).values()))}), positions within "
+                  f"{max(gap_h, gap_s):.3e} m; f32 run's statuses "
+                  f"{sorted(set(_dres_statuses(replayed).values()))} steps "
+                  f"{replayed.steps}, gap to f64 {gap32:.3e} m; f64 replayed "
+                  f"{1e3 * d64.wall_time / c_n:.3f} ms per cycle, hybrid "
+                  f"{1e3 * hyb.wall_time / c_n:.3f} ms per cycle [{smi}]")
+
+    # (d) hybrid: a fallback at construction and a bail at run time
+    for family in ("lane_change", "behavior_overtake"):
+        ds = device_sim.DeviceSimulation(_behavior_sim(family, dev, "float64"))
+        if family == "lane_change":
+            check(not ds.fsm_in_scan and "lane changes" in ds.fsm_reason,
+                  f"lane_change: {ds.fsm_in_scan} {ds.fsm_reason}")
+        else:
+            check(ds.fsm_in_scan, f"behavior_overtake: {ds.fsm_reason}")
+        launches.start()
+        res = ds.run()
+        launches.stop(f"behavior hybrid {family}", replayed=res.extras["k1_launches"])
+        if family == "behavior_overtake":
+            check(res.extras.get("bailed"), "behavior_overtake did not bail")
+        forced = device_sim.DeviceSimulation(
+            _behavior_sim(family, dev, "float64", device_fsm="hybrid")).run()
+        check(_dres_statuses(res) == _dres_statuses(forced) and res.steps == forced.steps,
+              f"behavior {family}: {_dres_statuses(res)} steps {res.steps} vs forced "
+              f"hybrid {_dres_statuses(forced)} steps {forced.steps}")
+        gap = _dres_gap(res, forced)
+        check(gap <= BEH_POS_TOL, f"behavior {family}: {gap} m from the forced hybrid run")
+        c_n = ds.n_cycles
+        phase(13, f"(d) behavior hybrid {family} f64 ("
+                  f"{'bailed at run time' if family != 'lane_change' else 'fallback at construction: ' + ds.fsm_reason}"
+                  f"): statuses {_dres_statuses(res)} steps {res.steps} = forced hybrid, "
+                  f"positions within {gap:.3e} m; {1e3 * forced.wall_time / c_n:.3f} ms "
+                  f"per cycle, {forced.extras['fetches']} fetches and "
+                  f"{forced.extras['captures']} captures per run ({c_n} cycles, capture "
+                  f"{forced.extras['capture_s']:.3f} s) [{smi}]")
+
+    # (e) a behavior fleet
+    families = ("traffic_light", "stop_sign", "convoy")
+    sims = [device_sim.DeviceSimulation(_behavior_sim(f, dev, "float32"))
+            for f in families]
+    check(all(s.fsm_in_scan for s in sims), "behavior fleet: FSM not in the run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fetches = device_sim.FETCHES
+    launches.start()
+    t0 = time.perf_counter()
+    results = device_sim.run_fleet(sims, sync_debug=True)
+    wall = time.perf_counter() - t0
+    launches.stop("behavior fleet S=3", replayed=results[0].extras["k1_launches"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(device_sim.FETCHES == fetches + 1, "a behavior fleet run fetches once")
+    gap = 0.0
+    for f, fleet_res, sim in zip(families, results, sims):
+        solo = sim.run()
+        check(np.array_equal(fleet_res.status, solo.status) and fleet_res.steps == solo.steps,
+              f"behavior fleet member {f}: {fleet_res.status} steps {fleet_res.steps} vs "
+              f"solo {solo.status} steps {solo.steps}")
+        gap = max(gap, _dres_gap(fleet_res, solo))
+    check(gap <= POS_TOL, f"behavior fleet members {gap} m from their solo runs")
+    c_max = max(s.n_cycles for s in sims)
+    phase(13, f"(e) behavior fleet S=3 ({', '.join(families)}), FSM in the run, replayed, "
+              f"1 fetch: wall {wall:.3f} s with warm-up and capture "
+              f"({results[0].extras['capture_s']:.3f} s), {3 / wall:.3f} scenarios/s, "
+              f"{1e3 * wall / c_max:.3f} ms per cycle, peak memory {peak:.3f} GiB; every "
+              f"member equals its solo run, positions within {gap:.3e} m [{smi}]")
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -915,6 +1134,7 @@ def main() -> int:
     phase_occlusion(dev, smi, launches)
     phase_device_run(dev, smi, launches, host_runs)
     phase_fleet(dev, smi, launches)
+    phase_behavior(dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

@@ -36,13 +36,27 @@ captured) × (replays), or the counter's own difference for an eager run.
 A fleet (`run_fleet`) pads every member to the fleet's maxima with inert
 rows and runs the same body over one more leading axis, (S, A, ...).
 
+The behavior planner runs in one of two ways.  Where
+`behavior.device_fsm.build_fsm_tensors` supports the scenario (and
+`behavior.device_fsm` is "auto"), the FSM is part of the body
+(`behavior.device_fsm.make_fsm_step`): it gives every agent its desired
+velocity and stop point, and the quintic stopping program runs every cycle on
+a device-built stopping matrix and is merged with `where` for the agents that
+want it and found a candidate.  The one fetch also reads the carried `bail`
+flag: an FSM that wanted to overtake makes `run()` do the run again on the
+hybrid path.  Otherwise the run takes the hybrid path (`_drive_hybrid`): the
+host behavior modules run between device cycles, one small fetch of the
+carry per cycle, and the single-cycle body takes their velocities and
+stopping matrices from input buffers; a reference-path swap restacks the
+tables (a new capture only when the tables grow).
+
 What this module carries of the JAX original: ground-truth and
 constant-velocity predictions with mode-faithful peers, the radius and
 rear-cone sensor filter, progressive densification, low-velocity kinematics,
-the emergency ladder in both modes ("stopping", "min_risk"), fleets and
-chunks.  The responsibility term, the visible-area sensor stage and the
-occlusion module inside the run (ROADMAP.md slice 6b), the behavior planner
-(6c), Wale-Net predictions (5) and a device mesh (7) raise
+the emergency ladder in both modes ("stopping", "min_risk"), the behavior
+planner (in the run and hybrid), fleets and chunks.  The responsibility
+term, the visible-area sensor stage and the occlusion module inside the run
+(ROADMAP.md slice 6b), Wale-Net predictions (5) and a device mesh (7) raise
 NotImplementedError here and keep working on the host path where they did.
 The road-departure check of executed poses is skipped, as in the JAX
 package: selected plans are corridor-checked inside the cycle.
@@ -50,12 +64,16 @@ package: selected plans are corridor-checked inside the cycle.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
 
+from frenetix_tpu_torch.behavior.device_fsm import (
+    build_fsm_tensors, fsm_carry0, make_fsm_step, pad_fsm_tensors,
+)
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops import table_interp
@@ -67,16 +85,19 @@ from frenetix_tpu_torch.parallel.mesh import (
     concat_obstacles,
 )
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+from frenetix_tpu_torch.planner.reactive import wants_stopping_mode
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.sim.agent import AgentStatus, EgoState
+from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
 
 __all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet"]
 
 # AgentStatus values as plain ints: the status carry is an int32 tensor
 _RUNNING, _SUCCESS, _TIMELIMIT, _COLLISION, _ERROR = 1, 2, 3, 4, 5
 
-# device→host copies made by runs of this module (one per run, or per chunk)
+# device→host copies made by runs of this module (one per run, or per chunk;
+# a hybrid run adds one per cycle)
 FETCHES = 0
 
 
@@ -116,6 +137,9 @@ class SimTensors:
     # constant-velocity pseudo-plan when none exists
     bank0: object              # (A, W, 4)
     bank_len0: object          # (A,) int32 readable entries
+    # the in-run behavior FSM (behavior.device_fsm); None without it
+    fsm: object = None         # FSMTensors
+    fsm_carry0: object = None  # FSMCarry
 
     def to(self, device, dtype) -> "SimTensors":
         """The same structure as tensors on `device`: floats as `dtype`,
@@ -136,6 +160,8 @@ def _map_leaves(fn, first: SimTensors, *rest: SimTensors) -> SimTensors:
         vals = [getattr(t, f.name) for t in (first, *rest)]
         if f.name == "ref":
             out[f.name] = RefPathTable(*(fn(*xs) for xs in zip(*vals)))
+        elif f.name in ("fsm", "fsm_carry0"):
+            out[f.name] = None if vals[0] is None else vals[0].map(fn, *vals[1:])
         elif f.name == "pred_windows":
             out[f.name] = {k: fn(*(v[k] for v in vals)) for k in vals[0]}
         else:
@@ -405,6 +431,56 @@ def _merge(take_b, a: dict, b: dict) -> dict:
                            b[k], a[k]) for k in a}
 
 
+def build_stop_matrices(x_cl, stop_s, stop_v, t_grid, n_s: int, n_d: int):
+    """The quintic stopping matrix of every agent, (..., A, M, 13)
+    (`ReactivePlanner._stopping_matrix` at the first sampling level, the
+    only one the host tries): t1 × n_s end positions from halfway to the
+    stop point × (n_d + 1) end offsets around the current d, end velocity 0.
+
+    The grids are computed in float64 by `np.linspace`'s algorithm and cast
+    once, as the host does.  Where d0 falls on the lateral grid the host's
+    `union1d` drops the duplicate; here it stays, an identical candidate."""
+    dtype = x_cl.dtype
+    lead = tuple(x_cl.shape[:-1])
+    s0, ss0, sss0, d0, dd0, ddd0 = (x_cl[..., i] for i in range(6))
+    s0_64, ss0_64, d0_64 = s0.double(), ss0.double(), d0.double()
+    stop_64 = stop_s.double()
+    ref_vel = (ss0_64 + stop_v.double()) / 2.0
+    d_delta = torch.where(ref_vel < 5.0, torch.clamp((ss0_64 / 5.0) * 0.4, min=0.01),
+                          torch.full_like(ref_vel, 0.4))
+    s1 = _linspace64((s0_64 + stop_64) / 2.0, stop_64, n_s).to(dtype)
+    d1 = torch.sort(torch.cat([_linspace64(d0_64 - d_delta, d0_64 + d_delta, n_d),
+                               d0_64[..., None]], dim=-1), dim=-1).values.to(dtype)
+    t_n, d_n = t_grid.shape[0], n_d + 1
+    grid = lead + (t_n, n_s, d_n)
+    rows = lead + (t_n * n_s * d_n,)
+
+    def col(x):
+        return x.expand(grid).reshape(rows)
+
+    def pin(x):
+        return x[..., None].expand(rows)
+
+    zero = torch.zeros(rows, dtype=dtype, device=x_cl.device)
+    return torch.stack([
+        zero, col(t_grid[:, None, None]), pin(s0), pin(ss0), pin(sss0),
+        col(s1[..., None, :, None]), zero, pin(d0), pin(dd0), pin(ddd0),
+        col(d1[..., None, None, :]), zero, zero], dim=-1)
+
+
+def benign_stop_row(x_cl, *, n_steps: int, dt: float, horizon: float):
+    """(..., A, 13): the row that stands in for every masked row of a
+    stopping matrix.  Masked rows still go through the quintic solve, so
+    they must be well conditioned: end time the horizon, end position at
+    least a second of travel ahead, the current d."""
+    s0, ss0, d0 = x_cl[..., 0], x_cl[..., 1], x_cl[..., 3]
+    zero = torch.zeros_like(s0)
+    return torch.stack([
+        zero, torch.full_like(s0, n_steps * dt), s0, ss0, x_cl[..., 2],
+        s0 + torch.clamp(ss0, min=1.0) * horizon, zero, d0, x_cl[..., 4],
+        x_cl[..., 5], d0, zero, zero], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -415,11 +491,15 @@ class _Runner:
 
     `proto` gives the statics (config, levels, vehicle); `g_host` the inputs,
     whose leading axes before the agent axis (none, or the scenario axis) the
-    body carries along.  `load` copies another input set of the same shapes
-    into the input buffers (a fleet's next chunk), `run` resets the carry,
+    body carries along.  With `g_host.fsm` the body runs the in-run behavior
+    FSM and the stopping program; with `hybrid` it takes the behavior's
+    velocities and stopping matrices from the input buffers `b_in` instead.
+    `load` copies another input set of the same shapes into the input
+    buffers (a fleet's next chunk, restacked tables), `run` resets the carry,
     drives `n_cycles` cycles and fetches once."""
 
-    def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int):
+    def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int,
+                 hybrid: bool = False):
         self.p = proto
         self.device = proto.device
         self.dtype = proto.dtype
@@ -428,6 +508,8 @@ class _Runner:
         self.lead = lead = tuple(g.x_cl0.shape[:-2])
         self.nl = len(lead)
         self.a_n = a_n = int(g.x_cl0.shape[-2])
+        self.use_fsm = g.fsm is not None
+        self.hybrid = bool(hybrid)
         dev, dtype = self.device, self.dtype
         k, c_n = proto.k_replan, self.n_cycles
 
@@ -441,6 +523,22 @@ class _Runner:
             bank=buf(tuple(g.bank0.shape)), bank_len=buf(lead + (a_n,), torch.int32),
             cycle=buf((1,), torch.int64),
         )
+        self.fsm_state = None
+        if self.use_fsm:
+            # the WorldView presence rule: the last step each agent executed
+            self.state["last_exec"] = buf(lead + (a_n,), torch.int32)
+            self.fsm_state = g.fsm_carry0.map(torch.clone)
+        self.b_in = None
+        if self.hybrid:
+            # the executed curvature and the orientation before the last
+            # sub-step: the host mirrors' steering angle and yaw rate
+            self.state["kap"] = buf(lead + (a_n,))
+            self.state["th_prev"] = buf(lead + (a_n,))
+            m_stop = proto.stop_bucket
+            self.b_in = dict(
+                v_des=buf(lead + (a_n,)), stop_mat=buf(lead + (a_n, m_stop, 13)),
+                stop_mask=buf(lead + (a_n, m_stop), torch.bool),
+                wants=buf(lead + (a_n,), torch.bool))
         self.out = dict(
             traj=buf((c_n,) + lead + (k, a_n, 5)),
             status_steps=buf((c_n,) + lead + (k, a_n), torch.int32),
@@ -464,6 +562,13 @@ class _Runner:
         self.capture_s = 0.0
 
     # ------------------------------------------------------------- buffers
+    def _buffers(self) -> list:
+        """Every buffer the body writes: state, FSM carry and outputs."""
+        bufs = list(self.state.values()) + list(self.out.values())
+        if self.fsm_state is not None:
+            bufs += [getattr(self.fsm_state, f.name) for f in fields(self.fsm_state)]
+        return bufs
+
     def load(self, g_host: SimTensors) -> None:
         """Copy another input set of the same shapes into the input buffers."""
         def copy(dst, src):
@@ -487,24 +592,25 @@ class _Runner:
         st["bank"].copy_(g.bank0)
         st["bank_len"].copy_(g.bank_len0)
         st["cycle"].zero_()
+        if self.use_fsm:
+            st["last_exec"].zero_()
+            for f in fields(self.fsm_state):
+                getattr(self.fsm_state, f.name).copy_(getattr(g.fsm_carry0, f.name))
+        if self.hybrid:
+            st["th_prev"].copy_(g.pose0[..., 2])
 
     # ---------------------------------------------------------------- body
-    def _cycle_all_agents(self, level: int, x_cl, v, ctx):
-        """One densification level for all agents, both kinematics modes
-        merged per agent by the host's rule v < low_vel_mode_threshold."""
+    def _programs(self, matrix, mask, x_cl, v, ctx, quintic: bool = False):
+        """One sampling matrix for all agents, both kinematics modes merged
+        per agent by the host's rule v < low_vel_mode_threshold."""
         p = self.p
-        pl = p.config.planning
-        t_grid, (_, n_v, n_d, _) = self.t_grids[level], p.levels[level]
-        matrix = build_sampling_matrices(
-            x_cl, v, t_grid, n_v, n_d, veh=p.veh, horizon=p.horizon,
-            d_min=pl.d_min, d_max=pl.d_max, d_ego_pos=p.d_ego_pos)
-        mask = self.masks[level]
         d0 = x_cl[..., 3]
         outs = []
         for low_vel in (False, True):
             res = evaluate_cycle(
                 matrix, mask, ctx, dt=p.dt, n_steps=p.n_steps, low_vel_mode=low_vel,
-                table_window=768, compensated_sum=p.compensated_sum)
+                quintic_lon=quintic, table_window=768,
+                compensated_sum=p.compensated_sum)
             risks = None
             if p.emergency_mode == "min_risk":
                 risks = trajectory_risks(
@@ -513,7 +619,17 @@ class _Runner:
                     p.veh.mass)
             outs.append(select_with_fallback(res, matrix, mask, d0,
                                              p.emergency_mode, risks))
-        return _merge(v < pl.low_vel_mode_threshold, outs[0], outs[1])
+        return _merge(v < p.config.planning.low_vel_mode_threshold, outs[0], outs[1])
+
+    def _cycle_all_agents(self, level: int, x_cl, v, ctx):
+        """One densification level for all agents."""
+        p = self.p
+        pl = p.config.planning
+        t_grid, (_, n_v, n_d, _) = self.t_grids[level], p.levels[level]
+        matrix = build_sampling_matrices(
+            x_cl, v, t_grid, n_v, n_d, veh=p.veh, horizon=p.horizon,
+            d_min=pl.d_min, d_max=pl.d_max, d_ego_pos=p.d_ego_pos)
+        return self._programs(matrix, self.masks[level], x_cl, v, ctx)
 
     def step(self) -> None:
         """One replanning cycle of all agents: enqueues device work only."""
@@ -548,7 +664,28 @@ class _Runner:
         running = status == _RUNNING
 
         x_cl_replan = x_cl
-        v_des = desired_velocity(g, x_cl, v, t0.to(dtype), dt)
+        behavior = None
+        if self.use_fsm:
+            # the in-run behavior FSM: desired velocity and stop point as the
+            # host behavior module computes them, then the stopping matrix of
+            # the agents whose stop point asks for stopping mode
+            # (`reactive.wants_stopping_mode`)
+            peer_present = (st["last_exec"] == t0) & g.active0
+            fsm_new, v_des, stop_s, stop_v = p.fsm_step(
+                g.fsm, self.fsm_state, c, t0, center, theta, v, running, peer_present)
+            thr = p.config.behavior.stopping_mode_threshold
+            wants = (running & (stop_v < thr) & (stop_s > x_cl[..., 0])
+                     & (stop_v < torch.clamp(x_cl[..., 1], min=1.0) + 2.0))
+            stop_mat = build_stop_matrices(x_cl, stop_s, stop_v, self.t_grids[0],
+                                           p.levels[0][1], p.stop_n_d)
+            behavior = (stop_mat, wants[..., None].expand(stop_mat.shape[:-1]), wants)
+        elif self.hybrid:
+            # the host behavior modules' outputs of this cycle
+            b = self.b_in
+            v_des = b["v_des"]
+            behavior = (b["stop_mat"], b["stop_mask"], b["wants"])
+        else:
+            v_des = desired_velocity(g, x_cl, v, t0.to(dtype), dt)
 
         # --- this cycle's predictions ----------------------------------------
         def window_field(name):
@@ -601,6 +738,15 @@ class _Runner:
         out = self._cycle_all_agents(0, x_cl, v, ctx)
         for level in range(1, len(p.levels)):
             out = _merge(~out["found"], out, self._cycle_all_agents(level, x_cl, v, ctx))
+        if behavior is not None:
+            # stopping mode: the host tries the stopping matrix first (at the
+            # first level only) and samples regularly when it finds nothing,
+            # so its result wins where the agent wants it and it found one
+            stop_mat, stop_mask, wants = behavior
+            benign = benign_stop_row(x_cl, n_steps=n_steps, dt=dt, horizon=p.horizon)
+            stop_mat = torch.where(stop_mask[..., None], stop_mat, benign[..., None, :])
+            out_stop = self._programs(stop_mat, stop_mask, x_cl, v, ctx, quintic=True)
+            out = _merge(wants & out_stop["found"], out, out_stop)
         found = out["found"]
         # the emergency ladder: standstill at v <= 0.1 first, then the
         # fallback selection, else the agent fails
@@ -628,6 +774,8 @@ class _Runner:
         bank_len = torch.full_like(bank_len, n_steps + 1)
 
         # --- execute k sub-steps with the status ladder ----------------------
+        last_exec = st.get("last_exec")
+        kap, th_prev = st.get("kap"), st.get("th_prev")
         traj_steps, status_steps = [], []
         for j in range(1, k + 1):
             t_glob = t0 + j
@@ -636,11 +784,20 @@ class _Runner:
                 status = torch.where(reached, _SUCCESS, status)
                 running = status == _RUNNING
             step_ok = running & (t_glob <= max_steps)
+            if last_exec is not None:
+                # an agent "has a state at t" iff it executed step t (the
+                # colliding state included)
+                last_exec = torch.where(step_ok, t_glob.to(torch.int32), last_exec)
             mov = step_ok & ~std
             hold = step_ok & std
             th_j = out["theta"][..., j]
             c_j = torch.stack([out["x"][..., j] + wb * torch.cos(th_j),
                                out["y"][..., j] + wb * torch.sin(th_j)], dim=-1)
+            if kap is not None:
+                # θ before this sub-step (a standstill agent holds it: yaw 0),
+                # κ held by standstill and frozen agents
+                th_prev = torch.where(step_ok, theta, th_prev)
+                kap = torch.where(mov, out["kappa"][..., j], kap)
             center = torch.where(mov[..., None], c_j, center)
             theta = torch.where(mov, th_j, theta)
             # a standstill agent holds its pose and brakes to zero
@@ -686,25 +843,33 @@ class _Runner:
         o["sel"].index_copy_(0, c, out["sel"][None])
         o["found"].index_copy_(0, c, found[None])
         o["x_cl"].index_copy_(0, c, x_cl_replan[None])
-        for name, value in (("x_cl", x_cl), ("center", center), ("theta", theta),
-                            ("v", v), ("acc", acc), ("status", status),
-                            ("bank", bank), ("bank_len", bank_len)):
-            st[name].copy_(value)
+        new = dict(x_cl=x_cl, center=center, theta=theta, v=v, acc=acc, status=status,
+                   bank=bank, bank_len=bank_len, last_exec=last_exec, kap=kap,
+                   th_prev=th_prev)
+        for name, value in new.items():
+            if value is not None:
+                st[name].copy_(value)
+        if self.use_fsm:
+            for f in fields(self.fsm_state):
+                getattr(self.fsm_state, f.name).copy_(getattr(fsm_new, f.name))
         c.add_(1)
 
     # ----------------------------------------------------------------- run
     def _capture(self) -> None:
         """Warm the body up once on a side stream (this builds K1 and leaves
-        the allocator warm), then capture it into a CUDA graph."""
+        the allocator warm), then capture it into a CUDA graph.  The carry
+        and outputs are put back as they were: a capture may come in the
+        middle of a hybrid run."""
         t_start = time.perf_counter()
         dev = self.device
-        self.reset()
+        saved = [b.clone() for b in self._buffers()]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.step()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.reset()
+        for b, s in zip(self._buffers(), saved):
+            b.copy_(s)
         before = table_interp.LAUNCHES
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -713,12 +878,60 @@ class _Runner:
         self.graph = graph
         self.capture_s = time.perf_counter() - t_start
 
+    def advance(self, use_graph: bool) -> None:
+        """One cycle: a replay of the captured body (captured at the first
+        call), or the body itself."""
+        if use_graph:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        else:
+            self.step()
+
+    def fetch_carry(self) -> dict:
+        """The small per-cycle fetch of the hybrid path: the carried pose,
+        curvilinear state, curvature, previous orientation and status."""
+        global FETCHES
+        names = ("x_cl", "center", "theta", "v", "acc", "kap", "th_prev", "status")
+        parts = [self.state[n] for n in names]
+        host = torch.cat([t.to(self.dtype).reshape(-1) for t in parts]).cpu().numpy()
+        FETCHES += 1
+        out, pos = {}, 0
+        for n, t in zip(names, parts):
+            out[n] = host[pos:pos + t.numel()].reshape(tuple(t.shape))
+            pos += t.numel()
+        out["status"] = out["status"].astype(np.int32)
+        return out
+
+    def fetch_outputs(self) -> dict:
+        """THE one fetch of a run: statuses, per-step trajectories and
+        statuses, selections, found flags, replan states (and the FSM's bail
+        flag), packed into one tensor."""
+        global FETCHES
+        parts = [self.state["status"], *(self.out[n] for n in (
+            "traj", "status_steps", "sel", "found", "x_cl"))]
+        if self.use_fsm:
+            parts.append(self.fsm_state.bail)
+        # statuses and flags are small integers: exact in float32
+        packed = torch.cat([t.to(self.dtype).reshape(-1) for t in parts])
+        host = packed.cpu().numpy()
+        FETCHES += 1
+        arrays, pos = [], 0
+        for t in parts:
+            arrays.append(host[pos:pos + t.numel()].reshape(tuple(t.shape)))
+            pos += t.numel()
+        status, traj, status_steps, sel, found, x_cl = arrays[:6]
+        out = dict(final_status=status.astype(np.int32), trajectories=traj,
+                   status_per_step=status_steps.astype(np.int32), selections=sel,
+                   found=found != 0, x_cl_cycles=x_cl)
+        out["bail"] = (arrays[6] != 0) if self.use_fsm else np.zeros(self.lead, bool)
+        return out
+
     def run(self, graph: bool = True, sync_debug: bool = False) -> dict:
         """Drive the whole run and fetch once.  Returns the host arrays
         final_status, trajectories, status_per_step, selections, found,
-        x_cl_cycles (cycle or step axis first, then the leading axes) and
-        the run's facts (`k1_launches`, `graph`, `capture_s`)."""
-        global FETCHES
+        x_cl_cycles (cycle or step axis first, then the leading axes), bail,
+        and the run's facts (`k1_launches`, `graph`, `capture_s`)."""
         use_graph = bool(graph) and self.device.type == "cuda"
         guard = contextlib.nullcontext()
         if self.device.type == "cuda":
@@ -726,35 +939,22 @@ class _Runner:
         with torch.no_grad(), guard:
             capture_s = 0.0
             if use_graph and self.graph is None:
+                self.reset()          # the warm-up runs on the run's inputs
                 self._capture()
                 capture_s = self.capture_s
             self.reset()
             before = table_interp.LAUNCHES
             with _no_sync_allowed(sync_debug and self.device.type == "cuda"):
                 for _ in range(self.n_cycles):
-                    if use_graph:
-                        self.graph.replay()
-                    else:
-                        self.step()
+                    self.advance(use_graph)
             if use_graph:
                 k1_launches = self.k1_per_cycle * self.n_cycles
             else:
                 k1_launches = table_interp.LAUNCHES - before
-            parts = [self.state["status"], *(self.out[n] for n in (
-                "traj", "status_steps", "sel", "found", "x_cl"))]
-            # statuses and flags are small integers: exact in float32
-            packed = torch.cat([t.to(self.dtype).reshape(-1) for t in parts])
-            host = packed.cpu().numpy()       # THE one fetch
-            FETCHES += 1
-        arrays, pos = [], 0
-        for t in parts:
-            arrays.append(host[pos:pos + t.numel()].reshape(tuple(t.shape)))
-            pos += t.numel()
-        status, traj, status_steps, sel, found, x_cl = arrays
-        return dict(final_status=status.astype(np.int32), trajectories=traj,
-                    status_per_step=status_steps.astype(np.int32), selections=sel,
-                    found=found != 0, x_cl_cycles=x_cl, k1_launches=int(k1_launches),
-                    graph=use_graph, capture_s=capture_s)
+            out = self.fetch_outputs()
+        out.update(k1_launches=int(k1_launches), graph=use_graph, capture_s=capture_s)
+        return out
+
 
 
 @contextlib.contextmanager
@@ -799,7 +999,13 @@ class DeviceSimulation:
     The host Simulation provides the agents (routes, reference paths,
     corridors), which are stacked once; everything per step happens on the
     device.  `device` defaults to the simulation's own, which defaults to
-    the CUDA device and raises where there is none."""
+    the CUDA device and raises where there is none.
+
+    With the behavior planner, `fsm_in_scan` says whether the FSM runs in
+    the run (else `fsm_reason` says why not, and `run` takes the hybrid
+    path, which steps the host Simulation's agents and behavior modules as
+    mirrors of the device state: a hybrid run is made once per
+    DeviceSimulation)."""
 
     def __init__(self, sim, device=None, mesh=None):
         config = sim.config
@@ -823,8 +1029,6 @@ class DeviceSimulation:
             waiting.append("prediction.calc_occlusions (slice 6b)")
         if config.occlusion.use_occlusion_module:
             waiting.append("occlusion.use_occlusion_module (slice 6b)")
-        if config.behavior.use_behavior_planner:
-            waiting.append("behavior.use_behavior_planner (slice 6c)")
         if waiting:
             raise NotImplementedError(
                 "not yet ported to the device-resident run of frenetix_tpu_torch "
@@ -859,6 +1063,32 @@ class DeviceSimulation:
             n_d = len(smp.linspace_samples(p.d_min, p.d_max, level))
             self.levels.append((t1.astype(dtype), n_v, n_d,
                                 len(t1) * (n_v + 1) * (n_d + 1)))
+
+        # the behavior planner: the stopping matrix has the first level's
+        # end times and end positions and the lateral grid one level coarser
+        # (`ReactivePlanner._stopping_matrix`; the host tries stopping only
+        # at the first level)
+        bcfg = config.behavior
+        self.hybrid_behavior = bool(bcfg.use_behavior_planner)
+        if bcfg.device_fsm not in ("auto", "hybrid"):
+            raise ValueError(f"behavior.device_fsm={bcfg.device_fsm!r}: expected "
+                             "'auto' or 'hybrid'")
+        self.stop_n_d = len(smp.linspace_samples(0.0, 1.0, max(p.sampling_min - 1, 0)))
+        self.stop_bucket = 0
+        if self.hybrid_behavior:
+            t_n, n_s = len(self.levels[0][0]), self.levels[0][1]
+            self.stop_bucket = t_n * n_s * (self.stop_n_d + 1)
+        self.fsm_in_scan = False
+        self.fsm_reason = "behavior planner off"
+        fsm_tensors = fsm_carry = None
+        if self.hybrid_behavior:
+            self.fsm_reason = "behavior.device_fsm = 'hybrid'"
+            if bcfg.device_fsm == "auto":
+                fsm_tensors, self.fsm_in_scan, self.fsm_reason = build_fsm_tensors(
+                    sim, dtype)
+                if self.fsm_in_scan:
+                    fsm_carry = fsm_carry0(self.agents, sim.scenario, dtype)
+        self.fsm_step = make_fsm_step(config, self.veh, self.dt, self.k_replan)
 
         # initial per-agent state
         a_n = len(self.agents)
@@ -947,7 +1177,7 @@ class DeviceSimulation:
             goal_v_mean=goal_v_mean,
             max_steps=np.asarray(self.max_steps, np.int32),
             active0=np.ones(a_n, bool), x_cl0=x_cl0, pose0=pose0, acc0=acc0,
-            bank0=bank0, bank_len0=bank_len0,
+            bank0=bank0, bank_len0=bank_len0, fsm=fsm_tensors, fsm_carry0=fsm_carry,
         )
         # what fleet members must share: everything the body reads from the
         # prototype member instead of the stacked tensors
@@ -959,7 +1189,9 @@ class DeviceSimulation:
             p.low_vel_mode_threshold, tuple(self.veh), tuple(self.weights_np.tolist()),
             pcfg.mode, pcfg.use_sensor_model, pcfg.sensor_radius, pcfg.cone_angle,
             pcfg.cone_safety_dist, pcfg.cov_pos, pcfg.max_obstacles,
-            pcfg.horizon_steps, self.bank_w,
+            pcfg.horizon_steps, self.bank_w, self.hybrid_behavior, self.stop_bucket,
+            tuple(sorted((k_, v_) for k_, v_ in dataclasses.asdict(bcfg).items()
+                         if k_ != "device_fsm")),
         )
         self._runner = None
 
@@ -971,12 +1203,23 @@ class DeviceSimulation:
         call and replayed; `graph=False` keeps the eager loop there (what the
         CPU always runs), for checks of the replayed run against it.  With
         `sync_debug` the loop raises on a CUDA device if anything in it makes
-        the host wait for the device."""
+        the host wait for the device.  A behavior run outside the FSM's
+        scope, or one whose FSM bailed, takes the hybrid path instead
+        (`_drive_hybrid`: one fetch per cycle, `sync_debug` does not apply)."""
         t_start = time.perf_counter()
-        if self._runner is None:
-            self._runner = _Runner(self, self.tensors, self.n_cycles)
-        out = self._runner.run(graph=graph, sync_debug=sync_debug)
-        res = self._finalize(_member_arrays(out), out)
+        if self.hybrid_behavior and not self.fsm_in_scan:
+            res = _drive_hybrid([self], graph=graph)[0]
+        else:
+            if self._runner is None:
+                self._runner = _Runner(self, self.tensors, self.n_cycles)
+            out = self._runner.run(graph=graph, sync_debug=sync_debug)
+            if out["bail"]:
+                # the in-run FSM wanted to overtake, which only the host FSM
+                # carries: the whole run again on the hybrid path
+                res = _drive_hybrid([self], graph=graph)[0]
+                res.extras["bailed"] = True
+            else:
+                res = self._finalize(_member_arrays(out), out)
         res.wall_time = time.perf_counter() - t_start
         return res
 
@@ -999,8 +1242,8 @@ class DeviceSimulation:
             selections=arrays["selections"][:c_n, :a_n],
             found=arrays["found"][:c_n, :a_n],
             extras={"x_cl_cycles": arrays["x_cl_cycles"][:c_n, :a_n],
-                    "k1_launches": facts["k1_launches"], "graph": facts["graph"],
-                    "capture_s": facts["capture_s"]},
+                    **{k: facts[k] for k in ("k1_launches", "graph", "capture_s",
+                                             "fetches", "captures") if k in facts}},
         )
 
     def to_simulation_result(self, dres: DeviceSimResult):
@@ -1044,8 +1287,88 @@ class DeviceSimulation:
             agent_messages=msgs, steps=dres.steps, wall_time=dres.wall_time,
             planning_times=[], histories=histories)
 
+    # ---------------------------------------------------------------- hybrid
+    def _hybrid_kappa0(self, a_pad: int) -> np.ndarray:
+        """The agents' initial curvature (from the steering angle), padded
+        with agent 0's."""
+        kap = np.array([np.tan(float(a.state.steering_angle)) / self.veh.wheelbase
+                        for a in self.agents], self.np_dtype)
+        return np.concatenate([kap, np.repeat(kap[:1], a_pad - len(kap))])
+
+    def _hybrid_restack(self) -> None:
+        """The per-agent tables again after a reference-path swap, as the
+        batched host path rebuilds its stepper."""
+        stepper = BatchedAgentStepper(self.config, self.agents, torch.device("cpu"))
+        self.tensors = dataclasses.replace(
+            self.tensors, ref=RefPathTable(*(f.numpy() for f in stepper.ref)),
+            corridors=stepper.corridors.numpy(),
+            lane_segments=stepper.lane_segments.numpy(),
+            lane_valid=stepper.lane_valid.numpy())
+
+    def _hybrid_host_cycle(self, c: int, carry: dict, inert: bool = False):
+        """The host side of one hybrid cycle: bring the agents' mirrors up to
+        the device state, run each running agent's behavior module and
+        `apply_behavior_output`, and build the stopping matrices of the
+        agents whose stop point asks for stopping mode.
+
+        `carry` holds this member's fetched carry (its agent axis may be a
+        fleet's padded one; padded rows get no stopping rows and their own
+        velocity).  `inert`: a fleet member past its own cycles, whose host
+        side is left alone.  Returns (v_des, stop_mat, stop_mask, wants,
+        x_cl_new, swapped)."""
+        dtype = self.np_dtype
+        t0 = c * self.k_replan
+        stop_thr = self.config.behavior.stopping_mode_threshold
+        lvl0 = self.config.planning.sampling_min
+        x_cl_h = np.asarray(carry["x_cl"])
+        a_pad = x_cl_h.shape[0]
+        v_des = np.asarray(carry["v"], dtype).copy()
+        wants = np.zeros(a_pad, bool)
+        stop_mat = np.zeros((a_pad, self.stop_bucket, 13), dtype)
+        stop_mask = np.zeros((a_pad, self.stop_bucket), bool)
+        x_cl_new = x_cl_h.copy()
+        if inert:
+            return v_des, stop_mat, stop_mask, wants, x_cl_new, False
+
+        # the mirrors: behavior modules observe their peers' executed
+        # records (WorldView).  At cycle 0 a fresh Simulation's mirrors are
+        # already exact, the scenario's initial yaw rate included
+        status = carry["status"]
+        for i, a in enumerate(self.agents if c > 0 else ()):
+            a.state = EgoState(
+                time_step=t0, position=np.asarray(carry["center"][i]).copy(),
+                orientation=float(carry["theta"][i]), velocity=float(carry["v"][i]),
+                acceleration=float(carry["acc"][i]),
+                yaw_rate=float(carry["theta"][i] - carry["th_prev"][i]) / self.dt,
+                steering_angle=float(np.arctan2(
+                    self.veh.wheelbase * float(carry["kap"][i]), 1.0)))
+            a.x_cl = (x_cl_h[i, :3].copy(), x_cl_h[i, 3:].copy())
+            if status[i] == _RUNNING and (
+                    not a.record.states or a.record.states[-1].time_step < t0):
+                a.record.states.append(a.state)
+
+        swapped = False
+        for i, a in enumerate(self.agents):
+            if int(status[i]) != _RUNNING:
+                continue
+            b_out = a.behavior.execute(None, a.state, t0)
+            if apply_behavior_output(a, b_out):
+                swapped = True
+                lon, lat = a.x_cl
+                x_cl_new[i] = np.concatenate(
+                    [np.asarray(lon), np.asarray(lat)]).astype(dtype)
+            v_des[i] = b_out.desired_velocity
+            sp = a.planner.stop_point
+            x_cl_t = (x_cl_new[i, :3], x_cl_new[i, 3:])
+            if sp is not None and wants_stopping_mode(sp, x_cl_t, stop_thr):
+                m = a.planner._stopping_matrix(lvl0, x_cl_t)
+                stop_mat[i, :m.shape[0]] = m.astype(dtype)
+                stop_mask[i, :m.shape[0]] = True
+                wants[i] = True
+        return v_des, stop_mat, stop_mask, wants, x_cl_new, swapped
+
     # ----------------------------------------------------------------- fleet
-    def _padded_tensors(self, dims: dict) -> SimTensors:
+    def _padded_tensors(self, dims: dict, use_fsm: bool = False) -> SimTensors:
         """This scenario's SimTensors padded to a fleet's maxima.
 
         The padding is inert: extra agents carry active0 = False (status
@@ -1108,29 +1431,131 @@ class DeviceSimulation:
                                     np.zeros(a_max - len(self.agents), bool)]),
             x_cl0=pad_a(g.x_cl0), pose0=pad_a(g.pose0), acc0=pad_a(g.acc0),
             bank0=pad_a(g.bank0), bank_len0=pad_a(g.bank_len0),
+            **self._padded_fsm(dims, use_fsm),
         )
 
+    def _padded_fsm(self, dims: dict, use_fsm: bool) -> dict:
+        """The FSM leaves of `_padded_tensors` (none when the fleet runs
+        without the in-run FSM)."""
+        if not use_fsm:
+            return {}
+        ft, c0 = pad_fsm_tensors(self.tensors.fsm, self.tensors.fsm_carry0, dims["a"],
+                                 **dims["fsm"])
+        return dict(fsm=ft, fsm_carry0=c0)
 
-def _fleet_dims(sims) -> dict:
+
+def _fleet_dims(sims, use_fsm: bool = False) -> dict:
     """The fleet's maxima: agents, cycles, table rows, lane segments,
-    collision obstacles, steps, goal rings and ring vertices."""
+    collision obstacles, steps, goal rings and ring vertices, and with
+    `use_fsm` those of the FSM tables."""
     def top(fn):
         return max(int(fn(s.tensors)) for s in sims)
 
-    return dict(
+    dims = dict(
         a=top(lambda g: g.x_cl0.shape[0]), c=max(s.n_cycles for s in sims),
         r=top(lambda g: g.ref.s.shape[1]), s=top(lambda g: g.lane_segments.shape[1]),
         o=top(lambda g: g.obst_half.shape[0]), t1=top(lambda g: g.obst_poses.shape[0]),
         g=top(lambda g: g.g_rings.shape[1]), e=top(lambda g: g.g_rings.shape[2]),
     )
+    if use_fsm:
+        dims["fsm"] = dict(
+            r_max=top(lambda g: g.fsm.f_xy.shape[1]),
+            g_max=top(lambda g: g.fsm.g_valid.shape[1]),
+            l_max=top(lambda g: g.fsm.ll_valid.shape[0]),
+            e_max=top(lambda g: g.fsm.ll_rings.shape[1]),
+            ob_max=top(lambda g: g.fsm.ob_len.shape[0]),
+            t1_max=top(lambda g: g.fsm.ob_pos.shape[0]),
+            c_max=dims["c"])
+    return dims
 
 
-def _fleet_stack(sims, dims=None) -> SimTensors:
+def _fleet_stack(sims, dims=None, use_fsm: bool = False) -> SimTensors:
     """Every member's SimTensors padded to the fleet's maxima and stacked on
     the host along a new leading scenario axis (one upload per leaf)."""
-    dims = dims or _fleet_dims(sims)
-    return _map_leaves(lambda *xs: np.stack(xs), *(s._padded_tensors(dims)
+    dims = dims or _fleet_dims(sims, use_fsm)
+    return _map_leaves(lambda *xs: np.stack(xs), *(s._padded_tensors(dims, use_fsm)
                                                    for s in sims))
+
+
+def _drive_hybrid(sims: list, graph: bool = True) -> list:
+    """The hybrid behavior path of one simulation, or of a fleet (more than
+    one member: stacked along a leading scenario axis).
+
+    Per cycle: ONE fetch of the small carry, every member's host cycle
+    (`_hybrid_host_cycle`: mirrors, behavior modules, stopping matrices; a
+    member past its own cycles stays inert), the inputs copied into the
+    body's buffers, then one cycle on the device (a replay of the captured
+    single-cycle body on a CUDA device).  A reference-path swap restacks the
+    member's tables; while they fit the run's buffers they are copied in,
+    and when they grow the body gets new buffers and a new capture (counted
+    in `extras["captures"]`).  The outputs stay on the device until the
+    run's last fetch.  Returns one DeviceSimResult per member."""
+    global FETCHES
+    base = sims[0]
+    fleet = len(sims) > 1
+    dims = _fleet_dims(sims)
+
+    def inputs():
+        if fleet:
+            return _fleet_stack(sims, dims)
+        return base._padded_tensors(dims)
+
+    fetches0 = FETCHES
+    runner = _Runner(base, inputs(), dims["c"], hybrid=True)
+    use_graph = bool(graph) and runner.device.type == "cuda"
+    guard = contextlib.nullcontext()
+    if runner.device.type == "cuda":
+        guard = torch.cuda.device(runner.device)
+    # K1 launches: counted eagerly, or recorded per capture × its replays
+    captures, replays, k1_launches, capture_s = 0, 0, 0, 0.0
+    with torch.no_grad(), guard:
+        runner.reset()
+        kap0 = np.stack([s._hybrid_kappa0(dims["a"]) for s in sims])
+        runner.state["kap"].copy_(torch.as_tensor(kap0 if fleet else kap0[0]))
+        for c in range(dims["c"]):
+            carry = runner.fetch_carry()
+            members = ([{k: v[i] for k, v in carry.items()} for i in range(len(sims))]
+                       if fleet else [carry])
+            results = [s._hybrid_host_cycle(c, m, inert=c >= s.n_cycles)
+                       for s, m in zip(sims, members)]
+            v_des, stop_mat, stop_mask, wants, x_cl_new, swapped = (
+                np.stack(x) if fleet else x[0] for x in zip(*results))
+            if np.any(swapped):
+                for s, r in zip(sims, results):
+                    if r[5]:
+                        s._hybrid_restack()
+                grown = _fleet_dims(sims)
+                if any(grown[k] > dims[k] for k in dims):
+                    # the tables outgrew the buffers: a new body
+                    dims = {k: max(dims[k], grown[k]) for k in dims}
+                    old = runner
+                    runner = _Runner(base, inputs(), dims["c"], hybrid=True)
+                    for new_b, old_b in zip(runner._buffers(), old._buffers()):
+                        new_b.copy_(old_b)
+                    if old.graph is not None:
+                        k1_launches += old.k1_per_cycle * replays
+                    replays = 0
+                else:
+                    runner.load(inputs())
+                runner.state["x_cl"].copy_(torch.as_tensor(x_cl_new))
+            for name, value in (("v_des", v_des), ("stop_mat", stop_mat),
+                                ("stop_mask", stop_mask), ("wants", wants)):
+                runner.b_in[name].copy_(torch.as_tensor(value))
+            if use_graph and runner.graph is None:
+                captures += 1
+                runner._capture()
+                capture_s += runner.capture_s
+            before = table_interp.LAUNCHES
+            runner.advance(use_graph)
+            replays += 1
+            k1_launches += table_interp.LAUNCHES - before
+        out = runner.fetch_outputs()
+    if use_graph:
+        k1_launches += runner.k1_per_cycle * replays
+    out.update(k1_launches=int(k1_launches), graph=use_graph, capture_s=capture_s,
+               captures=captures, fetches=FETCHES - fetches0)
+    return [s._finalize(_member_arrays(out, i if fleet else None), out)
+            for i, s in enumerate(sims)]
 
 
 def run_fleet(sims: list, chunk: int = None, graph: bool = True,
@@ -1141,10 +1566,16 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
 
     All members must share the planning and prediction statics (dt, horizon,
     replanning frequency, sampling levels, dtype, device, emergency mode,
-    vehicle, cost weights, prediction mode and sensor settings); their sizes
-    (agents, reference length, cycles, obstacles, goal geometry) are padded
-    to the fleet's maxima with inert rows (`_padded_tensors`).  Returns one
-    DeviceSimResult per simulation, equal to running each alone.
+    vehicle, cost weights, prediction mode and sensor settings, the behavior
+    settings); their sizes (agents, reference length, cycles, obstacles,
+    goal geometry, FSM tables) are padded to the fleet's maxima with inert
+    rows (`_padded_tensors`).  Returns one DeviceSimResult per simulation,
+    equal to running each alone.
+
+    Behavior members share the in-run FSM when every member supports it;
+    otherwise the whole fleet takes the hybrid path (`_drive_hybrid`, one
+    small fetch per cycle).  A member whose FSM wanted to overtake (`bail`)
+    is run again alone on the hybrid path.
 
     `chunk`: run the S simulations as ceil(S / chunk) runs of `chunk` members
     through the SAME buffers (and, on a CUDA device, the same captured
@@ -1159,21 +1590,32 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
                 "fleet members must share planning statics (dt, horizon, "
                 "replanning frequency, sampling levels, dtype, device, emergency "
                 "mode, compensated-sum flag, vehicle, cost weights, prediction "
-                "mode and sensor settings)")
-    group = len(sims) if chunk is None else min(int(chunk), len(sims))
-    dims = _fleet_dims(sims)
-    runner, results = None, []
-    for lo in range(0, len(sims), group):
-        members = sims[lo:lo + group]
-        filled = members + [members[0]] * (group - len(members))
-        stacked = _fleet_stack(filled, dims)
-        if runner is None:
-            runner = _Runner(base, stacked, dims["c"])
-        else:
-            runner.load(stacked)
-        out = runner.run(graph=graph, sync_debug=sync_debug)
-        results.extend(s._finalize(_member_arrays(out, i), out)
-                       for i, s in enumerate(members))
+                "mode and sensor settings, behavior settings)")
+    use_fsm = base.hybrid_behavior and all(s.fsm_in_scan for s in sims)
+    if base.hybrid_behavior and not use_fsm:
+        results = _drive_hybrid(list(sims), graph=graph) if len(sims) > 1 \
+            else [sims[0].run(graph=graph)]
+    else:
+        group = len(sims) if chunk is None else min(int(chunk), len(sims))
+        dims = _fleet_dims(sims, use_fsm)
+        runner, results = None, []
+        for lo in range(0, len(sims), group):
+            members = sims[lo:lo + group]
+            filled = members + [members[0]] * (group - len(members))
+            stacked = _fleet_stack(filled, dims, use_fsm)
+            if runner is None:
+                runner = _Runner(base, stacked, dims["c"])
+            else:
+                runner.load(stacked)
+            out = runner.run(graph=graph, sync_debug=sync_debug)
+            for i, s in enumerate(members):
+                if out["bail"][i]:
+                    # this member's FSM wanted to overtake: alone, hybrid
+                    res = _drive_hybrid([s], graph=graph)[0]
+                    res.extras["bailed"] = True
+                else:
+                    res = s._finalize(_member_arrays(out, i), out)
+                results.append(res)
     wall = time.perf_counter() - t_start
     for res in results:
         res.wall_time = wall

@@ -28,8 +28,10 @@ Two post-passes on a level's result, each over the risk stack on the device:
     comes back in ONE more device→host copy (`_occlusion_pack`).  When the
     gate rejects every candidate the level counts as missed.
 
-The behavior planner is not ported yet; a config that asks for it raises
-NotImplementedError at construction, naming the ROADMAP.md slice.
+With a behavior planner (`sim.agent`) an armed stop point
+(`set_stop_point`) switches the cycle to end-position-constrained stopping
+sampling (`wants_stopping_mode`); when that finds nothing, the same level is
+sampled regularly.
 """
 from __future__ import annotations
 
@@ -51,15 +53,6 @@ from frenetix_tpu_torch.risk.reachable_set import responsibility_reach_grid
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 
 __all__ = ["PlannedTrajectory", "ReactivePlanner", "wants_stopping_mode"]
-
-
-def _unsupported_features(config: FrenetixConfig) -> list[str]:
-    """Enabled features of `config` that the port does not carry yet, each
-    with the ROADMAP.md slice that brings it."""
-    out = []
-    if config.behavior.use_behavior_planner:
-        out.append("behavior.use_behavior_planner (behavior planner: slice 6)")
-    return out
 
 
 def wants_stopping_mode(stop_point, x_cl, threshold: float) -> bool:
@@ -196,10 +189,6 @@ def _occlusion_pack(res, preds, meta, phantom_mask, ego, r_vis, pts, pts_valid, 
 
 class ReactivePlanner:
     def __init__(self, config: FrenetixConfig, device: torch.device):
-        unsupported = _unsupported_features(config)
-        if unsupported:
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: " + "; ".join(unsupported))
         if config.planning.emergency_mode not in ("stopping", "min_risk"):
             raise ValueError(
                 f"planning.emergency_mode={config.planning.emergency_mode!r}: "

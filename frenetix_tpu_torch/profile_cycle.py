@@ -11,7 +11,8 @@ obstacle slots alone, with the responsibility term (reach grids) and with
 the occlusion gate and its soft costs (phantom masks, occluder geometry).
 Last the body of the device-resident run (`parallel.device_sim`): the first
 `--run-cycles` cycles of the convoy of 8 agents, as the eager loop and as the
-replayed CUDA graph, reported per cycle.
+replayed CUDA graph, reported per cycle; then the same with the behavior
+planner, whose body adds the in-run FSM and the quintic stopping program.
 The profiler slows the
 host, so the wall time it reports per call is longer than an unprofiled
 call's; device times per kernel are not affected.  Needs a CUDA device.
@@ -123,16 +124,21 @@ def main(argv=None) -> int:
 
     # the body of the device-resident run: a whole run of a few cycles is one
     # call (reset, the cycles, the one fetch)
-    config = load_config()
-    config.dtype = "float32"
-    config.simulation.start_multiagent = True
-    sim = Simulation(make_convoy(), config, dev)
-    sim.max_steps = args.run_cycles * config.planning.replanning_frequency
-    run = DeviceSimulation(sim)
-    for graph, how in ((False, "eager"), (True, "replayed CUDA graph")):
-        profile_calls(f"device-resident run, convoy A=8, {how}",
-                      lambda: run.run(graph=graph), max(args.calls // 5, 2), args.top,
-                      card, units=run.n_cycles, unit="cycle")
+    for behavior in (False, True):
+        config = load_config()
+        config.dtype = "float32"
+        config.simulation.start_multiagent = True
+        config.behavior.use_behavior_planner = behavior
+        sim = Simulation(make_convoy(), config, dev)
+        sim.max_steps = args.run_cycles * config.planning.replanning_frequency
+        run = DeviceSimulation(sim)
+        if behavior and not run.fsm_in_scan:
+            raise RuntimeError(f"the convoy's FSM is not in the run: {run.fsm_reason}")
+        what = ", behavior (in-run FSM, stopping program)" if behavior else ""
+        for graph, how in ((False, "eager"), (True, "replayed CUDA graph")):
+            profile_calls(f"device-resident run, convoy A=8{what}, {how}",
+                          lambda: run.run(graph=graph), max(args.calls // 5, 2),
+                          args.top, card, units=run.n_cycles, unit="cycle")
     return 0
 
 

@@ -15,7 +15,9 @@ agent; `--batched-agents` evaluates all agents' cycles in one device pass.
 (`parallel.device_sim.DeviceSimulation`); `--device-fleet` runs ALL scenarios
 as one device run over a scenario axis with one fetch
 (`parallel.device_sim.run_fleet`; `--chunk N` in groups of N).  With `--logs`
-the rows also go to DIR/score_overview.csv.
+the rows also go to DIR/score_overview.csv.  `--config-dir DIR` merges every
+DIR/<section>.yaml into the config: a behavior.yaml with
+`use_behavior_planner: true` turns the behavior planner on in every mode.
 One status row per agent goes to stdout; the exit code is 0 when every agent
 reached its goal.  `--device cuda` without a CUDA device raises; it never
 falls back to the CPU.
@@ -75,11 +77,12 @@ def _report(scenario_id, res, device, out, logs=None):
             w.writerows(rows)
 
 
-def run_scenarios(targets, config, device: torch.device, out=sys.stdout, logs=None):
+def run_scenarios(targets, config, device: torch.device, out=None, logs=None):
     """Simulate each target; print and return one (name, SimulationResult)
     per scenario.  With `config.simulation.device_resident_sim` every run
     stays on the device (`Simulation.run` hands over to
     `parallel.device_sim.DeviceSimulation`)."""
+    out = out or sys.stdout
     results = []
     for target in targets:
         scenario = load_target(target)
@@ -89,13 +92,14 @@ def run_scenarios(targets, config, device: torch.device, out=sys.stdout, logs=No
     return results
 
 
-def run_device_fleet(targets, config, device: torch.device, out=sys.stdout,
+def run_device_fleet(targets, config, device: torch.device, out=None,
                      chunk=None, logs=None):
     """All targets as ONE device run over a scenario axis with one fetch
     (`parallel.device_sim.run_fleet`); returns one (name, SimulationResult)
     per scenario."""
     from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation, run_fleet
 
+    out = out or sys.stdout
     sims = [DeviceSimulation(Simulation(load_target(t), config, device))
             for t in targets]
     results = []
@@ -113,7 +117,8 @@ def main(argv=None) -> int:
                     help="CommonRoad XML files, directories of them, or family names")
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     ap.add_argument("--config-dir", default=None,
-                    help="directory of YAML config files (needs PyYAML)")
+                    help="directory of YAML config files, one per config section "
+                         "(e.g. behavior.yaml); PyYAML, or the port's own reader")
     ap.add_argument("--multiagent", action="store_true",
                     help="convert dynamic obstacles into planning agents")
     ap.add_argument("--batched-agents", action="store_true",

@@ -6,7 +6,9 @@ folded in: per step collision → goal check → replan every k-th step (or when
 no plan exists) → execute the next planned state.  The planner is the port's
 `ReactivePlanner` on the agent's device.  With a responsibility weight the
 agent rasterizes the obstacles' reach-set grids before each replan; with
-`occlusion.use_occlusion_module` it owns an `OcclusionModule`.
+`occlusion.use_occlusion_module` it owns an `OcclusionModule`; with
+`behavior.use_behavior_planner` a `BehaviorModule`, which then drives the
+desired velocity, the stop point and the reference path of every replan.
 """
 from __future__ import annotations
 
@@ -18,12 +20,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from frenetix_tpu_torch.behavior import BehaviorModule
 from frenetix_tpu_torch.io.commonroad import _point_in_ring
 from frenetix_tpu_torch.occlusion import OcclusionModule, PhantomThresholds
 from frenetix_tpu_torch.planner.initial_state import CartesianState, compute_initial_state_np
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, ReactivePlanner
 from frenetix_tpu_torch.planner.route import reference_path_for_problem
 from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
+from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
 
 __all__ = ["AgentStatus", "Agent", "EgoState"]
 
@@ -81,7 +85,7 @@ class Agent:
         self.dt = config.planning.dt
         self.k_replan = max(1, config.planning.replanning_frequency)
 
-        polyline, _ = reference_path_for_problem(scenario, planning_problem)
+        polyline, self.route = reference_path_for_problem(scenario, planning_problem)
         self.planner.set_reference_path(
             polyline, scenario.drivable_polygons(),
             lanelets=list(scenario.lanelets.values())
@@ -128,6 +132,17 @@ class Agent:
                 dt=config.planning.dt,
                 route_xy=np.asarray(polyline),
             )
+
+        # the behavior planner owns the reference path from here on
+        self.behavior = None
+        if config.behavior.use_behavior_planner:
+            # behavior timing follows the planner
+            config.behavior.dt = config.planning.dt
+            config.behavior.replanning_frequency = config.planning.replanning_frequency
+            self.behavior = BehaviorModule(
+                scenario, planning_problem, config,
+                reference_path=polyline, route_ids=self.route, ego_id=agent_id,
+                log_path=None)
 
     # ------------------------------------------------------------------ goal
     def _goal_polygons(self, goal):
@@ -232,14 +247,19 @@ class Agent:
         self.plan_step = 0
 
     def update_planner(self, predictions, obstacle_xy, obstacle_valid):
-        """Feed one cycle's predictions, obstacles and desired velocity."""
+        """Feed one cycle's predictions, obstacles and desired velocity; with
+        a behavior module its output (velocity, stop point, reference path)."""
         self.planner.set_predictions(predictions)
         self.planner.set_obstacles(obstacle_xy, obstacle_valid)
         if self.config.cost_weights.get("responsibility", 0.0) != 0.0 \
                 and predictions is not None:
             self.planner.set_reach_grid(self.reach_grid_for(predictions))
-        self.ensure_x_cl()  # desired_velocity() projects the goal against x_cl
-        self.planner.set_desired_velocity(self.desired_velocity())
+        if self.behavior is not None:
+            b_out = self.behavior.execute(predictions, self.state, self.state.time_step)
+            apply_behavior_output(self, b_out)
+        else:
+            self.ensure_x_cl()  # desired_velocity() projects the goal against x_cl
+            self.planner.set_desired_velocity(self.desired_velocity())
 
     def reach_grid_for(self, predictions):
         """Lanelet-following reach sets of the predicted obstacles' current

@@ -23,6 +23,13 @@ responsibility weight the batched path stacks the agents' reach-set grids.
 With `simulation.device_resident_sim` the whole run stays on the device and
 the host fetches once (`parallel.device_sim.DeviceSimulation`).
 
+With `behavior.use_behavior_planner` every agent carries a `BehaviorModule`
+(`sim.agent`); with more than one agent each module observes its live peers
+through a `sim.world_view.WorldView` instead of their stale recordings.  The
+batched path runs the behavior modules on the host before the fused pass; an
+agent whose stop point asks for stopping mode goes to the host path that
+step, and a reference-path swap rebuilds the stacked tables.
+
 The sharded path, Wale-Net predictions and plotting are not ported yet; a
 config that asks for them raises NotImplementedError naming the ROADMAP.md
 slice that brings them.
@@ -41,15 +48,17 @@ from frenetix_tpu_torch.io.commonroad import GoalCondition, PlanningProblem, Sta
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
 from frenetix_tpu_torch.parallel.mesh import stack_reach_grids
-from frenetix_tpu_torch.planner.reactive import PlannedTrajectory
+from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, wants_stopping_mode
 from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
 from frenetix_tpu_torch.sim.agent import Agent, AgentStatus
 from frenetix_tpu_torch.sim.prediction import (
     constant_velocity_predictions, extrapolate_constant_velocity,
     ground_truth_predictions, to_device,
 )
+from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
 from frenetix_tpu_torch.sim.sensor_model import visible_obstacles
 from frenetix_tpu_torch.sim.visible_area import road_boundary_segments
+from frenetix_tpu_torch.sim.world_view import attach_world_views
 from frenetix_tpu_torch.utils.config import EXTERNAL_COST_KEYS, FrenetixConfig
 
 __all__ = ["Simulation", "SimulationResult"]
@@ -134,6 +143,10 @@ class Simulation:
         if self.config.simulation.start_multiagent:
             self._create_obstacle_agents()
         self.agent_obstacle_ids = {a.id for a in self.agents}
+        if self.config.behavior.use_behavior_planner and len(self.agents) > 1:
+            # behavior perception observes the LIVE peers, not the recorded
+            # trajectories of the obstacles that became agents
+            attach_world_views(self)
         self._peer_rows_cache = None
         self._batched_stepper = None
         self._batched_max_m = 0
@@ -491,16 +504,6 @@ class Simulation:
         """All replanning agents' cycles in one device pass per sampling
         level; per-agent host work is bookkeeping and executing the selected
         state."""
-        if self._batched_stepper is None:
-            from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
-
-            self._batched_stepper = BatchedAgentStepper(
-                self.config, self.agents, self.device)
-            self._batched_weights = torch.as_tensor(
-                np.array([self.config.cost_weights.get(k, 0.0)
-                          for k in COST_TERM_ORDER]),
-                dtype=self.dtype, device=self.device)
-        stepper = self._batched_stepper
         active = [a for a in running if a.pre_step() == AgentStatus.RUNNING]
         if not active:
             return
@@ -513,8 +516,36 @@ class Simulation:
             per_pd[a.id], pm = self._agent_predictions(pd_base, ids, a)
             if pm is not None:
                 phantom_masks[a.id] = pm
-        batchable = [a for a in replanners if a.state.velocity >= low_thr]
-        host_only = [a for a in replanners if a.state.velocity < low_thr]
+
+        # behavior on the host ahead of the fused pass: its velocity feeds
+        # the batch; an agent in stopping mode (quintic sampling) takes the
+        # host path this step; a reference-path swap makes the stacked
+        # tables stale
+        stop_thr = self.config.behavior.stopping_mode_threshold
+        behavior_v_des, behavior_forced_host = {}, set()
+        for a in replanners:
+            if a.behavior is None:
+                continue
+            b_out = a.behavior.execute(None, a.state, a.state.time_step)
+            if apply_behavior_output(a, b_out):
+                self._batched_stepper = None
+            behavior_v_des[a.id] = b_out.desired_velocity
+            if wants_stopping_mode(a.planner.stop_point, a.x_cl, stop_thr):
+                behavior_forced_host.add(a.id)
+        if self._batched_stepper is None:
+            from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
+
+            self._batched_stepper = BatchedAgentStepper(
+                self.config, self.agents, self.device)
+            self._batched_weights = torch.as_tensor(
+                np.array([self.config.cost_weights.get(k, 0.0)
+                          for k in COST_TERM_ORDER]),
+                dtype=self.dtype, device=self.device)
+        stepper = self._batched_stepper
+        batchable = [a for a in replanners if a.state.velocity >= low_thr
+                     and a.id not in behavior_forced_host]
+        host_only = [a for a in replanners if a.state.velocity < low_thr
+                     or a.id in behavior_forced_host]
 
         # the extras of the batched post-passes, the same for every level
         reach_grids = all_phantom_masks = occ_geom = None
@@ -551,7 +582,7 @@ class Simulation:
                     x0_lon=a.x_cl[0], x0_lat=a.x_cl[1], dtype=self.np_dtype,
                 )
                 mats[a.id] = m
-                v_des[a.id] = a.desired_velocity()
+                v_des[a.id] = behavior_v_des.get(a.id, a.desired_velocity())
                 x0_th[a.id] = a.state.orientation
                 max_m = max(max_m, len(m))
             bucket = self.config.debug.matrix_bucket

@@ -27,6 +27,7 @@ __all__ = [
     "PredictionConfig",
     "SimulationConfig",
     "load_config",
+    "simple_yaml_load",
 ]
 
 DEFAULT_COST_WEIGHTS = {
@@ -110,8 +111,46 @@ class PredictionConfig:
 
 @dataclass
 class BehaviorConfig:
+    """behavior.yaml, carried whole (off by default)."""
+
     use_behavior_planner: bool = False
+    # behavior timing follows the planner (the agent copies planning.dt and
+    # planning.replanning_frequency here)
+    replanning_frequency: int = 3
+    dt: float = 0.1
     stopping_mode_threshold: float = 10.0
+    # the device-resident run: "auto" runs the FSM inside the run where
+    # `behavior.device_fsm.build_fsm_tensors` supports the scenario, else the
+    # hybrid path (host FSM between device cycles); "hybrid" forces the latter
+    device_fsm: str = "auto"
+
+    # path planner
+    dist_between_points: float = 0.125
+    stepwise_lane_changes: bool = True
+    preparation_time: float = 3.0   # s, static Prepare* goal length
+    goal_time: float = 2.0          # s, static goal length
+    distance_self_intersection: float = 10.0
+
+    # velocity planner
+    ttc_norm: float = 8.0
+    safety_distance_buffer: float = 2.0    # s
+    a_max_delta: float = 0.3               # s
+    comfortable_deceleration_rate: float = 3.4  # m/s²
+    zero_velocity_threshold: float = 0.278      # m/s
+
+    # stop point
+    default_time_horizon: float = 2.0
+    min_stop_point_dist: float = 1.4
+    min_stop_point_time: float = 1.0
+    standing_obstacle_vel: float = 1.0
+
+    # lane-conflict clearance of turn and intersection situations
+    intersection_time_gap: float = 2.0   # s, safety gap after the ego clears
+    clearance_accel: float = 1.5         # m/s², assumed ego accel from the line
+
+    # TTC conditioning of the velocity planner
+    time_headway: float = 1.8
+    ttc_threshold: float = 4.0
 
 
 @dataclass
@@ -207,6 +246,51 @@ def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
             setattr(obj, k, v)
 
 
+def _yaml_scalar(text: str):
+    """A plain YAML scalar: null, bool, int, float, a flow list, or a string."""
+    s = text.strip()
+    if s.startswith("[") and s.endswith("]"):
+        return [_yaml_scalar(x) for x in s[1:-1].split(",") if x.strip()]
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    low = s.lower()
+    if low in ("", "~", "null", "none"):
+        return None
+    if low in ("true", "false"):
+        return low == "true"
+    for conv in (int, float):
+        try:
+            return conv(s)
+        except ValueError:
+            pass
+    return s
+
+
+def simple_yaml_load(text: str) -> dict:
+    """The YAML subset of the configuration files, for machines without
+    PyYAML: nested block mappings by indentation, `key: scalar` lines, flow
+    lists and comments.  Anything else raises ValueError."""
+    root: dict = {}
+    stack = [(-1, root)]                 # (indent, mapping)
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.split(" #")[0].rstrip() if not raw.lstrip().startswith("#") else ""
+        if not line.strip() or line.strip() == "---":
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        if not sep or key.startswith("- "):
+            raise ValueError(f"unsupported YAML at line {lineno}: {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if value.strip():
+            parent[key.strip()] = _yaml_scalar(value)
+        else:
+            parent[key.strip()] = {}
+            stack.append((indent, parent[key.strip()]))
+    return root
+
+
 def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = None,
                 strict_overrides: bool = False) -> FrenetixConfig:
     """Defaults ← `<config_dir>/*.yaml` (each file merges under its stem;
@@ -214,17 +298,21 @@ def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = No
     `overrides`.  YAML keys the port does not know are ignored; with
     `strict_overrides` an unknown key
     in `overrides` raises.  PyYAML is imported only when a directory is
-    given."""
+    given; without it `simple_yaml_load` reads the files."""
     cfg = FrenetixConfig()
     if config_dir and os.path.isdir(config_dir):
-        import yaml
+        try:
+            import yaml
 
+            safe_load = yaml.safe_load
+        except ImportError:        # a machine without PyYAML
+            safe_load = simple_yaml_load
         merged: dict = {}
         for fname in sorted(os.listdir(config_dir)):
             if not fname.endswith((".yaml", ".yml")):
                 continue
             with open(os.path.join(config_dir, fname)) as f:
-                data = yaml.safe_load(f) or {}
+                data = safe_load(f.read()) or {}
             stem = os.path.splitext(fname)[0]
             if stem == "cost":
                 # cost.yaml's two maps are root-level config fields

@@ -421,11 +421,15 @@ def test_low_velocity_start_takes_the_lo_kinematics_merge():
     (("cost_weights", "responsibility"), 0.5, "6b"),
     (("prediction", "calc_occlusions"), True, "6b"),
     (("occlusion", "use_occlusion_module"), True, "6b"),
-    (("behavior", "use_behavior_planner"), True, "6c"),
+    (("behavior", "use_behavior_planner"), True, "6b"),
     (("prediction", "mode"), "walenet", "slice 5"),
 ])
 def test_options_of_later_slices_raise_in_the_device_run(field, value, slice_name):
+    """A behavior run with the responsibility term still raises for the
+    term (slice 6b): the behavior planner itself runs in the device run."""
     sim = Simulation(tfactory.make_highway(n_steps=30), _tcfg(), CPU)
+    if field[0] == "behavior":
+        sim.config.cost_weights["responsibility"] = 0.5
     section, name = field
     if section == "cost_weights":
         sim.config.cost_weights[name] = value

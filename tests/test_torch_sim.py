@@ -3,7 +3,8 @@
 - Simulation parity: the port's `Simulation` against the JAX `Simulation` at
   float64 on the highway and overtake families: statuses and step counts
   equal, every executed position within 1e-9 m.
-- Config defaults equal to the JAX package's, field by field.
+- Config defaults equal to the JAX package's, field by field; the occlusion
+  and behavior sections carry every field of the JAX package's.
 - Import closure: every module of the port, its run_scenario and chip_smoke
   import with a `sys.meta_path` finder that raises on `jax`, `jaxlib` and
   `frenetix_tpu` (the exact name; `frenetix_tpu_torch` still imports).
@@ -92,8 +93,8 @@ def test_run_scenario_cuda_without_cuda_raises():
 @pytest.mark.parametrize("override", [
     {"simulation": {"sharded_device_agents": True}},
     {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
-    {"behavior": {"use_behavior_planner": True}},
-    {"simulation": {"device_resident_sim": True},
+    {"behavior": {"use_behavior_planner": True}, "prediction": {"mode": "walenet"}},
+    {"simulation": {"device_resident_sim": True, "sharded_device_agents": True},
      "behavior": {"use_behavior_planner": True}},
     {"simulation": {"device_resident_sim": True}, "prediction": {"mode": "walenet"}},
     {"prediction": {"mode": "walenet"}},
@@ -118,6 +119,11 @@ def test_features_outside_the_slice_raise(override):
      "external_cost_weights": {"occ_um": 2.0, "occ_ve": 0.5}},
     {"simulation": {"device_resident_sim": True}},
     {"simulation": {"start_multiagent": True, "device_resident_sim": True}},
+    {"behavior": {"use_behavior_planner": True}},
+    {"behavior": {"use_behavior_planner": True},
+     "simulation": {"start_multiagent": True, "batched_device_agents": True}},
+    {"behavior": {"use_behavior_planner": True, "device_fsm": "hybrid"},
+     "simulation": {"start_multiagent": True, "device_resident_sim": True}},
 ])
 def test_features_of_this_slice_construct(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -155,10 +161,11 @@ def test_config_defaults_match_jax():
         for f in dataclasses.fields(tsec):
             assert getattr(tsec, f.name) == getattr(getattr(jcfg, section), f.name), \
                 f"{section}.{f.name}"
-    # the occlusion section is carried whole
-    assert ({f.name for f in dataclasses.fields(tcfg.occlusion)}
-            == {f.name for f in dataclasses.fields(jcfg.occlusion)})
-    assert len(dataclasses.fields(tcfg.occlusion)) == 14
+    # the occlusion and behavior sections are carried whole
+    for section, n_fields in (("occlusion", 14), ("behavior", 23)):
+        assert ({f.name for f in dataclasses.fields(getattr(tcfg, section))}
+                == {f.name for f in dataclasses.fields(getattr(jcfg, section))}), section
+        assert len(dataclasses.fields(getattr(tcfg, section))) == n_fields, section
     assert tcfg.external_cost_weights == jcfg.external_cost_weights
     assert tcfg.planning.n_steps == jcfg.planning.n_steps
     assert tcfg.vehicle._fields == jcfg.vehicle._fields
@@ -204,7 +211,10 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "parallel.batched_sim", "parallel.device_sim", "risk.probability",
                  "risk.harm", "risk.costs", "risk.reachable_set", "sim.visible_area",
                  "sim.sensor_model", "occlusion", "occlusion.occlusion_module",
-                 "run_scenario", "workloads"):
+                 "behavior", "behavior.frame", "behavior.static_route",
+                 "behavior.velocity_planner", "behavior.path_planner", "behavior.fsm",
+                 "behavior.behavior_module", "behavior.device_fsm", "sim.world_view",
+                 "sim.planner_interfaces", "run_scenario", "workloads"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
