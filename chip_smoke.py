@@ -84,7 +84,22 @@ Phases, each printed on lines of its own:
    FSM in the run) against the members' solo runs; scenarios per second and
    peak memory.
 
-Each path (phases 4 to 13) is driven with K1's launch count set to 0 just
+14. post-passes in the device-resident run (float32 unless said):
+   (a) the highway with start_multiagent and responsibility 0.2, and (b) the
+   blind spot with the occlusion module (occ_um 2.0, occ_ve 0.5) and
+   `calc_occlusions`, each eager and replayed under sync debug mode "error"
+   with one fetch: replayed = eager bitwise, statuses and steps equal phase
+   9's / 10's host sequential run, positions within 1e-4 m, K1 launches =
+   programs x cycles; ms per cycle eager and replayed, and the window slots
+   the run keeps of the nominal 16;
+   (c) the traffic light with the behavior planner and responsibility 0.2 in
+   float64, the FSM in the run, equal to the hybrid run and the host
+   sequential run (statuses, steps, positions within 1e-6 m);
+   (d) a responsibility fleet of three (highway, two-agent overtake, curve:
+   `workloads.device_fleet(3)`), every member against its solo run;
+   (e) the window slots the run keeps of the nominal 16, per family.
+
+Each path (phases 4 to 14) is driven with K1's launch count set to 0 just
 before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -595,13 +610,17 @@ def phase_risk(dev, smi, launches):
     check(total > 0, "no cycle ran the min_risk branch on the card")
 
 
-def _responsibility_run(dev, dtype, batched, max_steps=None):
+def _responsibility_sim(dev, dtype, batched=False):
     config = load_config()
     config.dtype = dtype
     config.simulation.start_multiagent = True
     config.simulation.batched_device_agents = batched
     config.cost_weights["responsibility"] = 0.2
-    sim = Simulation(scenario_factory.make_highway(), config, dev)
+    return Simulation(scenario_factory.make_highway(), config, dev)
+
+
+def _responsibility_run(dev, dtype, batched, max_steps=None):
+    sim = _responsibility_sim(dev, dtype, batched)
     if max_steps is not None:
         sim.max_steps = max_steps
     return sim, sim.run()
@@ -687,6 +706,7 @@ def phase_responsibility(dev, smi, launches, plain_p50):
              f"{p50:.3f} ms over 20 calls (min {lo:.3f}, max {hi:.3f}); the same cycle "
              f"without the term p50 {base50:.3f} ms (phase 6, 4 slots: "
              f"{plain_p50:.3f} ms); with/without {p50 / base50:.2f} [{smi}]")
+    return seq
 
 
 def _blind_spot():
@@ -699,7 +719,7 @@ def _blind_spot():
     return scenario
 
 
-def _blind_spot_run(dev, module_on, batched):
+def _blind_spot_sim(dev, module_on, batched=False):
     config = load_config()
     config.dtype = "float32"
     config.simulation.start_multiagent = True
@@ -710,7 +730,11 @@ def _blind_spot_run(dev, module_on, batched):
         config.external_cost_weights["occ_um"] = 2.0
         config.external_cost_weights["occ_ve"] = 0.5
         config.prediction.calc_occlusions = True
-    sim = Simulation(_blind_spot(), config, dev)
+    return Simulation(_blind_spot(), config, dev)
+
+
+def _blind_spot_run(dev, module_on, batched):
+    sim = _blind_spot_sim(dev, module_on, batched)
     res = sim.run()
     ego = next(iter(sim.scenario.planning_problems))
     passing = [s.velocity for s in res.histories[ego] if 45.0 < s.position[0] < 65.0]
@@ -783,6 +807,7 @@ def phase_occlusion(dev, smi, launches):
     phase(10, f"polar_visibility_batch on the card against the host, 720 rays, "
               f"{len(segs)} segments, {int((want < 50.0).sum())} rays clipped: max |Δ| "
               + ", ".join(f"{k} {v:.3e} m" for k, v in errs.items()) + f" [{smi}]")
+    return seq
 
 
 def _device_sim(family, dev):
@@ -812,6 +837,34 @@ def _position_gap(dres, host):
     return gap
 
 
+def _replayed_and_eager(ds, what, launches, programs):
+    """One eager and two replayed runs of `ds` under the sync debug mode,
+    each with one fetch: K1's launches must be `programs` x cycles and the
+    replayed run must equal the first replayed run and the eager run
+    bitwise.  Returns (eager, replayed, first replayed)."""
+    launches.start()
+    eager = _run_once(ds, graph=False)
+    n_eager = launches.stop(f"{what}, eager")
+    check(n_eager == eager.extras["k1_launches"] == programs * ds.n_cycles,
+          f"{what} eager: {n_eager} K1 launches, expected {programs} programs x "
+          f"{ds.n_cycles} cycles")
+    launches.start()
+    first = _run_once(ds, graph=True)
+    launches.stop(f"{what}, replayed", replayed=first.extras["k1_launches"])
+    check(first.extras["graph"]
+          and first.extras["k1_launches"] == programs * ds.n_cycles,
+          f"{what} replayed: {first.extras['k1_launches']} K1 launches, expected "
+          f"{programs} programs x {ds.n_cycles} cycles")
+    replayed = _run_once(ds, graph=True)
+    for other, label in ((first, "first replayed run"), (eager, "eager run")):
+        for name in ("status", "trajectories", "status_per_step", "selections", "found"):
+            check(np.array_equal(getattr(replayed, name), getattr(other, name)),
+                  f"{what}: {name} of the replayed run differs from the {label}")
+    check(np.isfinite(replayed.trajectories[:replayed.steps]).all(),
+          f"{what}: non-finite executed states")
+    return eager, replayed, first
+
+
 def phase_device_run(dev, smi, launches, host_runs):
     for family, n_agents in (("convoy", 8), ("highway", 2)):
         host_batched, host = host_runs[family]
@@ -819,28 +872,11 @@ def phase_device_run(dev, smi, launches, host_runs):
         check(len(ds.agents) == n_agents, f"{family}: {len(ds.agents)} agents")
         programs = 2 * len(ds.levels)            # kinematics modes x levels
         _run_once(ds, graph=False)               # warms the allocator, builds nothing new
-        launches.start()
-        eager = _run_once(ds, graph=False)
-        n_eager = launches.stop(f"device-resident {family}, eager")
-        check(n_eager == eager.extras["k1_launches"] == programs * ds.n_cycles,
-              f"{family} eager: {n_eager} K1 launches, expected {programs} programs x "
-              f"{ds.n_cycles} cycles")
-        launches.start()
-        first = _run_once(ds, graph=True)        # warm-up, capture, then the replays
-        launches.stop(f"device-resident {family}, replayed",
-                      replayed=first.extras["k1_launches"])
-        check(first.extras["graph"] and first.extras["k1_launches"] == programs * ds.n_cycles,
-              f"{family} replayed: {first.extras['k1_launches']} K1 launches, expected "
-              f"{programs} programs x {ds.n_cycles} cycles")
-        replayed = _run_once(ds, graph=True)
-        for name in ("status", "trajectories", "status_per_step", "selections", "found"):
-            for other, what in ((first, "first replayed run"), (eager, "eager run")):
-                check(np.array_equal(getattr(replayed, name), getattr(other, name)),
-                      f"{family}: {name} of the replayed run differs from the {what}")
+        eager, replayed, first = _replayed_and_eager(
+            ds, f"device-resident {family}", launches, programs)
+        n_eager = eager.extras["k1_launches"]
         check(np.array_equal(replayed.extras["x_cl_cycles"], eager.extras["x_cl_cycles"]),
               f"{family}: replan states of the replayed run differ from the eager run")
-        check(np.isfinite(replayed.trajectories[:replayed.steps]).all(),
-              f"{family}: non-finite executed states")
         status = {aid: int(s) for aid, s in zip(replayed.agent_ids, replayed.status)}
         check(status == {aid: int(s) for aid, s in host.agent_status.items()}
               and replayed.steps == host.steps,
@@ -1006,23 +1042,8 @@ def phase_behavior(dev, smi, launches):
         check(ds.fsm_in_scan, f"behavior {family}: FSM not in the run ({ds.fsm_reason})")
         programs = 2 * len(ds.levels) + 2        # + the stopping program's two modes
         _run_once(ds, graph=False)
-        launches.start()
-        eager = _run_once(ds, graph=False)
-        n_eager = launches.stop(f"behavior device run {family}, eager")
-        check(n_eager == eager.extras["k1_launches"] == programs * ds.n_cycles,
-              f"behavior {family} eager: {n_eager} K1 launches, expected {programs} x "
-              f"{ds.n_cycles}")
-        launches.start()
-        first = _run_once(ds, graph=True)
-        launches.stop(f"behavior device run {family}, replayed",
-                      replayed=first.extras["k1_launches"])
-        replayed = _run_once(ds, graph=True)
-        for other, what in ((first, "first replayed run"), (eager, "eager run")):
-            for name in ("status", "trajectories", "status_per_step", "selections",
-                         "found"):
-                check(np.array_equal(getattr(replayed, name), getattr(other, name)),
-                      f"behavior {family}: {name} of the replayed run differs from "
-                      f"the {what}")
+        eager, replayed, first = _replayed_and_eager(
+            ds, f"behavior device run {family}", launches, programs)
         check(not replayed.extras.get("bailed"), f"behavior {family} bailed")
         ds64 = device_sim.DeviceSimulation(_behavior_sim(family, dev, "float64"))
         launches.start()
@@ -1120,6 +1141,130 @@ def phase_behavior(dev, smi, launches):
               f"member equals its solo run, positions within {gap:.3e} m [{smi}]")
 
 
+def phase_device_post(dev, smi, launches, host_resp, host_occ):
+    # (a), (b): against phase 9's and phase 10's host sequential runs
+    cases = (("highway, responsibility 0.2", lambda: _responsibility_sim(dev, "float32"),
+              host_resp),
+             ("blind spot, occlusion module + calc_occlusions",
+              lambda: _blind_spot_sim(dev, module_on=True), host_occ))
+    for what, make, host in cases:
+        ds = device_sim.DeviceSimulation(make())
+        check(ds.resp_weight or ds.use_occlusion, f"{what}: no post-pass")
+        programs = 2 * len(ds.levels)
+        eager, replayed, first = _replayed_and_eager(
+            ds, f"device-resident {what}", launches, programs)
+        status = _dres_statuses(replayed)
+        check(status == _statuses(host) and replayed.steps == host.steps,
+              f"{what}: device run {status} steps {replayed.steps} vs host sequential "
+              f"{host.agent_status} steps {host.steps}")
+        gap = _position_gap(replayed, host)
+        check(gap <= POS_TOL, f"{what}: device run {gap} m from the host sequential "
+                              f"run (limit {POS_TOL})")
+        c_n, kept = ds.n_cycles, len(ds._runner.keep)
+        nominal = ds.config.prediction.max_obstacles
+        phase(14, f"({'a' if ds.resp_weight else 'b'}) {what}, {len(ds.agents)} agents "
+                  f"on the card, {c_n} cycles of {programs} programs, no synchronisation "
+                  f"in the loop, 1 fetch per run: eager "
+                  f"{1e3 * eager.wall_time / c_n:.3f} ms per cycle; replayed "
+                  f"{1e3 * replayed.wall_time / c_n:.3f} ms per cycle (capture "
+                  f"{first.extras['capture_s']:.3f} s), K1 launches "
+                  f"{first.extras['k1_launches']}; replayed = eager bitwise; statuses "
+                  f"and steps ({replayed.steps}) equal the host sequential run, "
+                  f"positions within {gap:.3e} m (limit {POS_TOL}) [{smi}]")
+        phase(14, f"{what}: window slots kept {kept} of {nominal} [{smi}]")
+        phase(14, f"{what}: ms per cycle eager {1e3 * eager.wall_time / c_n:.3f}, "
+                  f"replayed {1e3 * replayed.wall_time / c_n:.3f} [{smi}]")
+
+    # (c) behavior + responsibility in float64: in the run = hybrid = host
+    runs = {}
+    for how, device_fsm in (("in-run", "auto"), ("hybrid", "hybrid")):
+        sim = _behavior_sim("traffic_light", dev, "float64", device_fsm=device_fsm)
+        sim.config.cost_weights["responsibility"] = 0.2
+        ds = device_sim.DeviceSimulation(sim)
+        check(ds.fsm_in_scan == (how == "in-run"), f"traffic light: {ds.fsm_reason}")
+        launches.start()
+        runs[how] = ds.run()
+        launches.stop(f"behavior + responsibility traffic light, {how}, f64",
+                      replayed=runs[how].extras["k1_launches"])
+        programs = 2 * len(ds.levels) + 2
+        check(runs[how].extras["k1_launches"] == programs * ds.n_cycles,
+              f"traffic light {how}: {runs[how].extras['k1_launches']} K1 launches, "
+              f"expected {programs} x {ds.n_cycles}")
+    sim = _behavior_sim("traffic_light", dev, "float64")
+    sim.config.cost_weights["responsibility"] = 0.2
+    launches.start()
+    seq = sim.run()
+    launches.stop("behavior + responsibility traffic light, host sequential, f64")
+    d64, hyb = runs["in-run"], runs["hybrid"]
+    check(not d64.extras.get("bailed"), "traffic light bailed")
+    check(_dres_statuses(d64) == _dres_statuses(hyb) == _statuses(seq)
+          and d64.steps == hyb.steps == seq.steps,
+          f"traffic light + responsibility f64: in-run {_dres_statuses(d64)} steps "
+          f"{d64.steps}, hybrid {_dres_statuses(hyb)} steps {hyb.steps}, host "
+          f"{seq.agent_status} steps {seq.steps}")
+    gap_h, gap_s = _dres_gap(d64, hyb), _position_gap(d64, seq)
+    check(max(gap_h, gap_s) <= BEH_POS_TOL,
+          f"traffic light + responsibility f64: in-run {gap_h} m from hybrid, {gap_s} m "
+          f"from host")
+    c_n = len(d64.found)
+    phase(14, f"(c) traffic light, behavior + responsibility 0.2, f64 on the card: "
+              f"in-run FSM = hybrid = host sequential (steps {d64.steps}, statuses "
+              f"{sorted(set(_dres_statuses(d64).values()))}), positions within "
+              f"{max(gap_h, gap_s):.3e} m; in-run replayed "
+              f"{1e3 * d64.wall_time / c_n:.3f} ms per cycle, hybrid "
+              f"{1e3 * hyb.wall_time / c_n:.3f} ms per cycle [{smi}]")
+
+    # (d) a responsibility fleet of three against the members' solo runs
+    config = load_config()
+    config.cost_weights["responsibility"] = 0.2
+    sims = device_fleet(3, dev, "float32", config=config)
+    check(all(s.resp_weight == 0.2 for s in sims), "fleet: no responsibility term")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fetches = device_sim.FETCHES
+    launches.start()
+    t0 = time.perf_counter()
+    results = device_sim.run_fleet(sims, sync_debug=True)
+    wall = time.perf_counter() - t0
+    launches.stop("responsibility fleet S=3", replayed=results[0].extras["k1_launches"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(device_sim.FETCHES == fetches + 1, "a responsibility fleet run fetches once")
+    gap = 0.0
+    for i, (fleet_res, s) in enumerate(zip(results, sims)):
+        solo = s.run()
+        check(np.array_equal(fleet_res.status, solo.status) and fleet_res.steps == solo.steps,
+              f"responsibility fleet member {i}: {fleet_res.status} steps "
+              f"{fleet_res.steps} vs solo {solo.status} steps {solo.steps}")
+        gap = max(gap, _dres_gap(fleet_res, solo))
+    check(gap <= POS_TOL, f"responsibility fleet members {gap} m from their solo runs")
+    c_max = max(s.n_cycles for s in sims)
+    done = sum(int((r.status == 2).all()) for r in results)
+    phase(14, f"(d) responsibility fleet S=3 (highway, overtake with 2 agents, curve), "
+              f"replayed, 1 fetch: wall {wall:.3f} s with warm-up and capture "
+              f"({results[0].extras['capture_s']:.3f} s), {3 / wall:.3f} scenarios/s, "
+              f"{1e3 * wall / c_max:.3f} ms per cycle, peak memory {peak:.3f} GiB, "
+              f"members at their goal {done}/3; every member equals its solo run, "
+              f"positions within {gap:.3e} m, window slots kept "
+              f"{len(device_sim._kept_slots(*(s.tensors for s in sims)))} [{smi}]")
+
+    # (e) the window slots the run keeps, per family at its default size
+    kept = {}
+    for family, multi in (("highway", False), ("highway", True), ("overtake", True),
+                          ("curve", False), ("convoy", True), ("traffic_light", False),
+                          ("stop_sign", False), ("crosswalk", False)):
+        config = load_config()
+        config.simulation.start_multiagent = multi
+        scenario = getattr(scenario_factory, f"make_{family}")()
+        ds = device_sim.DeviceSimulation(Simulation(scenario, config, dev))
+        kept[f"{family}{' A=' + str(len(ds.agents)) if multi else ''}"] = len(
+            device_sim._kept_slots(ds.tensors))
+    ds = device_sim.DeviceSimulation(_blind_spot_sim(dev, module_on=True))
+    kept["blind spot A=2"] = len(device_sim._kept_slots(ds.tensors))
+    phase(14, f"(e) window slots the run keeps of the nominal "
+              f"{config.prediction.max_obstacles}: " + ", ".join(
+                  f"{k} {v}" for k, v in kept.items()) + f" [{smi}]")
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -1130,11 +1275,12 @@ def main() -> int:
     batched_p50 = phase_batched_cycle(dev, smi, launches)
     host_runs = phase_multiagent(dev, smi, launches)
     phase_risk(dev, smi, launches)
-    phase_responsibility(dev, smi, launches, batched_p50)
-    phase_occlusion(dev, smi, launches)
+    host_resp = phase_responsibility(dev, smi, launches, batched_p50)
+    host_occ = phase_occlusion(dev, smi, launches)
     phase_device_run(dev, smi, launches, host_runs)
     phase_fleet(dev, smi, launches)
     phase_behavior(dev, smi, launches)
+    phase_device_post(dev, smi, launches, host_resp, host_occ)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

@@ -130,7 +130,8 @@ def phantom_safety_mask(risks, phantom_mask, thresholds: PhantomThresholds,
             thresholds.be)
     if any(g is not None for g in geom):
         x = rollout.x
-        big = torch.tensor(1e9, dtype=x.dtype, device=x.device)
+        # a fill, not a host scalar: no host→device copy (CUDA-graph capture)
+        big = torch.full((), 1e9, dtype=x.dtype, device=x.device)
         n = min(x.shape[-1] - 1, preds.means.shape[-2])
         ex, ey = x[..., :, None, 1:n + 1], rollout.y[..., :, None, 1:n + 1]
         px = preds.means[..., None, :, :n, 0]
@@ -222,7 +223,7 @@ def external_occlusion_costs(rollout, *, w_pm=0.0, w_um=0.0, w_ve=0.0,
         if occluder_valid is not None:                           # (..., M, Q, N)
             valid = _on(occluder_valid, xs, torch.bool)
             dq = torch.where(valid[..., None, :, None], dq,
-                             torch.tensor(1e9, dtype=dtype, device=device))
+                             torch.full((), 1e9, dtype=dtype, device=device))
         d_near = torch.amin(dq, dim=-2)                          # (..., M, N)
         cost = cost + w_ve * torch.mean(torch.exp(-d_near / 2.0), dim=-1)
     return cost

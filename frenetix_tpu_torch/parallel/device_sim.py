@@ -50,14 +50,29 @@ carry per cycle, and the single-cycle body takes their velocities and
 stopping matrices from input buffers; a reference-path swap restacks the
 tables (a new capture only when the tables grow).
 
+The post-passes run in the body as well: the visible-area sensor stage
+(`calc_occlusions`: a polar map per agent from the road walls, the scenario
+obstacles and the live peers, probed at each window row's corners and
+center), the occlusion module (phantom rows from the spawn locator
+`phantom_rows`, capped by the host's free slots, then the safety gate and the
+occ_pm / occ_um / occ_ve soft costs) and the responsibility term (reach-set
+grids rasterized on the device from the cycle's prediction rows, peers
+included, once per cycle).  Each program applies them in the batched host
+cycle's order and selects again before the emergency ladder
+(`mesh.post_pass_selection`).
+
+The runner's buffers hold only the prediction-window slots that some cycle
+fills (`_kept_slots`); `DeviceSimulation.tensors` keeps the full width.  The
+trim is exact (every sum over obstacle rows adds an invalid row's exact
+zero) and shrinks the risk stack's quadrature, which dominates a cycle with
+a post-pass.
+
 What this module carries of the JAX original: ground-truth and
-constant-velocity predictions with mode-faithful peers, the radius and
-rear-cone sensor filter, progressive densification, low-velocity kinematics,
-the emergency ladder in both modes ("stopping", "min_risk"), the behavior
-planner (in the run and hybrid), fleets and chunks.  The responsibility
-term, the visible-area sensor stage and the occlusion module inside the run
-(ROADMAP.md slice 6b), Wale-Net predictions (5) and a device mesh (7) raise
-NotImplementedError here and keep working on the host path where they did.
+constant-velocity predictions with mode-faithful peers, the full sensor
+pipeline, progressive densification, low-velocity kinematics, the emergency
+ladder in both modes ("stopping", "min_risk"), the post-passes, the behavior
+planner (in the run and hybrid), fleets and chunks.  Wale-Net predictions
+(ROADMAP.md slice 5) and a device mesh (7) raise NotImplementedError here.
 The road-departure check of executed poses is skipped, as in the JAX
 package: selected plans are corridor-checked inside the cycle.
 """
@@ -82,14 +97,21 @@ from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, PredictionTensors
 from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
 from frenetix_tpu_torch.parallel.mesh import (
     _SEL_FIELDS, _pad_table, agent_plan_predictions, agent_pose_predictions,
-    concat_obstacles,
+    concat_obstacles, post_pass_selection,
 )
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
 from frenetix_tpu_torch.planner.reactive import wants_stopping_mode
+from frenetix_tpu_torch.occlusion.occlusion_module import PHANTOM_TYPES, PhantomThresholds
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch.risk.reachable_set import (
+    build_reach_set_grids_device, lanelet_tensors,
+)
 from frenetix_tpu_torch.sim.agent import AgentStatus, EgoState
 from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
+from frenetix_tpu_torch.sim.visible_area import (
+    obb_segments_batch, polar_visibility_batch, road_boundary_segments,
+)
 
 __all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet"]
 
@@ -140,6 +162,21 @@ class SimTensors:
     # the in-run behavior FSM (behavior.device_fsm); None without it
     fsm: object = None         # FSMTensors
     fsm_carry0: object = None  # FSMCarry
+    # the responsibility term: the scenario's lanelets (LaneletTensors)
+    lane: object = None
+    # the visible-area sensor stage (prediction.calc_occlusions)
+    road_segs: object = None       # (Sr, 2, 2) road-boundary walls
+    cur_half: object = None        # (C, O, 2) raw half sizes per window row
+    # the occlusion module's spawn locator (`_occlusion_spawn_tensors`)
+    occ_obst: object = None        # (C, Oc, 3) recorded poses of every obstacle
+    occ_obst_valid: object = None  # (C, Oc)
+    occ_is_dyn: object = None      # (Oc,)
+    occ_half: object = None        # (Oc,) max(length, width) / 2
+    occ_cat_ok: object = None      # (Oc,) the obstacle's spawn category is on
+    turn_xy: object = None         # (A, R2, 2) route vertices
+    turn_spawn: object = None      # (A, R2, 2) turn spawn point per vertex
+    turn_heading: object = None    # (A, R2)
+    turn_hot: object = None        # (A, R2) |κ| above the threshold
 
     def to(self, device, dtype) -> "SimTensors":
         """The same structure as tensors on `device`: floats as `dtype`,
@@ -154,14 +191,17 @@ class SimTensors:
 
 
 def _map_leaves(fn, first: SimTensors, *rest: SimTensors) -> SimTensors:
-    """`fn` over the corresponding leaves of one or more SimTensors."""
+    """`fn` over the corresponding leaves of one or more SimTensors (absent
+    options stay None)."""
     out = {}
     for f in fields(SimTensors):
         vals = [getattr(t, f.name) for t in (first, *rest)]
-        if f.name == "ref":
-            out[f.name] = RefPathTable(*(fn(*xs) for xs in zip(*vals)))
+        if vals[0] is None:
+            out[f.name] = None
+        elif f.name in ("ref", "lane"):
+            out[f.name] = type(vals[0])(*(fn(*xs) for xs in zip(*vals)))
         elif f.name in ("fsm", "fsm_carry0"):
-            out[f.name] = None if vals[0] is None else vals[0].map(fn, *vals[1:])
+            out[f.name] = vals[0].map(fn, *vals[1:])
         elif f.name == "pred_windows":
             out[f.name] = {k: fn(*(v[k] for v in vals)) for k in vals[0]}
         else:
@@ -279,6 +319,114 @@ def _obstacle_step_poses(scenario, agent_obstacle_ids, n_steps_total, dtype):
             poses[t, j, 2] = st.orientation
             valid[t, j] = True
     return poses, valid, half
+
+
+def _occlusion_spawn_tensors(sim, agents, n_cycles, k_replan, dtype):
+    """The inputs of the run's occlusion spawn locator (`phantom_rows`).
+
+    `OcclusionModule.find_spawn_points` walks every scenario obstacle at the
+    replan step, agents' converted obstacles included, with their recorded
+    states, so the per-cycle poses are known at set-up; only the ego position
+    is live.  The turn spawn candidates (`_turn_spawn_points`) depend on the
+    route alone, apart from which one is nearest the ego."""
+    occ_cfg = sim.config.occlusion
+    obs = list(sim.scenario.obstacles.values())
+    oc_n = len(obs) or 1
+    poses = np.zeros((n_cycles, oc_n, 3), dtype)
+    valid = np.zeros((n_cycles, oc_n), bool)
+    for c in range(n_cycles):
+        t_c = c * k_replan
+        for j, ob in enumerate(obs):
+            st = ob.state_at_time(t_c)
+            if st is None:
+                continue
+            poses[c, j, :2] = st.position
+            poses[c, j, 2] = st.orientation
+            valid[c, j] = True
+    is_dyn = np.array([getattr(ob, "role", "dynamic") == "dynamic"
+                       for ob in obs] or [False])
+    half = np.array([max(ob.length, ob.width) / 2.0 for ob in obs] or [1.0], dtype)
+    # the spawn categories fold into one flag per obstacle
+    cat_ok = np.where(is_dyn, bool(occ_cfg.spawn_point_behind_dynamic_obstacle),
+                      bool(occ_cfg.spawn_point_behind_static_obstacle))
+
+    # per agent: every route vertex's turn spawn point (the host takes the
+    # nearest high-curvature vertex ahead at plan time)
+    r2_max = 1
+    rows = []
+    for a in agents:
+        xy = None
+        if a.occlusion is not None and occ_cfg.spawn_points_behind_turn:
+            xy = a.occlusion.route_xy
+        if xy is None or len(xy) < 5:
+            rows.append(None)
+            continue
+        xy = np.asarray(xy, dtype=float)
+        seg = np.linalg.norm(np.diff(xy, axis=0), axis=1)
+        s = np.concatenate([[0.0], np.cumsum(seg)])
+        dx, dy = np.gradient(xy[:, 0], s), np.gradient(xy[:, 1], s)
+        ddx, ddy = np.gradient(dx, s), np.gradient(dy, s)
+        kappa = (dx * ddy - dy * ddx) / np.maximum((dx * dx + dy * dy) ** 1.5, 1e-12)
+        hot = np.abs(kappa) > 0.03          # the host's kappa_threshold
+        spawn = np.zeros_like(xy)
+        heading = np.zeros(len(xy))
+        for i in np.where(hot)[0]:
+            normal = np.array([-dy[i], dx[i]])
+            normal /= max(np.linalg.norm(normal), 1e-9)
+            inside = normal * np.sign(kappa[i])
+            spawn[i] = xy[i] + 3.6 * inside
+            heading[i] = float(np.arctan2(-inside[1], -inside[0]))
+        rows.append((xy, spawn, heading, hot))
+        r2_max = max(r2_max, len(xy))
+    a_n = len(agents)
+    turn_xy = np.zeros((a_n, r2_max, 2), dtype)
+    turn_spawn = np.zeros((a_n, r2_max, 2), dtype)
+    turn_heading = np.zeros((a_n, r2_max), dtype)
+    turn_hot = np.zeros((a_n, r2_max), bool)
+    for i, row in enumerate(rows):
+        if row is None:
+            continue
+        xy, spawn, heading, hot = row
+        n = len(xy)
+        turn_xy[i, :n] = xy
+        turn_xy[i, n:] = xy[-1]             # inert padding: hot stays False
+        turn_spawn[i, :n] = spawn
+        turn_heading[i, :n] = heading
+        turn_hot[i, :n] = hot
+    return dict(occ_obst=poses, occ_obst_valid=valid, occ_is_dyn=is_dyn,
+                occ_half=half, occ_cat_ok=cat_ok, turn_xy=turn_xy,
+                turn_spawn=turn_spawn, turn_heading=turn_heading, turn_hot=turn_hot)
+
+
+def _kept_slots(*tensors: SimTensors) -> np.ndarray:
+    """The window slots valid at some cycle of some input set, in order (at
+    least one): the only prediction-window slots the run needs.
+
+    Dropping the others is exact: every reduction over the obstacle axis of
+    the cycle, the risk stack and the post-passes is a fixed-order sum to
+    which an invalid slot adds an exact zero, or a masked maximum."""
+    used = None
+    for g in tensors:
+        v = np.asarray(g.pred_windows["valid"])             # (..., C, O, H)
+        u = v.reshape((-1,) + v.shape[-2:]).any(axis=(0, 2))
+        used = u if used is None else used | u
+    keep = np.flatnonzero(used)
+    return keep if keep.size else np.zeros(1, np.int64)
+
+
+def _trim_slots(g: SimTensors, keep: np.ndarray) -> SimTensors:
+    """`g` with only the window slots `keep` (`_kept_slots`); the
+    occluders, the collision sweep's obstacles and the spawn tensors stay
+    whole."""
+    axis = np.ndim(g.x_cl0) - 2 + 1         # after the leading and cycle axes
+
+    def take(x):
+        return None if x is None else np.take(x, keep, axis=axis)
+
+    return dataclasses.replace(
+        g, pred_windows={k: take(v) for k, v in g.pred_windows.items()},
+        cur_obst=take(g.cur_obst), cur_obst_valid=take(g.cur_obst_valid),
+        cur_half=take(g.cur_half))
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +629,169 @@ def benign_stop_row(x_cl, *, n_steps: int, dt: float, horizon: float):
         x_cl[..., 5], d0, zero, zero], dim=-1)
 
 
+def _repeat_last(x, k: int):
+    """Each entry of the last axis k times in a row (`repeat_interleave` by
+    expand: no count tensor, no host copy)."""
+    return x[..., None].expand(x.shape + (k,)).flatten(-2)
+
+
+def occluder_segments(obst_pose, obst_valid, obst_half, center, theta, h_agent,
+                      running_pre, eye):
+    """The occluding edges of one cycle: the scenario obstacles' boxes at the
+    replan step (..., O' · 4, 2, 2) and the live peers' (..., A · 4, 2, 2),
+    with each agent's validity (..., A, O' · 4) and (..., A, A · 4): an
+    agent is no occluder of itself, and a peer only while it runs."""
+    segs_o = obb_segments_batch(obst_pose[..., :2], obst_pose[..., 2], obst_half)
+    segs_p = obb_segments_batch(center, theta, h_agent.expand(center.shape))
+    lead_a = tuple(center.shape[:-1])                           # (..., A)
+    o4 = _repeat_last(obst_valid, 4)                            # (..., O'·4)
+    o4 = o4[..., None, :].expand(lead_a + o4.shape[-1:])
+    peer_ok = running_pre[..., None, :] & ~eye                  # (..., A, A)
+    return (segs_o.flatten(-4, -3), segs_p.flatten(-4, -3), o4,
+            _repeat_last(peer_ok, 4))
+
+
+def visible_window_rows(center, r_vis, cur, cur_half):
+    """The visible-area membership of the window rows (`VisibleArea.
+    obstacle_visible`): a row is visible when one of its 4 corners or its
+    center lies within its ray's range + 0.3 m.  center (..., A, 2), r_vis
+    (..., A, K), cur (..., O, 3), cur_half (..., O, 2) → (..., A, O)."""
+    corners = obb_segments_batch(cur[..., :2], cur[..., 2], cur_half)[..., :, 0, :]
+    probes = torch.cat([corners, cur[..., None, :2]], dim=-2)  # (..., O, 5, 2)
+    rel = probes[..., None, :, :, :] - center[..., :, None, None, :]  # (..., A, O, 5, 2)
+    rr = torch.linalg.norm(rel, dim=-1)
+    ang = torch.atan2(rel[..., 1], rel[..., 0])
+    k_rays = r_vis.shape[-1]
+    # the nearest ray, ties rounded to even as `VisibleArea.r_at` does
+    idx = torch.round((ang + np.pi) / (2 * np.pi) * k_rays).long() % k_rays
+    r_at = torch.gather(r_vis[..., None, :].expand(idx.shape[:-1] + (k_rays,)), -1, idx)
+    return torch.any(rr <= r_at + 0.3, dim=-1)
+
+
+def phantom_rows(ego, n_free, occ_obst, occ_valid, occ_is_dyn, occ_half, occ_cat_ok,
+                 turn_xy, turn_spawn, turn_heading, turn_hot, *, horizon: int,
+                 dt: float, sensor_radius: float, max_phantoms: int,
+                 max_dynamic: int, max_static: int, use_turn: bool,
+                 velocity: float, var_factor: float, length: float, width: float):
+    """The occlusion module's phantoms of every agent at once
+    (`OcclusionModule.find_spawn_points`, `_turn_spawn_points`,
+    `phantom_prediction_rows` and `augment_predictions`' free-slot cap).
+
+    Spawn candidates: the two silhouette-edge points of every obstacle
+    within [2 m, sensor radius] of the ego (side +1 first), then the nearest
+    hot route vertex ahead.  The host sorts each category by distance with
+    Python's stable sort, keeps the per-category caps and then the nearest
+    overall; here each candidate's rank under (distance, group, insertion
+    order) reproduces that order.  Inputs: ego (..., A, 2), n_free (..., A),
+    the cycle's occ_obst (..., Oc, 3) and occ_valid (..., Oc), the per-agent
+    turn tensors (..., A, R2, ...).  Returns (PredictionTensors with
+    (..., A, P, ...) leaves, admitted (..., A, P), spawn points (..., A, P, 2)),
+    P = max_phantoms."""
+    dtype, device = ego.dtype, ego.device
+    pos = occ_obst[..., None, :, :2]                            # (..., 1, Oc, 2)
+    d_vec = pos - ego[..., :, None, :]                          # (..., A, Oc, 2)
+    dist_o = torch.hypot(d_vec[..., 0], d_vec[..., 1])
+    ok_o = ((occ_valid & occ_cat_ok)[..., None, :] & (dist_o >= 2.0)
+            & (dist_o <= sensor_radius))
+    ray = d_vec / torch.clamp(dist_o, min=1e-9)[..., None]
+    perp = torch.stack([-ray[..., 1], ray[..., 0]], dim=-1)
+    reach = perp * (occ_half + 0.5)[..., None, :, None]
+    sp_pos = torch.stack([pos + reach + ray * 1.0, pos - reach + ray * 1.0], dim=-2)
+    sp_head = torch.stack([torch.atan2(-perp[..., 1], -perp[..., 0]),
+                           torch.atan2(perp[..., 1], perp[..., 0])], dim=-1)
+    cand_pos = sp_pos.flatten(-3, -2)                           # (..., A, 2·Oc, 2)
+    cand_head = sp_head.flatten(-2, -1)
+    cand_dist = _repeat_last(dist_o, 2)
+    cand_ok = _repeat_last(ok_o, 2)
+    cand_grp = _repeat_last(torch.where(occ_is_dyn, 0, 1), 2)[..., None, :].expand(
+        cand_ok.shape)
+
+    # the turn candidate (at most one, last)
+    dist_t = torch.hypot(turn_xy[..., 0] - ego[..., 0, None],
+                         turn_xy[..., 1] - ego[..., 1, None])   # (..., A, R2)
+    cand_t = (dist_t > 5.0) & (dist_t < sensor_radius) & turn_hot
+    has_t = torch.any(cand_t, dim=-1)
+    if not use_turn:
+        has_t = torch.zeros_like(has_t)
+    i_t = torch.argmin(torch.where(cand_t, dist_t, torch.full_like(dist_t, torch.inf)),
+                       dim=-1)[..., None]                       # (..., A, 1)
+    pos_all = torch.cat([cand_pos, torch.gather(
+        turn_spawn, -2, i_t[..., None].expand(i_t.shape + (2,)))], dim=-2)
+    head_all = torch.cat([cand_head, torch.gather(turn_heading, -1, i_t)], dim=-1)
+    dist_all = torch.cat([cand_dist, torch.gather(dist_t, -1, i_t)], dim=-1)
+    ok_all = torch.cat([cand_ok, has_t[..., None]], dim=-1)
+    grp = torch.cat([cand_grp, torch.full_like(cand_grp[..., :1], 2)], dim=-1)
+    n = ok_all.shape[-1]
+    ins = torch.arange(n, device=device)
+
+    def precedes(mask_j):
+        """(..., A, N, N): candidate j (last axis) comes before candidate i
+        under (distance, group, insertion), restricted to mask_j."""
+        dj, di = dist_all[..., None, :], dist_all[..., :, None]
+        gj, gi = grp[..., None, :], grp[..., :, None]
+        less = (dj < di) | ((dj == di) & ((gj < gi) | ((gj == gi)
+                                                     & (ins[None, :] < ins[:, None]))))
+        return less & mask_j[..., None, :]
+
+    is_dyn, is_stat = grp == 0, grp == 1
+    rank_dyn = torch.sum(precedes(ok_all & is_dyn), dim=-1)
+    rank_stat = torch.sum(precedes(ok_all & is_stat), dim=-1)
+    kept = ok_all & ((is_dyn & (rank_dyn < max_dynamic))
+                     | (is_stat & (rank_stat < max_static)) | (grp == 2))
+    rank_all = torch.sum(precedes(kept), dim=-1)
+    n_adm = torch.clamp(n_free, min=0, max=max_phantoms)
+    admitted = kept & (rank_all < n_adm[..., None])
+
+    # the first P admitted candidates in rank order
+    p_idx = torch.arange(max_phantoms, device=device)
+    match = admitted[..., None, :] & (rank_all[..., None, :] == p_idx[:, None])
+    row_i = torch.argmax(match.to(torch.uint8), dim=-1)         # (..., A, P)
+    row_ok = torch.any(match, dim=-1)
+    row_pos = torch.gather(pos_all, -2, row_i[..., None].expand(row_i.shape + (2,)))
+    row_head = torch.gather(head_all, -1, row_i)
+
+    # constant velocity along the heading, inflated variance
+    vel = float(velocity)
+    steps = torch.arange(1, horizon + 1, dtype=dtype, device=device)
+    hvec = torch.stack([torch.cos(row_head), torch.sin(row_head)], dim=-1)
+    means = row_pos[..., None, :] + (vel * dt * steps)[:, None] * hvec[..., None, :]
+    var = (0.3 + 0.2 * steps * dt) * var_factor                # (H,)
+    eye = torch.eye(2, dtype=dtype, device=device)
+    lead = tuple(row_head.shape)                                # (..., A, P)
+    covs = (eye * var[:, None, None]).expand(lead + (horizon, 2, 2))
+    inv = (eye * (1.0 / var)[:, None, None]).expand(lead + (horizon, 2, 2))
+    preds = PredictionTensors(
+        means=means, inv_covs=inv, covs=covs,
+        orientations=row_head[..., None].expand(lead + (horizon,)),
+        velocities=torch.full(lead + (horizon,), vel, dtype=dtype, device=device),
+        lengths=torch.full(lead, length, dtype=dtype, device=device),
+        widths=torch.full(lead, width, dtype=dtype, device=device),
+        valid=row_ok[..., None].expand(lead + (horizon,)))
+    return preds, row_ok, row_pos
+
+
+def reach_grids(preds: PredictionTensors, lane, n_lead: int):
+    """Every agent's reach-set grids from its prediction rows' first step
+    (`build_reach_set_grids_device`), (..., A, O, ...) leaves.  A fleet's
+    lanelet leaves carry the scenario axis (`n_lead` = 1): each row is
+    rasterized on its own member's map."""
+    pos = preds.means[..., 0, :]                                # (..., A, O, 2)
+    rows = tuple(pos.shape[:-1])
+    if n_lead:
+        per = int(np.prod(rows[n_lead:]))
+        lane = type(lane)(*(x.reshape(x.shape[:n_lead] + (1,) + x.shape[n_lead:])
+                            .expand(x.shape[:n_lead] + (per,) + x.shape[n_lead:])
+                            .flatten(0, n_lead) for x in lane))
+    grid = build_reach_set_grids_device(
+        pos.reshape(-1, 2), preds.orientations[..., 0].reshape(-1),
+        preds.velocities[..., 0].reshape(-1), preds.lengths.reshape(-1),
+        preds.widths.reshape(-1), preds.valid[..., 0].reshape(-1), lane)
+    return grid._replace(
+        origin=grid.origin.reshape(rows + (2,)),
+        occupancy=grid.occupancy.reshape(rows + grid.occupancy.shape[1:]),
+        valid=grid.valid.reshape(rows), cell=grid.cell.reshape(rows))
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -499,12 +810,15 @@ class _Runner:
     drives `n_cycles` cycles and fetches once."""
 
     def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int,
-                 hybrid: bool = False):
+                 hybrid: bool = False, keep=None):
         self.p = proto
         self.device = proto.device
         self.dtype = proto.dtype
         self.n_cycles = int(n_cycles)
-        self.g = g = g_host.to(self.device, self.dtype)
+        # the window slots the buffers hold (`_kept_slots`; a fleet's chunks
+        # pass the union over all members)
+        self.keep = _kept_slots(g_host) if keep is None else keep
+        self.g = g = _trim_slots(g_host, self.keep).to(self.device, self.dtype)
         self.lead = lead = tuple(g.x_cl0.shape[:-2])
         self.nl = len(lead)
         self.a_n = a_n = int(g.x_cl0.shape[-2])
@@ -579,7 +893,7 @@ class _Runner:
             dst.copy_(src)
             return dst
 
-        _map_leaves(copy, self.g, g_host)
+        _map_leaves(copy, self.g, _trim_slots(g_host, self.keep))
 
     def reset(self) -> None:
         g, st = self.g, self.state
@@ -600,9 +914,10 @@ class _Runner:
             st["th_prev"].copy_(g.pose0[..., 2])
 
     # ---------------------------------------------------------------- body
-    def _programs(self, matrix, mask, x_cl, v, ctx, quintic: bool = False):
+    def _programs(self, matrix, mask, x_cl, v, ctx, post: dict, quintic: bool = False):
         """One sampling matrix for all agents, both kinematics modes merged
-        per agent by the host's rule v < low_vel_mode_threshold."""
+        per agent by the host's rule v < low_vel_mode_threshold; `post` holds
+        the cycle's inputs of the post-passes (empty without them)."""
         p = self.p
         d0 = x_cl[..., 3]
         outs = []
@@ -612,16 +927,27 @@ class _Runner:
                 quintic_lon=quintic, table_window=768,
                 compensated_sum=p.compensated_sum)
             risks = None
-            if p.emergency_mode == "min_risk":
+            if p.need_risks:
                 risks = trajectory_risks(
                     res.rollout, ctx.preds,
                     meta_from_footprint(ctx.preds.lengths, ctx.preds.widths),
                     p.veh.mass)
+            if p.resp_weight != 0.0 or p.use_occlusion:
+                # the post-passes in the batched host cycle's order, then one
+                # argmin over what stays selectable
+                cost, selectable, best, found = post_pass_selection(
+                    res, ctx, risks, dt=p.dt, resp_weight=p.resp_weight,
+                    grid=post.get("grid"), phantom_mask=post.get("pm"),
+                    thresholds=p.thresholds, occ_pm_weight=p.occ_pm_weight,
+                    occ_um_weight=p.occ_um_weight, occ_ve_weight=p.occ_ve_weight,
+                    occ_geom=post.get("geom"))
+                res = res._replace(cost=cost, best_idx=best, found=found,
+                                   selectable=selectable)
             outs.append(select_with_fallback(res, matrix, mask, d0,
                                              p.emergency_mode, risks))
         return _merge(v < p.config.planning.low_vel_mode_threshold, outs[0], outs[1])
 
-    def _cycle_all_agents(self, level: int, x_cl, v, ctx):
+    def _cycle_all_agents(self, level: int, x_cl, v, ctx, post: dict):
         """One densification level for all agents."""
         p = self.p
         pl = p.config.planning
@@ -629,7 +955,7 @@ class _Runner:
         matrix = build_sampling_matrices(
             x_cl, v, t_grid, n_v, n_d, veh=p.veh, horizon=p.horizon,
             d_min=pl.d_min, d_max=pl.d_max, d_ego_pos=p.d_ego_pos)
-        return self._programs(matrix, self.masks[level], x_cl, v, ctx)
+        return self._programs(matrix, self.masks[level], x_cl, v, ctx, post)
 
     def step(self) -> None:
         """One replanning cycle of all agents: enqueues device work only."""
@@ -694,6 +1020,10 @@ class _Runner:
 
         window = PredictionTensors(*(window_field(f) for f in PredictionTensors._fields))
         horizon = window.means.shape[-2]
+        # the occluding edges of this cycle (the sensor stage, occ_um)
+        occl = None
+        if p.use_vis_occl or p.use_occ_geom:
+            occl = self._occluders(t0, center, theta, running_pre)
         if pcfg.use_sensor_model:
             # radius and rear-cone filter on the scenario obstacles' rows
             # (`sensor_model.obstacles_in_radius`, `filter_cone_angle`),
@@ -711,8 +1041,23 @@ class _Runner:
             cone_half = float(pcfg.cone_angle) * np.pi / 180.0 / 2.0
             dropped = ((loc_x < 0) & (dist > float(pcfg.cone_safety_dist))
                        & (torch.abs(torch.abs(ang) - np.pi) < cone_half))
-            window = window._replace(
-                valid=window.valid & (in_radius & ~dropped)[..., None])
+            sensor_ok = in_radius & ~dropped
+            if p.use_vis_occl:
+                # the visible-area stage (`sensor_model.visible_obstacles`):
+                # a polar map per agent from the road walls, the scenario
+                # obstacles at the replan step and the live peers, probed at
+                # each window row's corners and center
+                segs_o, segs_p, o4, p4 = occl
+                road = g.road_segs
+                seg = torch.cat([road, segs_o, segs_p], dim=-3)[..., None, :, :, :]
+                seg_ok = torch.cat([torch.ones(lead + (a_n, road.shape[-3]),
+                                               dtype=torch.bool, device=center.device),
+                                    o4, p4], dim=-1)
+                r_vis = polar_visibility_batch(center, seg[..., 0, :], seg[..., 1, :],
+                                               seg_ok, float(pcfg.sensor_radius))
+                sensor_ok = sensor_ok & visible_window_rows(
+                    center, r_vis, cur, at(g.cur_half, c))
+            window = window._replace(valid=window.valid & sensor_ok[..., None])
         peer_kw = dict(horizon=horizon, length=veh.length + 0.5, width=veh.width + 0.2,
                        cov_pos=pcfg.cov_pos, active=running_pre)
         if pcfg.mode == "ground_truth":
@@ -725,6 +1070,13 @@ class _Runner:
             poses_all = torch.cat([center, theta[..., None], v[..., None]], dim=-1)
             agent_preds = agent_pose_predictions(poses_all, dt=dt, **peer_kw)
         preds = concat_obstacles(window, agent_preds)
+        post = {}
+        if p.use_occlusion:
+            preds, post = self._phantoms(window, preds, c, center, running_pre, occl)
+        if p.resp_weight != 0.0:
+            # the reach grids depend on the predictions alone: built once per
+            # cycle for every program
+            post["grid"] = reach_grids(preds, g.lane, nl)
         ctx = CycleContext(
             ref=g.ref, veh=veh, weights=self.weights, preds=preds,
             obstacle_xy=preds.means[..., 0, :], obstacle_valid=preds.valid[..., 0],
@@ -735,9 +1087,10 @@ class _Runner:
         # --- progressive densification: every level runs, the first level
         # that found a candidate wins per agent; when none did, the LAST
         # level's ladder applies ------------------------------------------------
-        out = self._cycle_all_agents(0, x_cl, v, ctx)
+        out = self._cycle_all_agents(0, x_cl, v, ctx, post)
         for level in range(1, len(p.levels)):
-            out = _merge(~out["found"], out, self._cycle_all_agents(level, x_cl, v, ctx))
+            out = _merge(~out["found"], out,
+                         self._cycle_all_agents(level, x_cl, v, ctx, post))
         if behavior is not None:
             # stopping mode: the host tries the stopping matrix first (at the
             # first level only) and samples regularly when it finds nothing,
@@ -745,7 +1098,8 @@ class _Runner:
             stop_mat, stop_mask, wants = behavior
             benign = benign_stop_row(x_cl, n_steps=n_steps, dt=dt, horizon=p.horizon)
             stop_mat = torch.where(stop_mask[..., None], stop_mat, benign[..., None, :])
-            out_stop = self._programs(stop_mat, stop_mask, x_cl, v, ctx, quintic=True)
+            out_stop = self._programs(stop_mat, stop_mask, x_cl, v, ctx, post,
+                                      quintic=True)
             out = _merge(wants & out_stop["found"], out, out_stop)
         found = out["found"]
         # the emergency ladder: standstill at v <= 0.1 first, then the
@@ -853,6 +1207,60 @@ class _Runner:
             for f in fields(self.fsm_state):
                 getattr(self.fsm_state, f.name).copy_(getattr(fsm_new, f.name))
         c.add_(1)
+
+    def _occluders(self, t0, center, theta, running_pre):
+        """`occluder_segments` of this cycle (the scenario obstacles at the
+        replan step t0 and the live peers), computed once per cycle."""
+        g, nl = self.g, self.nl
+        obst = torch.index_select(g.obst_poses, nl, t0).squeeze(nl)
+        valid = torch.index_select(g.obst_valid, nl, t0).squeeze(nl)
+        return occluder_segments(obst, valid, g.obst_half, center, theta,
+                                 self.h_agent, running_pre, self.eye)
+
+    def _phantoms(self, window, preds, c, center, running_pre, occl):
+        """The occlusion module in the run (`Simulation._agent_predictions` →
+        `augment_predictions`): phantom rows after the window and peer rows,
+        capped by the free slots the host would have left at the NOMINAL
+        width `prediction.max_obstacles` (the run holds fewer slots), and
+        the post-pass inputs: the phantom mask and, for occ_um / occ_ve, the
+        ego, its polar map without road walls and the spawn points."""
+        p, g, nl = self.p, self.g, self.nl
+        pcfg, occ = p.config.prediction, p.config.occlusion
+        n_present = torch.sum(torch.any(window.valid, dim=-1), dim=-1)      # (..., A)
+        n_peers = (torch.sum(running_pre, dim=-1, keepdim=True)
+                   - running_pre.to(n_present.dtype))
+        n_free = int(pcfg.max_obstacles) - n_present - n_peers
+
+        def at_c(x):
+            return torch.index_select(x, nl, c).squeeze(nl)
+
+        kind = PHANTOM_TYPES[occ.phantom_type]
+        ph, ph_mask, ph_pos = phantom_rows(
+            center, n_free, at_c(g.occ_obst), at_c(g.occ_obst_valid), g.occ_is_dyn,
+            g.occ_half, g.occ_cat_ok, g.turn_xy, g.turn_spawn, g.turn_heading,
+            g.turn_hot, horizon=window.means.shape[-2], dt=p.dt,
+            sensor_radius=float(pcfg.sensor_radius),
+            max_phantoms=int(occ.max_phantoms),
+            max_dynamic=int(occ.max_dynamic_spawn_points),
+            max_static=int(occ.max_static_spawn_points),
+            use_turn=bool(occ.spawn_points_behind_turn), velocity=kind["velocity"],
+            var_factor=float(occ.variance_factor),
+            length=kind["length"] * float(occ.size_factor_length),
+            width=kind["width"] * float(occ.size_factor_width))
+        n_rows = preds.valid.shape[-2]
+        pm = torch.cat([torch.zeros(ph_mask.shape[:-1] + (n_rows,), dtype=torch.bool,
+                                    device=ph_mask.device), ph_mask], dim=-1)
+        post = {"pm": pm}
+        if p.use_occ_geom:
+            # occ_um's polar map: obstacles and live peers occlude, the road
+            # walls do not (`OcclusionModule.polar_map`)
+            segs_o, segs_p, o4, p4 = occl
+            seg = torch.cat([segs_o, segs_p], dim=-3)[..., None, :, :, :]
+            r_vis = polar_visibility_batch(center, seg[..., 0, :], seg[..., 1, :],
+                                           torch.cat([o4, p4], dim=-1),
+                                           float(pcfg.sensor_radius))
+            post["geom"] = (center, r_vis, ph_pos, ph_mask)
+        return concat_obstacles(preds, ph), post
 
     # ----------------------------------------------------------------- run
     def _capture(self) -> None:
@@ -1014,6 +1422,10 @@ class DeviceSimulation:
                 "not yet ported to frenetix_tpu_torch: a device mesh for the "
                 "device-resident run (slice 7)")
         pcfg, p = config.prediction, config.planning
+        if pcfg.mode == "walenet" and config.occlusion.use_occlusion_module:
+            raise NotImplementedError(
+                "walenet + occlusion module is host-loop only (the device run "
+                "does not thread host phantom geometry); run sim.run() instead")
         if pcfg.mode == "walenet":
             raise NotImplementedError(
                 "not yet ported to frenetix_tpu_torch: prediction.mode='walenet' in "
@@ -1022,17 +1434,6 @@ class DeviceSimulation:
             raise ValueError(f"unknown prediction mode {pcfg.mode!r}")
         if p.emergency_mode not in ("stopping", "min_risk"):
             raise ValueError(f"unknown emergency_mode {p.emergency_mode!r}")
-        waiting = []
-        if float(config.cost_weights.get("responsibility", 0.0)) != 0.0:
-            waiting.append("cost_weights['responsibility'] (slice 6b)")
-        if pcfg.use_sensor_model and pcfg.calc_occlusions:
-            waiting.append("prediction.calc_occlusions (slice 6b)")
-        if config.occlusion.use_occlusion_module:
-            waiting.append("occlusion.use_occlusion_module (slice 6b)")
-        if waiting:
-            raise NotImplementedError(
-                "not yet ported to the device-resident run of frenetix_tpu_torch "
-                "(the host path carries them): " + "; ".join(waiting))
 
         self.sim = sim
         self.config = config
@@ -1052,6 +1453,35 @@ class DeviceSimulation:
         self.d_ego_pos = bool(p.d_ego_pos)
         self.weights_np = np.array(
             [config.cost_weights.get(k, 0.0) for k in COST_TERM_ORDER], dtype)
+
+        # the post-passes: the responsibility term, the visible-area sensor
+        # stage, the occlusion module (phantoms, gate, soft costs)
+        occ_cfg = config.occlusion
+        self.resp_weight = float(config.cost_weights.get("responsibility", 0.0))
+        self.use_vis_occl = bool(pcfg.use_sensor_model and pcfg.calc_occlusions)
+        self.use_occlusion = bool(occ_cfg.use_occlusion_module)
+        ew = config.external_cost_weights
+        self.occ_pm_weight, self.occ_um_weight, self.occ_ve_weight = (
+            float(ew.get(k, 0.0)) if self.use_occlusion else 0.0
+            for k in ("occ_pm", "occ_um", "occ_ve"))
+        self.use_occ_geom = self.use_occlusion and (
+            self.occ_um_weight != 0.0 or self.occ_ve_weight != 0.0)
+        self.thresholds = (PhantomThresholds.from_config(occ_cfg)
+                           if self.use_occlusion else None)
+        self.need_risks = (self.resp_weight != 0.0 or self.use_occlusion
+                           or self.emergency_mode == "min_risk")
+        occ_statics = (False,)
+        if self.use_occlusion:
+            occ_statics = (
+                True, self.occ_pm_weight, self.occ_um_weight, self.occ_ve_weight,
+                occ_cfg.phantom_type, int(occ_cfg.max_phantoms),
+                int(occ_cfg.max_dynamic_spawn_points),
+                int(occ_cfg.max_static_spawn_points),
+                bool(occ_cfg.spawn_points_behind_turn),
+                bool(occ_cfg.spawn_point_behind_dynamic_obstacle),
+                bool(occ_cfg.spawn_point_behind_static_obstacle),
+                float(occ_cfg.variance_factor), float(occ_cfg.size_factor_length),
+                float(occ_cfg.size_factor_width), tuple(self.thresholds))
 
         # static grids per densification level (the host loop evaluates
         # levels sampling_min .. sampling_max - 1 until one finds a candidate)
@@ -1139,7 +1569,7 @@ class DeviceSimulation:
         # the scenario obstacles' prediction window of every cycle, from the
         # host's own routine, and their row-aligned current poses for the
         # sensor filter (the host filter reads the pose at the replan step)
-        pds, cur_obst, cur_valid = [], [], []
+        pds, cur_obst, cur_valid, cur_half = [], [], [], []
         for c in range(self.n_cycles):
             t_c = c * self.k_replan
             pd, ids = sim._predictions_for_step(t_c)
@@ -1147,8 +1577,13 @@ class DeviceSimulation:
             o_slots = pd["valid"].shape[0]
             cur = np.zeros((o_slots, 3), dtype)
             cv = np.zeros(o_slots, bool)
+            ch = np.zeros((o_slots, 2), dtype)
             for row, oid in enumerate(ids[:o_slots]):
-                st = sim.scenario.obstacles[oid].state_at_time(t_c)
+                ob = sim.scenario.obstacles[oid]
+                # the visible-area probe uses the obstacle's own size, not the
+                # prediction's enlarged one
+                ch[row] = (ob.length / 2.0, ob.width / 2.0)
+                st = ob.state_at_time(t_c)
                 if st is None:
                     continue
                 cur[row, :2] = st.position
@@ -1156,8 +1591,22 @@ class DeviceSimulation:
                 cv[row] = True
             cur_obst.append(cur)
             cur_valid.append(cv)
+            cur_half.append(ch)
         obst_poses, obst_valid, obst_half = _obstacle_step_poses(
             sim.scenario, sim.agent_obstacle_ids, self.max_steps + self.k_replan, dtype)
+
+        post_tensors = {}
+        if self.resp_weight != 0.0:
+            lane = lanelet_tensors(sim.scenario, device=torch.device("cpu"),
+                                   dtype=self.dtype)
+            post_tensors["lane"] = type(lane)(*(x.numpy() for x in lane))
+        if self.use_vis_occl:
+            post_tensors["road_segs"] = np.asarray(
+                road_boundary_segments(sim.scenario), dtype=dtype).reshape(-1, 2, 2)
+            post_tensors["cur_half"] = np.stack(cur_half)
+        if self.use_occlusion:
+            post_tensors.update(_occlusion_spawn_tensors(
+                sim, self.agents, self.n_cycles, self.k_replan, dtype))
 
         # per-agent tables, stacked as on the batched host path
         cpu = torch.device("cpu")
@@ -1178,6 +1627,7 @@ class DeviceSimulation:
             max_steps=np.asarray(self.max_steps, np.int32),
             active0=np.ones(a_n, bool), x_cl0=x_cl0, pose0=pose0, acc0=acc0,
             bank0=bank0, bank_len0=bank_len0, fsm=fsm_tensors, fsm_carry0=fsm_carry,
+            **post_tensors,
         )
         # what fleet members must share: everything the body reads from the
         # prototype member instead of the stacked tensors
@@ -1192,6 +1642,7 @@ class DeviceSimulation:
             pcfg.horizon_steps, self.bank_w, self.hybrid_behavior, self.stop_bucket,
             tuple(sorted((k_, v_) for k_, v_ in dataclasses.asdict(bcfg).items()
                          if k_ != "device_fsm")),
+            self.resp_weight, self.use_vis_occl, occ_statics,
         )
         self._runner = None
 
@@ -1432,7 +1883,37 @@ class DeviceSimulation:
             x_cl0=pad_a(g.x_cl0), pose0=pad_a(g.pose0), acc0=pad_a(g.acc0),
             bank0=pad_a(g.bank0), bank_len0=pad_a(g.bank_len0),
             **self._padded_fsm(dims, use_fsm),
+            **self._padded_post(dims, pad_a, pad_zero, pad_repeat),
         )
+
+    def _padded_post(self, dims: dict, pad_a, pad_zero, pad_repeat) -> dict:
+        """The post-pass leaves of `_padded_tensors`.  Padding lanelets are
+        all-zero rings with ring_valid and closure False (they neither start
+        nor join a closure), their vertices repeat the last one; padding road
+        walls and spawn obstacles are zero (a zero-length wall meets no ray,
+        an invalid obstacle spawns nothing); padding route vertices are not
+        hot."""
+        g, out = self.tensors, {}
+        c = dims["c"]
+        if g.lane is not None:
+            out["lane"] = type(g.lane)(
+                rings=pad_zero(pad_repeat(g.lane.rings, dims["le"], 1), dims["l"], 0),
+                ring_valid=pad_zero(g.lane.ring_valid, dims["l"], 0),
+                closure=pad_zero(pad_zero(g.lane.closure, dims["l"], 0), dims["l"], 1))
+        if g.road_segs is not None:
+            out.update(road_segs=pad_zero(g.road_segs, dims["sr"], 0),
+                       cur_half=pad_repeat(g.cur_half, c, 0))
+        if g.occ_obst is not None:
+            oc, r2 = dims["oc"], dims["r2"]
+            out.update(
+                occ_obst=pad_zero(pad_repeat(g.occ_obst, c, 0), oc, 1),
+                occ_obst_valid=pad_zero(pad_repeat(g.occ_obst_valid, c, 0), oc, 1),
+                occ_is_dyn=pad_zero(g.occ_is_dyn, oc, 0),
+                occ_half=pad_zero(g.occ_half, oc, 0),
+                occ_cat_ok=pad_zero(g.occ_cat_ok, oc, 0),
+                **{k: pad_a(pad_zero(getattr(g, k), r2, 1))
+                   for k in ("turn_xy", "turn_spawn", "turn_heading", "turn_hot")})
+        return out
 
     def _padded_fsm(self, dims: dict, use_fsm: bool) -> dict:
         """The FSM leaves of `_padded_tensors` (none when the fleet runs
@@ -1457,6 +1938,15 @@ def _fleet_dims(sims, use_fsm: bool = False) -> dict:
         o=top(lambda g: g.obst_half.shape[0]), t1=top(lambda g: g.obst_poses.shape[0]),
         g=top(lambda g: g.g_rings.shape[1]), e=top(lambda g: g.g_rings.shape[2]),
     )
+    first = sims[0].tensors
+    if first.lane is not None:
+        dims.update(l=top(lambda g: g.lane.rings.shape[0]),
+                    le=top(lambda g: g.lane.rings.shape[1]))
+    if first.road_segs is not None:
+        dims["sr"] = top(lambda g: g.road_segs.shape[0])
+    if first.occ_obst is not None:
+        dims.update(oc=top(lambda g: g.occ_half.shape[0]),
+                    r2=top(lambda g: g.turn_hot.shape[1]))
     if use_fsm:
         dims["fsm"] = dict(
             r_max=top(lambda g: g.fsm.f_xy.shape[1]),
@@ -1529,7 +2019,8 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
                     # the tables outgrew the buffers: a new body
                     dims = {k: max(dims[k], grown[k]) for k in dims}
                     old = runner
-                    runner = _Runner(base, inputs(), dims["c"], hybrid=True)
+                    runner = _Runner(base, inputs(), dims["c"], hybrid=True,
+                                     keep=old.keep)
                     for new_b, old_b in zip(runner._buffers(), old._buffers()):
                         new_b.copy_(old_b)
                     if old.graph is not None:
@@ -1589,8 +2080,9 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
             raise ValueError(
                 "fleet members must share planning statics (dt, horizon, "
                 "replanning frequency, sampling levels, dtype, device, emergency "
-                "mode, compensated-sum flag, vehicle, cost weights, prediction "
-                "mode and sensor settings, behavior settings)")
+                "mode, compensated-sum flag, vehicle, cost weights, responsibility "
+                "weight, prediction mode and sensor settings, occlusion "
+                "settings, behavior settings)")
     use_fsm = base.hybrid_behavior and all(s.fsm_in_scan for s in sims)
     if base.hybrid_behavior and not use_fsm:
         results = _drive_hybrid(list(sims), graph=graph) if len(sims) > 1 \
@@ -1598,13 +2090,15 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
     else:
         group = len(sims) if chunk is None else min(int(chunk), len(sims))
         dims = _fleet_dims(sims, use_fsm)
+        # the window slots any member fills: one buffer shape for every chunk
+        keep = _kept_slots(*(s.tensors for s in sims))
         runner, results = None, []
         for lo in range(0, len(sims), group):
             members = sims[lo:lo + group]
             filled = members + [members[0]] * (group - len(members))
             stacked = _fleet_stack(filled, dims, use_fsm)
             if runner is None:
-                runner = _Runner(base, stacked, dims["c"])
+                runner = _Runner(base, stacked, dims["c"], keep=keep)
             else:
                 runner.load(stacked)
             out = runner.run(graph=graph, sync_debug=sync_debug)

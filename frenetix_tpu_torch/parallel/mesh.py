@@ -179,6 +179,39 @@ def _select(res, cost=None, best=None, found=None) -> dict:
     return out
 
 
+def post_pass_selection(res, ctx, risks, *, dt, resp_weight=0.0, grid=None,
+                        phantom_mask=None, thresholds=None, occ_pm_weight=0.0,
+                        occ_um_weight=0.0, occ_ve_weight=0.0, occ_geom=None):
+    """The post-passes of one cycle over leading agent axes, in the order of
+    the sequential planner: the responsibility term (with `resp_weight` ≠ 0,
+    from the ReachSetGrid `grid`), the occlusion safety gate (with a
+    `phantom_mask` of the phantom prediction rows: candidates whose phantom
+    metrics break `thresholds` leave `selectable`) and the occ_pm / occ_um /
+    occ_ve soft costs (occ_um / occ_ve from `occ_geom` = (ego, r_vis, pts,
+    pts_valid)), then one argmin over what stays selectable, first index on
+    ties.  Returns (cost, selectable, best, found); where nothing is left
+    selectable `found` is False and `best` stays the cycle's own."""
+    cost, selectable = res.cost, res.selectable
+    if resp_weight != 0.0:
+        cost = cost + resp_weight * responsibility_reach_grid(res.rollout, grid, risks, dt)
+    if phantom_mask is not None:
+        safe = phantom_safety_mask(risks, phantom_mask, thresholds or PhantomThresholds(),
+                                   rollout=res.rollout, preds=ctx.preds, veh=ctx.veh,
+                                   dt=dt)
+        selectable = selectable & safe
+        if occ_pm_weight or occ_um_weight or occ_ve_weight:
+            ego, r_vis, pts, pts_valid = occ_geom or (None,) * 4
+            cost = cost + external_occlusion_costs(
+                res.rollout, w_pm=occ_pm_weight, w_um=occ_um_weight,
+                w_ve=occ_ve_weight, risks=risks, phantom_mask=phantom_mask, ego=ego,
+                r_vis=r_vis, occluder_pts=pts, occluder_valid=pts_valid)
+    masked = torch.where(selectable, cost, torch.full_like(cost, torch.inf))
+    found = torch.any(selectable, dim=-1)
+    best = torch.where(found, torch.argmin(masked, dim=-1),
+                       res.best_idx.long()).to(torch.int32)
+    return cost, selectable, best, found
+
+
 def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
                        resp_weight=0.0, occlusion=False, thresholds=None,
                        occ_pm_weight=0.0, occ_um_weight=0.0, occ_ve_weight=0.0,
@@ -202,9 +235,7 @@ def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
     candidates.  When none is left (the gate rejected all), `found` comes
     back False for that agent and `best` stays the cycle's own."""
     use_resp = resp_weight != 0.0
-    use_ext = bool(occ_pm_weight or occ_um_weight or occ_ve_weight)
     use_geom = occlusion and (occ_um_weight != 0.0 or occ_ve_weight != 0.0)
-    thr = thresholds or PhantomThresholds()
 
     def fn(matrices, masks, ctx, *extras):
         extras = list(extras)
@@ -219,31 +250,15 @@ def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
         if not (use_resp or occlusion):
             return _select(res)
 
-        cost, selectable = res.cost, res.selectable
         risks = trajectory_risks(
             res.rollout, ctx.preds,
             meta_from_footprint(ctx.preds.lengths, ctx.preds.widths),
             ctx.veh.mass)
-        if use_resp:
-            cost = cost + resp_weight * responsibility_reach_grid(
-                res.rollout, grid, risks, dt)
-        if occlusion:
-            # the SAME gate as the sequential planner's
-            safe = phantom_safety_mask(risks, phantom_mask, thr,
-                                       rollout=res.rollout, preds=ctx.preds,
-                                       veh=ctx.veh, dt=dt)
-            selectable = selectable & safe
-            if use_ext:
-                ego, r_vis, pts, pts_valid = occ_geom or (None,) * 4
-                cost = cost + external_occlusion_costs(
-                    res.rollout, w_pm=occ_pm_weight, w_um=occ_um_weight,
-                    w_ve=occ_ve_weight, risks=risks, phantom_mask=phantom_mask,
-                    ego=ego, r_vis=r_vis, occluder_pts=pts,
-                    occluder_valid=pts_valid)
-        masked = torch.where(selectable, cost, torch.full_like(cost, torch.inf))
-        found = torch.any(selectable, dim=-1)
-        best = torch.where(found, torch.argmin(masked, dim=-1),
-                           res.best_idx.long()).to(torch.int32)
+        cost, _, best, found = post_pass_selection(
+            res, ctx, risks, dt=dt, resp_weight=resp_weight, grid=grid,
+            phantom_mask=phantom_mask, thresholds=thresholds,
+            occ_pm_weight=occ_pm_weight, occ_um_weight=occ_um_weight,
+            occ_ve_weight=occ_ve_weight, occ_geom=occ_geom)
         return _select(res, cost, best, found)
 
     return fn

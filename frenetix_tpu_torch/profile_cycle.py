@@ -12,8 +12,12 @@ the occlusion gate and its soft costs (phantom masks, occluder geometry).
 Last the body of the device-resident run (`parallel.device_sim`): the first
 `--run-cycles` cycles of the convoy of 8 agents, as the eager loop and as the
 replayed CUDA graph, reported per cycle; then the same with the behavior
-planner, whose body adds the in-run FSM and the quintic stopping program.
-The profiler slows the
+planner, whose body adds the in-run FSM and the quintic stopping program,
+with the responsibility term 0.2, and gated (the occlusion module with occ_um
+and occ_ve, and the visible-area sensor stage).  For the two post-pass
+bodies the risk stack's collision-probability quadrature is profiled alone
+on the calls one cycle makes, and its share of the replayed body's busy time
+is printed.  The profiler slows the
 host, so the wall time it reports per call is longer than an unprofiled
 call's; device times per kernel are not affected.  Needs a CUDA device.
 """
@@ -32,7 +36,9 @@ from frenetix_tpu_torch.io.scenario_factory import make_convoy
 from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner.core import evaluate_cycle
+from frenetix_tpu_torch.risk import costs as risk_costs
 from frenetix_tpu_torch.risk.costs import trajectory_risks
+from frenetix_tpu_torch.risk.probability import collision_probability_fast
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
@@ -68,6 +74,25 @@ def profile_calls(name, fn, calls, top, card, units=1, unit="call"):
     for kernel, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"    {us / 1e3 / calls:8.4f} ms  {n / calls:6.1f}x  "
               f"{100.0 * us / 1e3 / calls / busy_ms:5.1f}%  {kernel[:90]}")
+    return busy_ms
+
+
+def _quadrature_calls(run):
+    """The arguments of every collision-probability quadrature call of one
+    eager run of `run` (a DeviceSimulation), and the calls per cycle."""
+    calls = []
+    original = risk_costs.collision_probability_fast
+
+    def recording(*args):
+        calls.append(args)
+        return original(*args)
+
+    risk_costs.collision_probability_fast = recording
+    try:
+        run.run(graph=False)
+    finally:
+        risk_costs.collision_probability_fast = original
+    return calls, len(calls) // run.n_cycles
 
 
 def main(argv=None) -> int:
@@ -139,6 +164,46 @@ def main(argv=None) -> int:
             profile_calls(f"device-resident run, convoy A=8{what}, {how}",
                           lambda: run.run(graph=graph), max(args.calls // 5, 2),
                           args.top, card, units=run.n_cycles, unit="cycle")
+
+    # the body with a post-pass: the responsibility term, and gated
+    def responsibility(config):
+        config.cost_weights["responsibility"] = 0.2
+
+    def gated(config):
+        config.occlusion.use_occlusion_module = True
+        config.occlusion.harm_threshold = 0.02
+        config.external_cost_weights["occ_um"] = 2.0
+        config.external_cost_weights["occ_ve"] = 0.5
+        config.prediction.calc_occlusions = True
+
+    for what, setup in ((", responsibility 0.2", responsibility),
+                        (", gated (occlusion module, occ_um, occ_ve, calc_occlusions)",
+                         gated)):
+        config = load_config()
+        config.dtype = "float32"
+        config.simulation.start_multiagent = True
+        setup(config)
+        sim = Simulation(make_convoy(), config, dev)
+        sim.max_steps = args.run_cycles * config.planning.replanning_frequency
+        run = DeviceSimulation(sim)
+        busy = {}
+        for graph, how in ((False, "eager"), (True, "replayed CUDA graph")):
+            busy[graph] = profile_calls(
+                f"device-resident run, convoy A=8{what}, {how}",
+                lambda: run.run(graph=graph), max(args.calls // 5, 2), args.top, card,
+                units=run.n_cycles, unit="cycle")
+        calls, per_cycle = _quadrature_calls(run)
+        first = calls[:per_cycle]
+        rows = first[0][1].means.shape[-3]
+        quad = profile_calls(
+            f"collision-probability quadrature of one cycle{what} ({per_cycle} calls, "
+            f"{rows} obstacle rows, window slots kept {len(run._runner.keep)} of "
+            f"{config.prediction.max_obstacles})",
+            lambda: [collision_probability_fast(*a) for a in first], args.calls,
+            args.top, card, unit="cycle")
+        print(f"[profile] quadrature share of the replayed body{what}: "
+              f"{quad / busy[True]:.2f} ({quad:.3f} of {busy[True]:.3f} ms busy per "
+              f"cycle) [{card}]")
     return 0
 
 

@@ -280,7 +280,10 @@ def ref_speed_harm(delta_v, angle, coeffs=DEFAULT_HARM_COEFFS, *,
                              c["rear"], right, c["right_side"])
     else:
         c = rs["complete_angle_areas"]
-        sp = torch.tensor(c["speeds"], dtype=delta_v.dtype, device=delta_v.device)
+        # one fill per speed, not a host list: no host→device copy
+        sp = torch.empty(len(c["speeds"]), dtype=delta_v.dtype, device=delta_v.device)
+        for i, speed in enumerate(c["speeds"]):
+            sp[i:i + 1].fill_(speed)
         idx = torch.clamp(
             torch.floor((angle_range(angle) + math.pi + math.pi / 12)
                         / (math.pi / 6)),

@@ -436,18 +436,22 @@ def _reach_grids_device(pos, th, v, length, width, valid, lane: LaneletTensors,
     cells_world = unit[None] * cell_o[:, None, None] + pos[:, None]  # (B, P, 2)
 
     # ---- start lanelets of each obstacle, (B, L) ---------------------------
-    a = lane.rings                                                   # (L, E, 2)
-    b = torch.roll(lane.rings, -1, dims=1)
-    ax, ay, bx, by = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    # one lanelet set for all rows, (L, E, 2), or one per row, (B, L, E, 2)
+    per_row = lane.rings.dim() == 4
+    a = lane.rings
+    b = torch.roll(lane.rings, -1, dims=-2)
+    ax, ay, bx, by = (x if per_row else x[None]
+                      for x in (a[..., 0], a[..., 1], b[..., 0], b[..., 1]))
     start = _crossings_odd(pos[:, 0, None, None], pos[:, 1, None, None],
-                           ax[None], ay[None], bx[None], by[None]) & lane.ring_valid
+                           ax, ay, bx, by) & lane.ring_valid
     any_start = torch.any(start, dim=1)                              # (B,)
-    closure_lanes = torch.any(lane.closure[None] & start[:, :, None], dim=1)  # (B, L)
+    closure = lane.closure if per_row else lane.closure[None]
+    closure_lanes = torch.any(closure & start[:, :, None], dim=1)    # (B, L)
 
     # ---- cell membership in the closure union, (B, P) ----------------------
     in_ring = _crossings_odd(
         cells_world[:, :, 0, None, None], cells_world[:, :, 1, None, None],
-        ax[None, None], ay[None, None], bx[None, None], by[None, None])  # (B, P, L)
+        ax[:, None], ay[:, None], bx[:, None], by[:, None])           # (B, P, L)
     in_lane = torch.any(in_ring & closure_lanes[:, None, :], dim=2)
     in_lane = torch.where(any_start[:, None], in_lane, torch.ones_like(in_lane))
 
@@ -499,19 +503,24 @@ def build_reach_set_grids_device(
     """`build_reach_set_grids` on the device, in torch: for obstacle poses
     that live there (peer agents of a device-resident simulation).  Inputs
     are (O, ...) tensors on the device of `lane`
-    (`lanelet_tensors(scenario, device=...)`).  The obstacles are walked in
-    chunks so that the (chunk, cells, lanelets, vertices) crossing tensor
-    stays bounded; the chunking changes no value."""
+    (`lanelet_tensors(scenario, device=...)`), or one lanelet set per row:
+    LaneletTensors leaves with a leading (O,) axis (the rows of a fleet's
+    members, each on its own map).  The obstacles are walked in chunks so
+    that the (chunk, cells, lanelets, vertices) crossing tensor stays
+    bounded; the chunking changes no value."""
     t_steps = _reach_steps(dt_rs, t_max)
     o = positions.shape[0]
-    l_n, e_n = lane.rings.shape[0], lane.rings.shape[1]
+    per_row = lane.rings.dim() == 4
+    l_n, e_n = lane.rings.shape[-3], lane.rings.shape[-2]
     chunk = max(1, _MAX_CROSSING_ELEMENTS // (grid_n * grid_n * l_n * e_n))
     occs, cells = [], []
     for lo in range(0, o, chunk):
         sl = slice(lo, lo + chunk)
         occ, cell_o = _reach_grids_device(
             positions[sl], orientations[sl], velocities[sl], lengths[sl],
-            widths[sl], valid[sl], lane, dt_rs=dt_rs, t_max=t_max, a_max=a_max,
+            widths[sl], valid[sl],
+            LaneletTensors(*(x[sl] for x in lane)) if per_row else lane,
+            dt_rs=dt_rs, t_max=t_max, a_max=a_max,
             grid_n=grid_n, cell=cell, t_steps=t_steps)
         occs.append(occ)
         cells.append(cell_o)

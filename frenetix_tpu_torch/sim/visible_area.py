@@ -109,26 +109,30 @@ def polar_visibility(ego_pos, segments, radius, n_rays: int = 720):
 
 
 def obb_segments_batch(centers, thetas, half_dims):
-    """Torch twin of `obstacle_obb_segments` over a batch: centers (B, 2),
-    orientations (B,), half-dims (B, 2) or (2,) → (B, 4, 2, 2) edge segments
-    on the centers' device."""
-    half = torch.as_tensor(half_dims, dtype=centers.dtype,
-                           device=centers.device).expand(centers.shape)  # (B, 2)
+    """Torch twin of `obstacle_obb_segments` over a batch: centers (..., 2),
+    orientations (...), half-dims (..., 2) or (2,) → (..., 4, 2, 2) edge
+    segments on the centers' device."""
+    dtype, device = centers.dtype, centers.device
+    half = torch.as_tensor(half_dims, dtype=dtype, device=device).expand(centers.shape)
     c, s = torch.cos(thetas), torch.sin(thetas)
-    signs = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, -1.0], [-1.0, 1.0]],
-                         dtype=centers.dtype, device=centers.device)    # (4, 2)
-    local = signs[None] * half[:, None]                                 # (B, 4, 2)
-    wx = c[:, None] * local[..., 0] - s[:, None] * local[..., 1]
-    wy = s[:, None] * local[..., 0] + c[:, None] * local[..., 1]
-    corners = centers[:, None] + torch.stack([wx, wy], dim=-1)          # (B, 4, 2)
-    nxt = torch.roll(corners, -1, dims=1)
-    return torch.stack([corners, nxt], dim=2)                           # (B, 4, 2, 2)
+    # the corner signs (+,+), (+,−), (−,−), (−,+) by fills, not a host list:
+    # no host→device copy, so a CUDA graph can capture it
+    signs = torch.ones((4, 2), dtype=dtype, device=device)
+    signs[1:3, 1] = -1.0
+    signs[2:, 0] = -1.0
+    local = signs * half[..., None, :]                                  # (..., 4, 2)
+    wx = c[..., None] * local[..., 0] - s[..., None] * local[..., 1]
+    wy = s[..., None] * local[..., 0] + c[..., None] * local[..., 1]
+    corners = centers[..., None, :] + torch.stack([wx, wy], dim=-1)     # (..., 4, 2)
+    nxt = torch.roll(corners, -1, dims=-2)
+    return torch.stack([corners, nxt], dim=-2)                          # (..., 4, 2, 2)
 
 
 def polar_visibility_batch(ego, seg_a, seg_b, seg_valid, radius,
                            n_rays: int = 720):
-    """Torch twin of `polar_visibility` for one ego over a masked segment
-    set: ego (2,), seg_a / seg_b (S, 2), seg_valid (S,) → r_vis (n_rays,).
+    """Torch twin of `polar_visibility` over a masked segment set: ego
+    (..., 2), seg_a / seg_b (..., S, 2), seg_valid (..., S), leading axes
+    broadcast → r_vis (..., n_rays).
 
     The NumPy version's distance cull only removes segments whose
     intersections the radius clamp would cut anyway, so a mask replaces the
@@ -137,19 +141,19 @@ def polar_visibility_batch(ego, seg_a, seg_b, seg_valid, radius,
     # the rays of np.linspace(-π, π, K, endpoint=False): −π + k·(2π/K)
     phi = -math.pi + torch.arange(n_rays, dtype=dtype, device=device) * (
         2.0 * math.pi / n_rays)
-    u = torch.stack([torch.cos(phi), torch.sin(phi)], dim=1)    # (K, 2)
-    d = seg_b - seg_a                                           # (S, 2)
-    ao = seg_a - ego[None]                                      # (S, 2)
-    denom = u[:, None, 0] * d[None, :, 1] - u[:, None, 1] * d[None, :, 0]
+    ux, uy = torch.cos(phi)[:, None], torch.sin(phi)[:, None]  # (K, 1)
+    d = (seg_b - seg_a)[..., None, :, :]                        # (..., 1, S, 2)
+    ao = (seg_a - ego[..., None, :])[..., None, :, :]           # (..., 1, S, 2)
+    denom = ux * d[..., 1] - uy * d[..., 0]                     # (..., K, S)
     crossing = torch.abs(denom) > 1e-12
     safe = torch.where(crossing, denom, torch.ones_like(denom))
-    t = (ao[None, :, 0] * d[None, :, 1] - ao[None, :, 1] * d[None, :, 0]) / safe
-    s = (ao[None, :, 0] * u[:, None, 1] - ao[None, :, 1] * u[:, None, 0]) / safe
-    hit = crossing & (s >= 0.0) & (s <= 1.0) & (t > 1e-9) & seg_valid[None, :]
+    t = (ao[..., 0] * d[..., 1] - ao[..., 1] * d[..., 0]) / safe
+    s = (ao[..., 0] * uy - ao[..., 1] * ux) / safe
+    hit = crossing & (s >= 0.0) & (s <= 1.0) & (t > 1e-9) & seg_valid[..., None, :]
     t = torch.where(hit, t, torch.full_like(t, torch.inf))
-    if t.shape[1] == 0:
-        return torch.full((n_rays,), float(radius), dtype=dtype, device=device)
-    return torch.clamp(torch.amin(t, dim=1), max=float(radius))
+    if t.shape[-1] == 0:
+        return torch.full(t.shape[:-1], float(radius), dtype=dtype, device=device)
+    return torch.clamp(torch.amin(t, dim=-1), max=float(radius))
 
 
 class VisibleArea:

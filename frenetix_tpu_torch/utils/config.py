@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -246,48 +247,189 @@ def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
             setattr(obj, k, v)
 
 
+# PyYAML's implicit resolvers (YAML 1.1, `yaml.resolver.Resolver`), each a
+# full match of a plain scalar
+_YAML_BOOL = re.compile(r"yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                        r"|on|On|ON|off|Off|OFF")
+_YAML_NULL = re.compile(r"~|null|Null|NULL|")
+_YAML_INT = re.compile(r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                       r"|[-+]?0x[0-9a-fA-F_]+")
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
+# forms PyYAML resolves that this reader does not build: sexagesimal ints and
+# floats, timestamps, the merge key and the value key
+_YAML_REFUSED = re.compile(r"[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+                           r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=")
+
+
+def _yaml_int(s: str) -> int:
+    """`SafeConstructor.construct_yaml_int` of a matched plain scalar."""
+    s = s.replace("_", "")
+    sign = -1 if s[0] == "-" else 1
+    if s[0] in "+-":
+        s = s[1:]
+    if s == "0":
+        return 0
+    if s.startswith("0b"):
+        return sign * int(s[2:], 2)
+    if s.startswith("0x"):
+        return sign * int(s[2:], 16)
+    if s[0] == "0":
+        return sign * int(s, 8)
+    return sign * int(s)
+
+
+def _yaml_float(s: str) -> float:
+    """`SafeConstructor.construct_yaml_float` of a matched plain scalar."""
+    s = s.replace("_", "").lower()
+    sign = -1.0 if s[0] == "-" else 1.0
+    if s[0] in "+-":
+        s = s[1:]
+    if s == ".inf":
+        return sign * float("inf")
+    if s == ".nan":
+        return float("nan")
+    return sign * float(s)
+
+
+def _yaml_quoted(s: str) -> str:
+    """A quoted scalar on one line: '' escapes a single quote; a double-quoted
+    scalar with a backslash escape is not read here."""
+    body = s[1:-1]
+    if s[0] == "'":
+        if "'" in body.replace("''", ""):
+            raise ValueError(f"unsupported YAML scalar {s!r}")
+        return body.replace("''", "'")
+    if "\\" in body or '"' in body:
+        raise ValueError(f"unsupported YAML scalar {s!r} (escapes)")
+    return body
+
+
+def _split_flow(body: str) -> list:
+    """The items of a one-line flow list, split at commas outside quotes."""
+    items, cur, quote = [], "", None
+    for ch in body:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == ",":
+            items.append(cur)
+            cur = ""
+            continue
+        cur += ch
+    return items + [cur]
+
+
 def _yaml_scalar(text: str):
-    """A plain YAML scalar: null, bool, int, float, a flow list, or a string."""
+    """One scalar as `yaml.safe_load` resolves it: a quoted string, a flow
+    list of scalars, or a plain scalar through PyYAML's resolvers (null,
+    bool, int, float, else a string).  A form this reader does not build
+    raises ValueError, so it never returns a string where PyYAML would
+    return something else."""
     s = text.strip()
-    if s.startswith("[") and s.endswith("]"):
-        return [_yaml_scalar(x) for x in s[1:-1].split(",") if x.strip()]
-    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
-        return s[1:-1]
-    low = s.lower()
-    if low in ("", "~", "null", "none"):
+    if s[:1] == "[":
+        body = s[1:-1].strip() if s.endswith("]") else None
+        if body is None or any(c in body for c in "[]{}"):
+            raise ValueError(f"unsupported YAML flow collection {s!r}")
+        if not body:
+            return []
+        items = _split_flow(body)
+        if items[-1].strip() == "":        # a trailing comma
+            items.pop()
+        if any(not x.strip() for x in items):
+            raise ValueError(f"unsupported YAML flow list {s!r}")
+        return [_yaml_scalar(x) for x in items]
+    if s[:1] in ("'", '"'):
+        if len(s) < 2 or s[-1] != s[0]:
+            raise ValueError(f"unsupported YAML scalar {s!r}")
+        return _yaml_quoted(s)
+    if (s[:1] in tuple("{]}&*!|>%@`,?:#") or s[:2] == "- " or s == "-"
+            or ": " in s or " #" in s or s.endswith(":")):
+        raise ValueError(f"unsupported YAML scalar {s!r}")
+    if _YAML_NULL.fullmatch(s):
         return None
-    if low in ("true", "false"):
-        return low == "true"
-    for conv in (int, float):
-        try:
-            return conv(s)
-        except ValueError:
-            pass
+    if _YAML_BOOL.fullmatch(s):
+        return s.lower() in ("yes", "true", "on")
+    if _YAML_INT.fullmatch(s):
+        return _yaml_int(s)
+    if _YAML_FLOAT.fullmatch(s):
+        return _yaml_float(s)
+    if _YAML_REFUSED.fullmatch(s):
+        raise ValueError(f"unsupported YAML scalar {s!r} (PyYAML reads it as "
+                         "a sexagesimal number, a timestamp or a special key)")
     return s
+
+
+def _strip_comment(line: str) -> str:
+    """`line` without its comment: a # at the start or after white space,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _key_split(line: str):
+    """(key, value) at the first ': ' (or a final ':') outside quotes, or
+    None."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == ":" and (i + 1 == len(line) or line[i + 1] == " "):
+            return line[:i], line[i + 1:]
+    return None
 
 
 def simple_yaml_load(text: str) -> dict:
     """The YAML subset of the configuration files, for machines without
     PyYAML: nested block mappings by indentation, `key: scalar` lines, flow
-    lists and comments.  Anything else raises ValueError."""
+    lists of scalars and comments.  Scalars resolve as `yaml.safe_load`
+    resolves them (`_yaml_scalar`); a key with nothing after it and no
+    deeper lines is null.  Anything else raises ValueError."""
     root: dict = {}
-    stack = [(-1, root)]                 # (indent, mapping)
+    stack = [(-1, root, None, None)]     # (indent, mapping, parent, key)
+
+    def pop():
+        _, mapping, parent, key = stack.pop()
+        if parent is not None and not mapping:
+            parent[key] = None           # `key:` with no deeper lines
+
     for lineno, raw in enumerate(text.splitlines(), 1):
-        line = raw.split(" #")[0].rstrip() if not raw.lstrip().startswith("#") else ""
-        if not line.strip() or line.strip() == "---":
+        if "\t" in raw:
+            raise ValueError(f"unsupported YAML at line {lineno} (a tab): {raw!r}")
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
             continue
+        if line.strip() == "---" and not root:
+            continue                     # the start of the one document
         indent = len(line) - len(line.lstrip(" "))
-        key, sep, value = line.strip().partition(":")
-        if not sep or key.startswith("- "):
+        parts = _key_split(line.strip())
+        if parts is None:
             raise ValueError(f"unsupported YAML at line {lineno}: {raw!r}")
+        key = _yaml_scalar(parts[0]) if parts[0] else None
+        if not isinstance(key, str):
+            raise ValueError(f"unsupported YAML key at line {lineno}: {raw!r}")
         while indent <= stack[-1][0]:
-            stack.pop()
+            pop()
         parent = stack[-1][1]
-        if value.strip():
-            parent[key.strip()] = _yaml_scalar(value)
+        value = parts[1].strip()
+        if value:
+            parent[key] = _yaml_scalar(value)
         else:
-            parent[key.strip()] = {}
-            stack.append((indent, parent[key.strip()]))
+            parent[key] = {}
+            stack.append((indent, parent[key], parent, key))
+    while len(stack) > 1:
+        pop()
     return root
 
 

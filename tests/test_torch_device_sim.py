@@ -418,15 +418,30 @@ def test_low_velocity_start_takes_the_lo_kinematics_merge():
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    (("cost_weights", "responsibility"), 0.5, "6b"),
-    (("prediction", "calc_occlusions"), True, "6b"),
-    (("occlusion", "use_occlusion_module"), True, "6b"),
-    (("behavior", "use_behavior_planner"), True, "6b"),
     (("prediction", "mode"), "walenet", "slice 5"),
+    (("occlusion", "use_occlusion_module"), True, "host-loop only"),
 ])
 def test_options_of_later_slices_raise_in_the_device_run(field, value, slice_name):
-    """A behavior run with the responsibility term still raises for the
-    term (slice 6b): the behavior planner itself runs in the device run."""
+    """Wale-Net predictions (slice 5) raise; with the occlusion module as
+    well they raise as in the JAX package (its device run threads no host
+    phantom geometry)."""
+    sim = Simulation(tfactory.make_highway(n_steps=30), _tcfg(), CPU)
+    sim.config.prediction.mode = "walenet"
+    section, name = field
+    setattr(getattr(sim.config, section), name, value)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        tds.DeviceSimulation(sim)
+
+
+@pytest.mark.parametrize("field,value,flag", [
+    (("cost_weights", "responsibility"), 0.5, "resp_weight"),
+    (("prediction", "calc_occlusions"), True, "use_vis_occl"),
+    (("occlusion", "use_occlusion_module"), True, "use_occlusion"),
+    (("behavior", "use_behavior_planner"), True, "resp_weight"),
+])
+def test_post_pass_options_construct_in_the_device_run(field, value, flag):
+    """The options of slice 6b build their device run (they raised before
+    it); a behavior run takes the responsibility term along."""
     sim = Simulation(tfactory.make_highway(n_steps=30), _tcfg(), CPU)
     if field[0] == "behavior":
         sim.config.cost_weights["responsibility"] = 0.5
@@ -435,8 +450,9 @@ def test_options_of_later_slices_raise_in_the_device_run(field, value, slice_nam
         sim.config.cost_weights[name] = value
     else:
         setattr(getattr(sim.config, section), name, value)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tds.DeviceSimulation(sim)
+    ds = tds.DeviceSimulation(sim)
+    assert getattr(ds, flag)
+    assert ds.need_risks == (flag != "use_vis_occl")
 
 
 def test_a_mesh_raises_in_the_device_run():
@@ -466,9 +482,14 @@ def test_those_options_still_run_on_the_host_path(override):
     sim.max_steps = 6
     res = sim.run()
     assert res.steps == 6
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        cfg.simulation.device_resident_sim = True
-        Simulation(tfactory.make_highway(n_steps=30), cfg, CPU).run()
+    # and in the device-resident run (slice 6b), to the same end
+    cfg.simulation.device_resident_sim = True
+    dsim = Simulation(tfactory.make_highway(n_steps=30), cfg, CPU)
+    dsim.max_steps = 6
+    dres = dsim.run()
+    assert dres.steps == 6 and dres.agent_status == res.agent_status
+    np.testing.assert_allclose(dres.histories[60000][-1].position,
+                               res.histories[60000][-1].position, atol=ATOL)
 
 
 def test_device_run_defaults_to_the_card_and_raises_without_one():

@@ -147,3 +147,78 @@ def coarse_sampling(cfg):
     stack on one CPU thread is slow."""
     cfg.planning.sampling_min, cfg.planning.sampling_max = 1, 2
     return cfg
+
+
+# ------------------------------------------------- post-passes in the device run
+
+
+def blind_spot(factory, commonroad, truck_x=60.0, n_steps=150):
+    """The highway with a parked truck beside the lane at `truck_x`: a blind
+    spot for the occlusion module and the visible-area stage."""
+    sc = factory.make_highway(ego_v=13.0, lead_v=13.0, lead_gap=120.0, n_steps=n_steps)
+    sc.obstacles[200] = commonroad.Obstacle(
+        obstacle_id=200, obstacle_type="truck", role="static", length=9.0, width=2.5,
+        initial_state=commonroad.State(0, np.array([truck_x, 2.6]), 0.0, 0.0))
+    return sc
+
+
+def post_pass_config(make, *, resp=0.0, module=False, soft=True, vis=False,
+                     max_obstacles=4, multi=True):
+    """A float64 config at level-1 sampling with the requested post-passes:
+    the responsibility weight `resp`, the occlusion module (harm threshold
+    0.02, with `soft` the occ_um 2.0 / occ_ve 0.5 terms), the visible-area
+    stage `vis`."""
+    cfg = coarse_sampling(make(dtype="float64"))
+    cfg.simulation.start_multiagent = multi
+    cfg.prediction.max_obstacles = max_obstacles
+    cfg.cost_weights["responsibility"] = resp
+    cfg.prediction.calc_occlusions = vis
+    if module:
+        cfg.occlusion.use_occlusion_module = True
+        cfg.occlusion.harm_threshold = 0.02
+        if soft:
+            cfg.external_cost_weights["occ_um"] = 2.0
+            cfg.external_cost_weights["occ_ve"] = 0.5
+    return cfg
+
+
+def device_and_host(make, cfg, steps):
+    """(DeviceSimulation, its result, the host sequential Simulation, its
+    result) of the port, both cut to `steps` steps; the run fetches once."""
+    from frenetix_tpu_torch.parallel import device_sim as tds
+    from frenetix_tpu_torch.sim.simulation import Simulation
+
+    sim = Simulation(make(), cfg, CPU)
+    sim.max_steps = steps
+    ds = tds.DeviceSimulation(sim)
+    fetches = tds.FETCHES
+    dres = ds.run()
+    assert tds.FETCHES == fetches + 1, "one fetch per run"
+    host = Simulation(make(), cfg, CPU)
+    host.max_steps = steps
+    return ds, dres, host, host.run()
+
+
+def assert_run_equals_host(dres, hres, atol=1e-9):
+    """A device run against a host run: statuses and steps equal, executed
+    positions and velocities within `atol`."""
+    assert dres.steps == hres.steps
+    assert [int(s) for s in dres.status] == [int(hres.agent_status[a])
+                                            for a in dres.agent_ids]
+    for col, aid in enumerate(dres.agent_ids):
+        hist = hres.histories[aid]
+        pos = np.array([s.position for s in hist[1:]])
+        vel = np.array([s.velocity for s in hist[1:]])
+        assert len(pos) > 0
+        np.testing.assert_allclose(dres.trajectories[:len(pos), col, :2], pos,
+                                   rtol=0, atol=atol, err_msg=f"agent {aid}")
+        np.testing.assert_allclose(dres.trajectories[:len(vel), col, 3], vel,
+                                   rtol=0, atol=atol, err_msg=f"agent {aid}")
+
+
+def assert_equal_runs(a, b, what, atol=1e-9):
+    """Two device runs: statuses and steps equal, trajectories within atol."""
+    assert [int(s) for s in a.status] == [int(s) for s in b.status], what
+    assert a.steps == b.steps, what
+    np.testing.assert_allclose(a.trajectories[:a.steps], b.trajectories[:b.steps],
+                               rtol=0, atol=atol, err_msg=what)
