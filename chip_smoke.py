@@ -99,7 +99,28 @@ Phases, each printed on lines of its own:
    `workloads.device_fleet(3)`), every member against its solo run;
    (e) the window slots the run keeps of the nominal 16, per family.
 
-Each path (phases 4 to 14) is driven with K1's launch count set to 0 just
+15. the command line on the card (`run_scenario.main` in this process, into
+   fresh temporary directories; SQLite must have STRICT tables, >= 3.37):
+   (a) `highway --evaluate`: exit 0, score_overview.csv, simulation.db with
+   its five tables, the agent's trajectories.db and logs.csv, the solution
+   XML, no log_failures.csv; against the same call with `--device cpu --set
+   dtype=float64`: the same tables and row counts, equal statuses and steps,
+   executed positions within 1e-4 m, the same metric columns;
+   (b) `convoy --multiagent --batched-agents --evaluate`: results rows and a
+   solution XML for all 8 agents;
+   (c) `highway --multiagent --device-sim --evaluate` and (d) `highway
+   overtake --device-fleet --evaluate`: one fetch per run, K1 launches =
+   programs x cycles (recorded x replays), the log set of the JAX package's
+   device path (meta and evaluation rows, no per-step or results rows) and
+   none for the fleet, as the JAX package's fleet;
+   (e) `--set vehicle.cr_vehicle_id=2 --set planning.replanning_frequency=1`:
+   the BMW 320i parameters, one cycle per step;
+   (f) the highway's wall per cycle with the logs and with `--no-logging`,
+   two runs each, and the evaluation's seconds per scenario.
+   The logger of the first `main` in a process is kept: later calls write to
+   its messages.log.
+
+Each path (phases 4 to 15) is driven with K1's launch count set to 0 just
 before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -108,9 +129,15 @@ no process that outlives it (nvcc and nvidia-smi run to completion).
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
+import math
+import os
+import sqlite3
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,10 +154,13 @@ from frenetix_tpu_torch.planner.core import evaluate_cycle
 from frenetix_tpu_torch.risk import reachable_set
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
+from frenetix_tpu_torch import run_scenario
+from frenetix_tpu_torch.ops.vehicle_db import resolve_vehicle
 from frenetix_tpu_torch.run_scenario import run_scenarios
 from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
+from frenetix_tpu_torch.utils.sim_logging import require_strict_tables
 from frenetix_tpu_torch.workloads import (
     dense_cycle_problem, device_fleet, stacked_cycle_problem, stacked_post_pass_extras,
 )
@@ -1265,6 +1295,255 @@ def phase_device_post(dev, smi, launches, host_resp, host_occ):
                   f"{k} {v}" for k, v in kept.items()) + f" [{smi}]")
 
 
+SIM_TABLES = ["batch_performance_measure", "global_performance_measure", "meta",
+              "results", "scenario_evaluation"]
+
+
+class _CliSpy:
+    """What `run_scenario.main` did inside: the config and result of every
+    `run_one`, the seconds of every `evaluate_simulation`, and the result of
+    every device run and fleet.  Wraps the module attributes while active."""
+
+    def __init__(self):
+        self.runs, self.eval_s, self.device_runs = [], [], []
+
+    @contextlib.contextmanager
+    def active(self):
+        real = (run_scenario.run_one, run_scenario.evaluate_simulation,
+                device_sim.DeviceSimulation.run, device_sim.run_fleet)
+
+        def run_one(target, config, *args, **kw):
+            res = real[0](target, config, *args, **kw)
+            self.runs.append((config, res))
+            return res
+
+        def evaluate(*args, **kw):
+            t0 = time.perf_counter()
+            out = real[1](*args, **kw)
+            self.eval_s.append(time.perf_counter() - t0)
+            return out
+
+        def ds_run(ds, *args, **kw):
+            dres = real[2](ds, *args, **kw)
+            self.device_runs.append(([ds], [dres]))
+            return dres
+
+        def fleet(sims, *args, **kw):
+            results = real[3](sims, *args, **kw)
+            self.device_runs.append((list(sims), results))
+            return results
+
+        run_scenario.run_one, run_scenario.evaluate_simulation = run_one, evaluate
+        device_sim.DeviceSimulation.run, device_sim.run_fleet = ds_run, fleet
+        try:
+            yield self
+        finally:
+            (run_scenario.run_one, run_scenario.evaluate_simulation,
+             device_sim.DeviceSimulation.run, device_sim.run_fleet) = real
+
+
+def _db(path):
+    """{table: rows} of a SQLite file."""
+    check(os.path.exists(path), f"{path} missing")
+    con = sqlite3.connect(path)
+    tables = [r[0] for r in con.execute(
+        "SELECT name FROM sqlite_master WHERE type='table' ORDER BY name")]
+    out = {t: con.execute(f"SELECT * FROM {t}").fetchall() for t in tables}
+    out["_columns"] = {t: [c[1] for c in con.execute(f"PRAGMA table_info({t})")]
+                       for t in tables}
+    con.close()
+    return out
+
+
+def _cli(argv, what):
+    rc = run_scenario.main(argv)
+    check(rc == 0, f"{what}: run_scenario.main({argv}) exited {rc}")
+
+
+def _cli_device_path(spy, what, launches, n_scenarios):
+    """Checks of a device run or fleet driven through the CLI: one fetch,
+    K1 launches = programs x cycles; returns the launches."""
+    check(len(spy.device_runs) == 1, f"{what}: {len(spy.device_runs)} device runs")
+    sims, results = spy.device_runs[0]
+    check(len(results) == n_scenarios, f"{what}: {len(results)} results")
+    k1 = results[0].extras["k1_launches"]
+    programs = 2 * len(sims[0].levels)
+    cycles = max(s.n_cycles for s in sims)
+    check(k1 == programs * cycles,
+          f"{what}: {k1} K1 launches, expected {programs} programs x {cycles} cycles")
+    launches.stop(what, replayed=k1)
+    return k1, programs, cycles
+
+
+def phase_cli(dev, smi, launches):
+    require_strict_tables()
+    phase(15, f"SQLite {sqlite3.sqlite_version} (STRICT tables need 3.37)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        d = {k: os.path.join(root, k) for k in ("a", "a64", "b", "c", "d", "e", "f")}
+
+        # (a) the highway with evaluation, on the card and in f64 on the CPU
+        spy = _CliSpy()
+        with spy.active():
+            launches.start()
+            _cli(["highway", "--evaluate", "--logs", d["a"], "--device", "cuda"], "(a)")
+            n_a = launches.stop("cli highway --evaluate")
+            _cli(["highway", "--evaluate", "--logs", d["a64"], "--device", "cpu",
+                  "--set", "dtype=float64"], "(a) cpu f64")
+        (cfg_a, res_a), (_, res_64) = spy.runs
+        eval_a = spy.eval_s[0]
+        check(res_a.success, f"(a): {res_a.agent_status}")
+        hw = os.path.join(d["a"], "highway")
+        for rel in ("60000/trajectories.db", "60000/logs.csv", "solution_60000.xml"):
+            check(os.path.exists(os.path.join(hw, rel)), f"(a): {rel} missing")
+        check(os.path.exists(os.path.join(d["a"], "score_overview.csv")),
+              "(a): score_overview.csv missing")
+        check(not os.path.exists(os.path.join(d["a"], "log_failures.csv")),
+              "(a): log_failures.csv written")
+        logger = logging.getLogger("frenetix_tpu_torch")
+        (fh,) = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
+        fh.flush()
+        with open(fh.baseFilename) as f:
+            check("solution written" in f.read(), "(a): messages.log lacks the run")
+        counts = {}
+        for run, base in (("card", d["a"]), ("cpu", d["a64"])):
+            sim_db = _db(os.path.join(base, "highway", "simulation.db"))
+            traj_db = _db(os.path.join(base, "highway", "60000", "trajectories.db"))
+            check(sorted(t for t in sim_db if t != "_columns") == SIM_TABLES,
+                  f"(a) {run}: simulation.db tables {sorted(sim_db)}")
+            counts[run] = ({t: len(r) for t, r in sim_db.items() if t != "_columns"},
+                           {t: len(r) for t, r in traj_db.items() if t != "_columns"},
+                           sim_db["_columns"]["scenario_evaluation"])
+        check(counts["card"] == counts["cpu"],
+              f"(a): row counts card {counts['card'][:2]} vs cpu f64 {counts['cpu'][:2]}")
+        check(res_a.agent_status == res_64.agent_status and res_a.steps == res_64.steps,
+              f"(a): card {res_a.agent_status} {res_a.steps} steps vs cpu f64 "
+              f"{res_64.agent_status} {res_64.steps}")
+        a = np.array([s.position for s in res_a.histories[60000]], np.float64)
+        b = np.array([s.position for s in res_64.histories[60000]], np.float64)
+        gap = float(np.abs(a - b).max())
+        check(gap <= POS_TOL, f"(a): card positions {gap} m from cpu f64")
+        n_cycles_a = len(res_a.planning_times)
+        phase(15, f"(a) highway --evaluate on the card: success, {res_a.steps} steps, "
+                  f"{n_cycles_a} cycles, K1 launches {n_a}, wall {res_a.wall_time:.3f} s "
+                  f"= {1e3 * res_a.wall_time / n_cycles_a:.3f} ms per cycle with the logs, "
+                  f"evaluation {eval_a:.3f} s; simulation.db rows {counts['card'][0]}, "
+                  f"trajectories.db rows {counts['card'][1]}, "
+                  f"{len(counts['card'][2]) - 4} metric columns: tables, row counts, "
+                  f"statuses and steps equal the cpu f64 run, positions within "
+                  f"{gap:.3e} m (limit {POS_TOL}) [{smi}]")
+
+        # (b) the convoy, 8 agents, batched on the card
+        spy = _CliSpy()
+        with spy.active():
+            launches.start()
+            _cli(["convoy", "--multiagent", "--batched-agents", "--evaluate",
+                  "--logs", d["b"]], "(b)")
+            n_b = launches.stop("cli convoy --multiagent --batched-agents --evaluate")
+        (_, res_b), = spy.runs
+        conv = os.path.join(d["b"], "convoy")
+        results_b = _db(os.path.join(conv, "simulation.db"))["results"]
+        xmls = sorted(f for f in os.listdir(conv) if f.startswith("solution_"))
+        ok_b = sum(s == 2 for s in (r[3] for r in results_b))
+        check(len(results_b) == 8 and ok_b == 8 and len(xmls) == 8,
+              f"(b): {len(results_b)} results rows, {ok_b} successes, {len(xmls)} XMLs")
+        phase(15, f"(b) convoy --multiagent --batched-agents --evaluate on the card: "
+                  f"results rows for 8 agents, 8 solution XMLs, {res_b.steps} steps, "
+                  f"K1 launches {n_b}, wall {res_b.wall_time:.3f} s, evaluation "
+                  f"{spy.eval_s[0]:.3f} s [{smi}]")
+
+        # (c) the two-agent highway as one device run
+        spy = _CliSpy()
+        fetches = device_sim.FETCHES
+        with spy.active():
+            launches.start()
+            _cli(["highway", "--multiagent", "--device-sim", "--evaluate",
+                  "--logs", d["c"]], "(c)")
+        check(device_sim.FETCHES == fetches + 1, "(c): a device run fetches once")
+        k1_c, programs, cycles = _cli_device_path(
+            spy, "cli highway --multiagent --device-sim --evaluate, replayed", launches, 1)
+        (_, res_c), = spy.runs
+        c_db = _db(os.path.join(d["c"], "highway", "simulation.db"))
+        n_states = sum(len(h) for h in res_c.histories.values())
+        check(len(c_db["meta"]) == 1 and len(c_db["scenario_evaluation"]) == n_states
+              and not c_db["results"] and not c_db["global_performance_measure"]
+              and not c_db["batch_performance_measure"],
+              f"(c): simulation.db rows {({t: len(r) for t, r in c_db.items()})}")
+        check(res_c.success and len([f for f in os.listdir(os.path.join(d["c"], "highway"))
+                                     if f.startswith("solution_")]) == 2,
+              f"(c): {res_c.agent_status}")
+        phase(15, f"(c) highway --multiagent --device-sim --evaluate on the card: 2 "
+                  f"agents at their goal, 1 fetch, K1 launches {k1_c} = {programs} x "
+                  f"{cycles} cycles, replayed run {res_c.wall_time:.3f} s, evaluation "
+                  f"{spy.eval_s[0]:.3f} s; simulation.db: meta 1, scenario_evaluation "
+                  f"{n_states}, results / timing rows 0 (the device path's log set) "
+                  f"[{smi}]")
+
+        # (d) a fleet of two through the CLI
+        spy = _CliSpy()
+        fetches = device_sim.FETCHES
+        with spy.active():
+            launches.start()
+            _cli(["highway", "overtake", "--device-fleet", "--evaluate",
+                  "--logs", d["d"]], "(d)")
+        check(device_sim.FETCHES == fetches + 1, "(d): a fleet run fetches once")
+        k1_d, programs, cycles = _cli_device_path(
+            spy, "cli highway overtake --device-fleet --evaluate, replayed", launches, 2)
+        with open(os.path.join(d["d"], "score_overview.csv")) as f:
+            n_rows = len(f.read().splitlines()) - 1
+        check(n_rows == 2 and len(spy.eval_s) == 2
+              and not os.path.exists(os.path.join(d["d"], "highway")),
+              f"(d): {n_rows} score rows, {len(spy.eval_s)} evaluations")
+        fleet_wall = spy.device_runs[0][1][0].wall_time
+        phase(15, f"(d) highway overtake --device-fleet --evaluate on the card: 1 "
+                  f"fetch, K1 launches {k1_d} = {programs} x {cycles} cycles, fleet "
+                  f"wall {fleet_wall:.3f} s, evaluation "
+                  f"{float(np.mean(spy.eval_s)):.3f} s per scenario; score rows 2, no "
+                  f"per-scenario logs (as the JAX package's fleet) [{smi}]")
+
+        # (e) --set: the vehicle database and the replanning frequency
+        spy = _CliSpy()
+        with spy.active():
+            launches.start()
+            _cli(["highway", "--logs", d["e"], "--set", "vehicle.cr_vehicle_id=2",
+                  "--set", "planning.replanning_frequency=1"], "(e)")
+            n_e = launches.stop("cli highway --set cr_vehicle_id=2, replanning 1")
+        (cfg_e, res_e), = spy.runs
+        check(tuple(cfg_e.vehicle) == tuple(resolve_vehicle(2))
+              and cfg_e.vehicle.mass == 1093.295 and cfg_e.vehicle.delta_max == 1.066,
+              f"(e): vehicle {cfg_e.vehicle}")
+        with open(os.path.join(d["e"], "highway", "60000", "logs.csv")) as f:
+            rows_e = len(f.read().splitlines()) - 1
+        n_e_cycles = len(res_e.planning_times)
+        executed = len(res_e.histories[60000]) - 1
+        check(rows_e == n_e_cycles == executed
+              and n_cycles_a == math.ceil((len(res_a.histories[60000]) - 1) / 3),
+              f"(e): {rows_e} logged cycles, {n_e_cycles} planned, {executed} executed "
+              f"steps; (a): {n_cycles_a} cycles")
+        phase(15, f"(e) --set vehicle.cr_vehicle_id=2: mass {cfg_e.vehicle.mass} kg, "
+                  f"delta_max {cfg_e.vehicle.delta_max} rad (BMW 320i); --set "
+                  f"planning.replanning_frequency=1: {n_e_cycles} cycles for "
+                  f"{executed} steps against {n_cycles_a} at 3; success "
+                  f"{res_e.success}, K1 launches {n_e} [{smi}]")
+
+        # (f) the cost of the logs: the highway with and without them
+        spy = _CliSpy()
+        with spy.active():
+            launches.start()
+            for i in range(2):
+                _cli(["highway", "--logs", os.path.join(d["f"], f"on{i}")], "(f) logs")
+                _cli(["highway", "--no-logging", "--logs", os.path.join(d["f"], f"off{i}")],
+                     "(f) --no-logging")
+            launches.stop("cli highway with and without the logs")
+        per_cycle = [1e3 * r.wall_time / len(r.planning_times) for _, r in spy.runs]
+        on, off = per_cycle[0::2], per_cycle[1::2]
+        check(not os.path.exists(os.path.join(d["f"], "off0", "highway")),
+              "(f): --no-logging wrote per-scenario logs")
+        phase(15, f"(f) highway wall per cycle on the card: with the logs "
+                  f"{on[0]:.3f} / {on[1]:.3f} ms, --no-logging {off[0]:.3f} / "
+                  f"{off[1]:.3f} ms ({len(spy.runs[0][1].planning_times)} cycles each) "
+                  f"[{smi}]")
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -1281,6 +1560,7 @@ def main() -> int:
     phase_fleet(dev, smi, launches)
     phase_behavior(dev, smi, launches)
     phase_device_post(dev, smi, launches, host_resp, host_occ)
+    phase_cli(dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

@@ -230,6 +230,7 @@ class ReactivePlanner:
         self.gate_stats = {"levels": 0, "changed": 0, "rejected_all": 0}
         self.current_velocity = 0.0
         self.infeasible_histogram = np.zeros(11, int)
+        self.last_cycle = None  # (CycleResult, matrix, mask) with save_all_traj
         self.stats = {}
 
     def _tensor(self, a, dtype=None):
@@ -406,6 +407,9 @@ class ReactivePlanner:
         h = int(last_res.histogram.shape[0])
         header = last_pack[0]
         self.infeasible_histogram = header[5:5 + h].astype(np.int64)
+        if self.config.debug.save_all_traj:
+            # kept on the device; the trajectory logger copies it once
+            self.last_cycle = (last_res, last_matrix, last_mask)
         self.stats = {
             "feasible": int(header[2]),
             "total": int(last_mask.sum()),

@@ -1,18 +1,23 @@
 """Agent: one planning vehicle's lifecycle in the simulation.
 
-PyTorch port of `frenetix_tpu/sim/agent.py` with the default planner
-interface (`frenetix_tpu/sim/planner_interfaces.py::FrenetPlannerInterface`)
-folded in: per step collision → goal check → replan every k-th step (or when
-no plan exists) → execute the next planned state.  The planner is the port's
-`ReactivePlanner` on the agent's device.  With a responsibility weight the
-agent rasterizes the obstacles' reach-set grids before each replan; with
+PyTorch port of `frenetix_tpu/sim/agent.py`: per step collision → goal
+check → replan every k-th step (or when no plan exists) → execute the next
+planned state.  The replan goes through the planner interface named by
+`simulation.used_planner_interface` (`sim.planner_interfaces` registry; the
+default `FrenetPlannerInterface` drives the port's `ReactivePlanner` on the
+agent's device).  With a responsibility weight the agent rasterizes the
+obstacles' reach-set grids before each replan; with
 `occlusion.use_occlusion_module` it owns an `OcclusionModule`; with
 `behavior.use_behavior_planner` a `BehaviorModule`, which then drives the
 desired velocity, the stop point and the reference path of every replan.
+With a `log_dir` and `debug.activate_logging` the agent writes its
+trajectory logs (`utils.trajectory_logging`) and the behavior log under
+`log_dir/<agent id>`.
 """
 from __future__ import annotations
 
 import enum
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -27,7 +32,8 @@ from frenetix_tpu_torch.planner.initial_state import CartesianState, compute_ini
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, ReactivePlanner
 from frenetix_tpu_torch.planner.route import reference_path_for_problem
 from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
-from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
+from frenetix_tpu_torch.sim.planner_interfaces import get_planner_interface
+from frenetix_tpu_torch.utils.trajectory_logging import TrajectoryLogger
 
 __all__ = ["AgentStatus", "Agent", "EgoState"]
 
@@ -66,12 +72,7 @@ class AgentRecord:
 
 class Agent:
     def __init__(self, agent_id: int, planning_problem, scenario, config,
-                 device: torch.device):
-        if config.simulation.used_planner_interface != "FrenetPlannerInterface":
-            raise NotImplementedError(
-                "frenetix_tpu_torch carries only the FrenetPlannerInterface "
-                f"(got {config.simulation.used_planner_interface!r})"
-            )
+                 device: torch.device, *, msg_logger=None, log_dir=None):
         self.id = agent_id
         self.problem = planning_problem
         self.scenario = scenario
@@ -82,6 +83,8 @@ class Agent:
 
         self.planner = ReactivePlanner(config, device)
         self.veh = config.vehicle
+        self.interface = get_planner_interface(
+            config.simulation.used_planner_interface)(self)
         self.dt = config.planning.dt
         self.k_replan = max(1, config.planning.replanning_frequency)
 
@@ -91,6 +94,20 @@ class Agent:
             lanelets=list(scenario.lanelets.values())
             if config.cost_weights.get("lane_center_offset", 0) != 0 else None,
         )
+
+        self.logger = None
+        agent_log_dir = None
+        if log_dir is not None and config.debug.activate_logging:
+            agent_log_dir = os.path.join(log_dir, str(agent_id))
+            self.logger = TrajectoryLogger(
+                agent_log_dir,
+                [k for k, v in config.cost_weights.items() if v != 0],
+                config_dict={"cost_weights": config.cost_weights},
+                save_all_traj=config.debug.save_all_traj,
+                save_unweighted=config.debug.save_unweighted_costs,
+                log_risk=config.debug.log_risk,
+            )
+            self.logger.write_reference_path(self.planner.ref_np.xy)
 
         init = planning_problem.initial_state
         self.state = EgoState(
@@ -142,7 +159,7 @@ class Agent:
             self.behavior = BehaviorModule(
                 scenario, planning_problem, config,
                 reference_path=polyline, route_ids=self.route, ego_id=agent_id,
-                log_path=None)
+                msg_logger=msg_logger, log_path=agent_log_dir)
 
     # ------------------------------------------------------------------ goal
     def _goal_polygons(self, goal):
@@ -247,19 +264,8 @@ class Agent:
         self.plan_step = 0
 
     def update_planner(self, predictions, obstacle_xy, obstacle_valid):
-        """Feed one cycle's predictions, obstacles and desired velocity; with
-        a behavior module its output (velocity, stop point, reference path)."""
-        self.planner.set_predictions(predictions)
-        self.planner.set_obstacles(obstacle_xy, obstacle_valid)
-        if self.config.cost_weights.get("responsibility", 0.0) != 0.0 \
-                and predictions is not None:
-            self.planner.set_reach_grid(self.reach_grid_for(predictions))
-        if self.behavior is not None:
-            b_out = self.behavior.execute(predictions, self.state, self.state.time_step)
-            apply_behavior_output(self, b_out)
-        else:
-            self.ensure_x_cl()  # desired_velocity() projects the goal against x_cl
-            self.planner.set_desired_velocity(self.desired_velocity())
+        """Feed one cycle's inputs through the planner interface."""
+        self.interface.update_planner(predictions, obstacle_xy, obstacle_valid)
 
     def reach_grid_for(self, predictions):
         """Lanelet-following reach sets of the predicted obstacles' current
@@ -284,8 +290,8 @@ class Agent:
         if self.needs_replan():
             t0 = time.perf_counter()
             try:
-                self.update_planner(predictions, obstacle_xy, obstacle_valid)
-                plan = self.planner.plan(self._rear_axle_state(), self.ensure_x_cl())
+                self.interface.update_planner(predictions, obstacle_xy, obstacle_valid)
+                plan = self.interface.step_interface()
             except ValueError as e:
                 # the state cannot be projected onto the reference path:
                 # this agent fails, the simulation goes on
@@ -293,6 +299,18 @@ class Agent:
                 self.message = f"planner error: {e}"
                 return self.status
             self.record.planning_times.append(time.perf_counter() - t0)
+            if plan is not None and self.logger is not None:
+                self.logger.log_cycle(
+                    self.state.time_step, plan, self.planner.infeasible_histogram,
+                    self.record.planning_times[-1], self.planner.desired_velocity,
+                    cost_weights=self.config.cost_weights,
+                )
+                if (self.config.debug.save_all_traj
+                        and self.planner.last_cycle is not None):
+                    res, mat, msk = self.planner.last_cycle
+                    self.logger.log_all_candidates(
+                        self.state.time_step, res, mat, msk,
+                        dt=self.config.planning.dt)
             if plan is None:
                 self.status = AgentStatus.ERROR
                 self.message = "no feasible trajectory"

@@ -23,6 +23,12 @@ responsibility weight the batched path stacks the agents' reach-set grids.
 With `simulation.device_resident_sim` the whole run stays on the device and
 the host fetches once (`parallel.device_sim.DeviceSimulation`).
 
+With a `log_dir` and `debug.activate_logging` every agent writes its
+trajectory logs under `log_dir/<agent id>`; a `sim_logger`
+(`utils.sim_logging.SimulationLogger`) gets the per-step timing rows and the
+final results; with `debug.collision_report` every collision writes a JSON
+report to `log_dir` (`evaluation.collision_report`).
+
 With `behavior.use_behavior_planner` every agent carries a `BehaviorModule`
 (`sim.agent`); with more than one agent each module observes its live peers
 through a `sim.world_view.WorldView` instead of their stale recordings.  The
@@ -30,8 +36,9 @@ batched path runs the behavior modules on the host before the fused pass; an
 agent whose stop point asks for stopping mode goes to the host path that
 step, and a reference-path swap rebuilds the stacked tables.
 
-The sharded path, Wale-Net predictions and plotting are not ported yet; a
-config that asks for them raises NotImplementedError naming the ROADMAP.md
+The sharded path, Wale-Net predictions and plotting
+(`visualization.save_plots`, `show_plots`) are not ported yet; a config that
+asks for them raises NotImplementedError naming the ROADMAP.md
 slice that brings them.
 """
 from __future__ import annotations
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch import default_device
+from frenetix_tpu_torch.evaluation.collision_report import collision_report
 from frenetix_tpu_torch.io.commonroad import GoalCondition, PlanningProblem, State
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
@@ -89,6 +97,10 @@ def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
         out.append("simulation.sharded_device_agents (multi-GPU: slice 7)")
     if config.prediction.mode not in ("ground_truth", "constant_velocity"):
         out.append(f"prediction.mode={config.prediction.mode!r} (Wale-Net: slice 5)")
+    vis = config.visualization
+    for name in ("save_plots", "show_plots"):
+        if getattr(vis, name):
+            out.append(f"visualization.{name} (plots: slice 8e)")
     return out
 
 
@@ -109,11 +121,17 @@ class SimulationResult:
 
 class Simulation:
     def __init__(self, scenario, config: Optional[FrenetixConfig] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, *, msg_logger=None,
+                 sim_logger=None, log_dir=None):
         """`device` defaults to the CUDA device (`default_device()`, which
-        raises where there is none); pass torch.device("cpu") to run there."""
+        raises where there is none); pass torch.device("cpu") to run there.
+        `msg_logger`, `sim_logger` and `log_dir` as in the JAX package's
+        Simulation (there `msg_logger` is the third positional argument)."""
         self.scenario = scenario
         self.config = config or FrenetixConfig()
+        self.msg_logger = msg_logger
+        self.sim_logger = sim_logger
+        self.log_dir = log_dir
         ew = self.config.external_cost_weights
         if (not self.config.occlusion.use_occlusion_module
                 and any(float(ew.get(k, 0.0)) != 0.0 for k in EXTERNAL_COST_KEYS)):
@@ -137,7 +155,8 @@ class Simulation:
             self.max_steps = self.config.simulation.fallback_max_steps
 
         self.agents: list[Agent] = [
-            Agent(pid, pp, scenario, self.config, self.device)
+            Agent(pid, pp, scenario, self.config, self.device,
+                  msg_logger=msg_logger, log_dir=log_dir)
             for pid, pp in scenario.planning_problems.items()
         ]
         if self.config.simulation.start_multiagent:
@@ -199,10 +218,13 @@ class Simulation:
             )
             try:
                 self.agents.append(
-                    Agent(ob.obstacle_id, pp, self.scenario, self.config, self.device))
-            except ValueError:
+                    Agent(ob.obstacle_id, pp, self.scenario, self.config, self.device,
+                          msg_logger=self.msg_logger, log_dir=self.log_dir))
+            except ValueError as e:
                 # no route or reference path for this obstacle: it stays a
                 # scenario obstacle and the simulation goes on
+                if self.msg_logger:
+                    self.msg_logger.warning(f"dropping agent {ob.obstacle_id}: {e}")
                 continue
 
     # ----------------------------------------------------------- predictions
@@ -484,6 +506,7 @@ class Simulation:
                     st.position, st.orientation, (ob.length / 2.0, ob.width / 2.0),
                 ):
                     a.set_collision()
+                    self._write_collision_report(a)
                     break
             if a.status == AgentStatus.COLLISION:
                 continue
@@ -497,6 +520,7 @@ class Simulation:
                     b.state.position, b.state.orientation, h_agent,
                 ):
                     a.set_collision()
+                    self._write_collision_report(a)
                     break
 
     # ---------------------------------------------------------- batched step
@@ -693,6 +717,13 @@ class Simulation:
             if not self.scenario.find_lanelets_by_position(a.state.position):
                 a.status = AgentStatus.COLLISION
                 a.message = "road departure"
+                self._write_collision_report(a)
+
+    def _write_collision_report(self, agent):
+        if not self.config.debug.collision_report or self.log_dir is None:
+            return
+        collision_report(agent, self.scenario, self.config.vehicle,
+                         log_dir=self.log_dir)
 
     # -------------------------------------------------------------- main loop
     def run(self) -> SimulationResult:
@@ -706,6 +737,7 @@ class Simulation:
         t_start = time.perf_counter()
         t = 0
         while t < self.max_steps:
+            t_step0 = time.perf_counter()
             running = [a for a in self.agents
                        if a.status in (AgentStatus.IDLE, AgentStatus.RUNNING)]
             if not running:
@@ -726,9 +758,21 @@ class Simulation:
             t += 1
             self._check_collisions(t)
             self._check_road_departure()
+            if self.sim_logger:
+                plan_t = sum(a.record.planning_times[-1] if a.record.planning_times
+                             else 0.0 for a in running)
+                self.sim_logger.log_global_time(
+                    self.scenario.scenario_id, t, time.perf_counter() - t_step0)
+                self.sim_logger.log_batch_time(
+                    self.scenario.scenario_id, "0", t,
+                    time.perf_counter() - t_step0, plan_t)
         for a in self.agents:
             if a.status in (AgentStatus.IDLE, AgentStatus.RUNNING):
                 a.set_timelimit()
+        if self.sim_logger:
+            self.sim_logger.log_results(
+                self.scenario.scenario_id, self.agents,
+                set(self.scenario.planning_problems.keys()))
 
         return SimulationResult(
             scenario_id=self.scenario.scenario_id,

@@ -1,11 +1,13 @@
 """Configuration of the port: typed dataclasses + optional YAML-directory merge.
 
-A JAX-free copy of the parts of `frenetix_tpu/utils/config.py` that the port
-reads (the JAX module imports `VehicleParams` from a JAX module, so it cannot
-be imported where JAX is absent).  Field names and defaults are identical to
-the JAX package's; the tests pin that.  Only fields the port reads are
-carried; the flags of features it does not carry yet are among them, so that
-the planner can refuse them loudly.
+A JAX-free copy of `frenetix_tpu/utils/config.py` (the JAX module imports
+`VehicleParams` from a JAX module, so it cannot be imported where JAX is
+absent).  Every section and field of the JAX package's config is carried,
+with the same names and defaults; the tests pin that.  The flags of features
+the port does not carry yet are among them, so that the simulation can
+refuse them loudly.  `vehicle.cr_vehicle_id` resolves the vehicle from the
+CommonRoad vehicle-model database (`ops/vehicle_db.py`); `--set KEY=VALUE`
+overrides parse with `parse_cli_overrides`, which needs no PyYAML.
 """
 from __future__ import annotations
 
@@ -16,18 +18,23 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
+from frenetix_tpu_torch.ops.vehicle_db import resolve_vehicle
 
 __all__ = [
     "BehaviorConfig",
     "DebugConfig",
     "DEFAULT_COST_WEIGHTS",
+    "EvaluationConfig",
     "EXTERNAL_COST_KEYS",
     "FrenetixConfig",
     "OcclusionConfig",
     "PlanningConfig",
     "PredictionConfig",
     "SimulationConfig",
+    "VisualizationConfig",
     "load_config",
+    "merge_overrides",
+    "parse_cli_overrides",
     "simple_yaml_load",
 ]
 
@@ -71,8 +78,13 @@ class PlanningConfig:
 
 @dataclass
 class DebugConfig:
-    log_risk: bool = False
+    save_all_traj: bool = False          # every candidate of every cycle logged
+    save_unweighted_costs: bool = False  # extra raw-term columns in logs.csv
+    log_risk: bool = False               # the selected plan's ego/obstacle risk
+    activate_logging: bool = True        # trajectory logs and simulation.db
+    kinematic_debug: bool = True
     matrix_bucket: int = 256     # candidate-count padding bucket
+    collision_report: bool = True        # a JSON report per collision
 
 
 @dataclass
@@ -94,6 +106,8 @@ class SimulationConfig:
     select_agents_randomly: bool = False
     # None → fresh entropy per run; an int pins the sample
     agent_selection_seed: Optional[int] = None
+    msg_log_mode: str = "INFO"           # level of messages.log
+    ego_agent_id: int = 60000
 
 
 @dataclass
@@ -180,6 +194,38 @@ class OcclusionConfig:
     size_factor_width: float = 1.3
 
 
+@dataclass
+class EvaluationConfig:
+    """evaluation.yaml."""
+
+    evaluate_agents: bool = False      # per-agent vehicle-dynamics solution check
+    evaluate_simulation: bool = False  # criticality metrics for every agent
+    evaluate_runtime: bool = False     # per-component timing tables
+    radius: float = 100.0              # participants within this range count
+    tau: float = 2.0                   # TET / TIT threshold
+    a_max_lat: float = 8.0             # max lateral deceleration (a_lat_req)
+    # per-metric enable map; metrics missing from the map stay enabled
+    criticality_metrics: dict = field(default_factory=dict)
+
+
+@dataclass
+class VisualizationConfig:
+    """visualization.yaml.  Plotting is not ported yet: `save_plots` or
+    `show_plots` makes `Simulation` raise NotImplementedError."""
+
+    save_plots: bool = False
+    show_plots: bool = False    # live interactive rendering per plotted step
+    plot_interval: int = 5      # plot every k-th step
+    save_gif: bool = False
+    draw_traj_set: bool = False  # draw the full candidate fan
+    window: float = 60.0         # plot_window_dyn
+    show_labels: bool = True             # vehicle-id annotations
+    draw_icons: bool = False             # windshield icon on vehicle boxes
+    draw_reference_path: bool = True
+    draw_predictions: bool = True
+    draw_planning_problem: bool = True   # goal regions as filled polygons
+
+
 EXTERNAL_COST_KEYS = ("occ_pm", "occ_um", "occ_ve")
 
 
@@ -189,8 +235,10 @@ class FrenetixConfig:
     debug: DebugConfig = field(default_factory=DebugConfig)
     simulation: SimulationConfig = field(default_factory=SimulationConfig)
     prediction: PredictionConfig = field(default_factory=PredictionConfig)
+    visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
     behavior: BehaviorConfig = field(default_factory=BehaviorConfig)
     occlusion: OcclusionConfig = field(default_factory=OcclusionConfig)
+    evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
     vehicle: VehicleParams = field(default_factory=VehicleParams)
     cost_weights: dict = field(default_factory=lambda: dict(DEFAULT_COST_WEIGHTS))
     # soft occlusion cost terms (occlusion.external_occlusion_costs); they
@@ -212,6 +260,10 @@ def _dict_key_schema(path: str):
         from frenetix_tpu_torch.occlusion import PhantomThresholds
 
         return set(PhantomThresholds._fields)
+    if path == "evaluation.criticality_metrics":
+        from frenetix_tpu_torch.evaluation.metrics import CRITICALITY_METRICS
+
+        return set(CRITICALITY_METRICS)
     return None
 
 
@@ -226,18 +278,19 @@ def _apply_overrides(obj, overrides: dict, path: str, unknown: list) -> None:
         if dataclasses.is_dataclass(cur) and isinstance(v, dict):
             _apply_overrides(cur, v, f"{path}{k}.", unknown)
         elif isinstance(cur, VehicleParams) and isinstance(v, dict):
+            bad = [kk for kk in v if kk not in cur._fields
+                   and kk not in ("cr_vehicle_id", "wb_front_axle")]
+            unknown.extend(f"{path}{k}.{kk}" for kk in bad)
             if v.get("cr_vehicle_id") is not None:
-                raise NotImplementedError(
-                    "vehicle.cr_vehicle_id (vehicle-model database lookup) is "
-                    "not ported to frenetix_tpu_torch yet; give the vehicle "
-                    "parameters explicitly"
-                )
-            unknown.extend(f"{path}{k}.{kk}" for kk in v
-                           if kk not in cur._fields
-                           and kk not in ("cr_vehicle_id", "wb_front_axle"))
-            setattr(obj, k, cur._replace(
-                **{kk: vv for kk, vv in v.items()
-                   if kk in cur._fields and vv is not None}))
+                # every parameter from the vehicle-model database by id, then
+                # the explicitly given non-None fields win
+                ov = {kk: vv for kk, vv in v.items()
+                      if kk != "cr_vehicle_id" and kk not in bad}
+                setattr(obj, k, resolve_vehicle(v["cr_vehicle_id"], ov))
+            else:
+                setattr(obj, k, cur._replace(
+                    **{kk: vv for kk, vv in v.items()
+                       if kk in cur._fields and vv is not None}))
         elif isinstance(cur, dict) and isinstance(v, dict):
             allowed = _dict_key_schema(f"{path}{k}")
             if allowed is not None:
@@ -433,6 +486,27 @@ def simple_yaml_load(text: str) -> dict:
     return root
 
 
+def parse_cli_overrides(items) -> dict:
+    """`["a.b=1", "cost_weights.prediction=0.5"]` → nested override dict.
+
+    Each value resolves as a YAML scalar, as `yaml.safe_load` resolves it
+    (null, bool, int, float, a flow list of scalars, else a string), through
+    `_yaml_scalar`, which needs no PyYAML and raises ValueError for a form
+    it does not build."""
+    out: dict = {}
+    for item in items or []:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not KEY=VALUE")
+        key, raw = item.split("=", 1)
+        value = _yaml_scalar(raw)
+        node = out
+        parts = key.strip().split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return out
+
+
 def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = None,
                 strict_overrides: bool = False) -> FrenetixConfig:
     """Defaults ← `<config_dir>/*.yaml` (each file merges under its stem;
@@ -465,8 +539,15 @@ def load_config(config_dir: Optional[str] = None, overrides: Optional[dict] = No
                 merged.setdefault(stem, {}).update(data)
         _apply_overrides(cfg, merged, "", [])
     if overrides:
-        unknown: list = []
-        _apply_overrides(cfg, overrides, "", unknown)
-        if strict_overrides and unknown:
-            raise ValueError(f"unknown config override key(s): {unknown}")
+        merge_overrides(cfg, overrides, strict=strict_overrides)
     return cfg
+
+
+def merge_overrides(cfg: FrenetixConfig, overrides: dict, strict: bool = True) -> None:
+    """Merge a nested override dict (`parse_cli_overrides`) into `cfg`; with
+    `strict` an unknown key raises ValueError (a misspelled `--set` key must
+    not be a silent no-op)."""
+    unknown: list = []
+    _apply_overrides(cfg, overrides, "", unknown)
+    if strict and unknown:
+        raise ValueError(f"unknown config override key(s): {unknown}")

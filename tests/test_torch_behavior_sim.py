@@ -118,14 +118,14 @@ def test_run_scenario_reads_behavior_yaml(tmp_path, capsys, mode):
     seen = []
     real = run_scenario.Simulation
 
-    def recording(scenario, config, device):
+    def recording(scenario, config, device, **loggers):
         seen.append(config.behavior.use_behavior_planner)
-        return real(scenario, config, device)
+        return real(scenario, config, device, **loggers)
 
     run_scenario.Simulation = recording
     try:
         rc = run_scenario.main(["stop_sign", "--device", "cpu", "--config-dir",
-                                str(tmp_path), *mode])
+                                str(tmp_path), "--logs", str(tmp_path / "logs"), *mode])
     finally:
         run_scenario.Simulation = real
     assert seen == [True]

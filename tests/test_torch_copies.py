@@ -16,12 +16,12 @@ import pytest
 from frenetix_tpu.geometry import corridor as jcorridor
 from frenetix_tpu.geometry import refpath as jrefpath
 from frenetix_tpu.io import commonroad as jcr
-from frenetix_tpu.io import commonroad_writer
 from frenetix_tpu.io import scenario_factory as jfactory
 from frenetix_tpu.ops import sampling as jsampling
 from frenetix_tpu_torch.geometry import corridor as tcorridor
 from frenetix_tpu_torch.geometry import refpath as trefpath
 from frenetix_tpu_torch.io import commonroad as tcr
+from frenetix_tpu_torch.io import commonroad_writer
 from frenetix_tpu_torch.io import scenario_factory as tfactory
 from frenetix_tpu_torch.ops import sampling as tsampling
 
@@ -135,10 +135,10 @@ def test_commonroad_point_in_ring_copy_equals_original():
 
 
 def test_commonroad_reader_copy_equals_original(tmp_path):
-    """A scenario written as CommonRoad XML reads back the same through the
-    original reader and the copy."""
+    """A scenario written as CommonRoad XML (by the port's writer) reads back
+    the same through the original reader and the copy."""
     path = str(tmp_path / "scenario.xml")
-    commonroad_writer.write_scenario(jfactory.make_overtake(), path)
+    commonroad_writer.write_scenario(tfactory.make_overtake(), path)
     want, got = jcr.load_scenario(path), tcr.load_scenario(path)
     _assert_equal_values(want, got, "scenario")
     assert got.dynamic_obstacles and got.planning_problems

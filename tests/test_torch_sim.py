@@ -6,8 +6,11 @@
 - Config defaults equal to the JAX package's, field by field; the occlusion
   and behavior sections carry every field of the JAX package's.
 - Import closure: every module of the port, its run_scenario and chip_smoke
-  import with a `sys.meta_path` finder that raises on `jax`, `jaxlib` and
-  `frenetix_tpu` (the exact name; `frenetix_tpu_torch` still imports).
+  import with a `sys.meta_path` finder that raises on `jax`, `jaxlib`,
+  `frenetix_tpu` (the exact name; `frenetix_tpu_torch` still imports),
+  `pandas`, `yaml` and `matplotlib` (the machine with the card has none of
+  them), and the CLI path (`run_scenario.main` with `--evaluate` and the
+  logs) runs to its end under the same finder.
 - Default device: `Simulation(scenario, config)` without a device uses the
   CUDA device and raises where there is none.
 - K1 on the card (marker `cuda`; they skip without a CUDA device).  This file
@@ -73,10 +76,10 @@ def test_simulation_matches_jax(family):
                                    [s.velocity for s in hist], atol=1e-9)
 
 
-def test_run_scenario_cli_on_cpu(capsys):
+def test_run_scenario_cli_on_cpu(capsys, tmp_path):
     from frenetix_tpu_torch.run_scenario import main
 
-    assert main(["highway", "--device", "cpu"]) == 0
+    assert main(["highway", "--device", "cpu", "--logs", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "SYN_Highway-1 agent=60000 status=COMPLETED_SUCCESS" in out
 
@@ -156,13 +159,15 @@ def test_config_defaults_match_jax():
 
     jcfg, tcfg = JaxConfig(), tconfig.FrenetixConfig()
     for section in ("planning", "debug", "simulation", "prediction", "behavior",
-                    "occlusion"):
+                    "occlusion", "evaluation", "visualization"):
         tsec = getattr(tcfg, section)
         for f in dataclasses.fields(tsec):
             assert getattr(tsec, f.name) == getattr(getattr(jcfg, section), f.name), \
                 f"{section}.{f.name}"
-    # the occlusion and behavior sections are carried whole
-    for section, n_fields in (("occlusion", 14), ("behavior", 23)):
+    # every section is carried whole
+    for section, n_fields in (("occlusion", 14), ("behavior", 23), ("debug", 7),
+                              ("simulation", 15), ("evaluation", 7),
+                              ("visualization", 11)):
         assert ({f.name for f in dataclasses.fields(getattr(tcfg, section))}
                 == {f.name for f in dataclasses.fields(getattr(jcfg, section))}), section
         assert len(dataclasses.fields(getattr(tcfg, section))) == n_fields, section
@@ -190,7 +195,7 @@ def test_load_config_overrides_and_yaml_dir(tmp_path):
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "frenetix_tpu")
+BLOCKED = ("jax", "jaxlib", "frenetix_tpu", "pandas", "yaml", "matplotlib")
 for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 
@@ -217,6 +222,16 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "sim.planner_interfaces", "run_scenario", "workloads"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
+import os
+from frenetix_tpu_torch.run_scenario import main
+logs = sys.argv[1]
+rc = main(["highway", "--device", "cpu", "--evaluate", "--logs", logs,
+           "--set", "planning.sampling_min=1", "--set", "planning.sampling_max=2"])
+assert rc == 0, rc
+for rel in ("messages.log", "score_overview.csv", "highway/simulation.db",
+            "highway/60000/trajectories.db", "highway/60000/logs.csv",
+            "highway/solution_60000.xml"):
+    assert os.path.exists(os.path.join(logs, rel)), rel
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 try:
@@ -226,10 +241,10 @@ except ImportError:
 """
 
 
-def test_port_and_chip_smoke_import_without_jax():
+def test_port_and_chip_smoke_import_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(tmp_path / "logs")],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "imported without jax and without frenetix_tpu" in proc.stdout
 
