@@ -120,7 +120,28 @@ Phases, each printed on lines of its own:
    The logger of the first `main` in a process is kept: later calls write to
    its messages.log.
 
-Each path (phases 4 to 15) is driven with K1's launch count set to 0 just
+16. Wale-Net prediction on a synthetic export (the real weights are not in
+   the repository; `workloads.write_synthetic_walenet_onnx` at the recorded
+   widths: `sc_conv1` 32 x 1 x 3 x 3 on the full 256 x 256 raster, the rest
+   guessed; the predictions mean nothing physically):
+   (a) the graph written under build/;
+   (b) at B = 1, 8 and 16, every node of the graph on the card in float32
+   (TF32 off) fed the CPU float64 interpreter's inputs for it: the ops that
+   move or pick values bitwise equal to the float64 value rounded to
+   float32, the rest and the whole net within 1e-4 of the output's scale;
+   (c) per call at B = 1, 8 and 16: the net's device time (CUDA events), its
+   host-clock wall, the preprocessing (raster + neighbour grid) and the
+   whole `predict`;
+   (d) the convoy (A = 8) in walenet mode on the host sequential, host
+   batched and device hybrid paths: equal statuses and steps, device
+   positions within 1e-4 m of the sequential run, the batched run's within
+   1e-4 m of it up to the first retirement; one fetch per cycle + 1;
+   (e) a walenet fleet of two (highway, overtake), members one after
+   another, each equal to its solo run;
+   (f) `highway --prediction walenet --evaluate` through the CLI;
+   (g) a missing export raises FileNotFoundError.
+
+Each path (phases 4 to 16) is driven with K1's launch count set to 0 just
 before and read just after; a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
@@ -145,6 +166,8 @@ import torch
 
 from frenetix_tpu_torch.io import scenario_factory
 from frenetix_tpu_torch.io.commonroad import Obstacle, State
+from frenetix_tpu_torch.models import onnx_torch, walenet
+from frenetix_tpu_torch.models.onnx_lite import OnnxGraph, load_onnx
 from frenetix_tpu_torch.ops import _kernels, table_interp
 from frenetix_tpu_torch.ops.kinematics import rollout_candidates
 from frenetix_tpu_torch.parallel import device_sim
@@ -163,6 +186,7 @@ from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.utils.sim_logging import require_strict_tables
 from frenetix_tpu_torch.workloads import (
     dense_cycle_problem, device_fleet, stacked_cycle_problem, stacked_post_pass_extras,
+    write_synthetic_walenet_onnx,
 )
 
 KERNEL_SOURCE = "frenetix_tpu_torch/csrc/table_interp.cu"
@@ -1544,6 +1568,242 @@ def phase_cli(dev, smi, launches):
                   f"[{smi}]")
 
 
+# ------------------------------------------------------------- phase 16: Wale-Net
+
+WALENET_FILE = os.path.join("build", "walenet_synth.onnx")
+WALENET_BATCHES = (1, 8, 16)
+WALENET_OP_TOL = 1e-4          # per op and whole net: |card f32 - cpu f64| / max(1, max |cpu|)
+# ops that only move or pick values: bitwise equal to the CPU float64 value
+# rounded to float32 (rounding is monotonic, so a max pool commutes with it)
+WALENET_EXACT_OPS = {"Shape", "Constant", "ConstantOfShape", "Gather", "Concat",
+                     "Reshape", "Transpose", "Squeeze", "Unsqueeze", "Tile", "Expand",
+                     "Slice", "MaxPool", "Identity"}
+
+
+def _walenet_inputs(b, seed):
+    """Histories (a random walk in metres), sparse neighbour rows and a
+    0 / 127 / 255 raster: the preprocessing's value ranges."""
+    rng = np.random.default_rng(seed)
+    hist = np.cumsum(rng.normal(0.0, 1.0, (30, b, 2)), axis=0)
+    nbrs = rng.normal(0.0, 8.0, (30, 39 * b, 2)) * (rng.uniform(size=(1, 39 * b, 1)) < 0.2)
+    sc = rng.choice([0.0, 0.0, 0.0, 127.0, 255.0], size=(b, 1, 256, 256))
+    return {"hist": hist, "nbrs": nbrs, "sc_img": sc}
+
+
+def _walenet_op_errors(graph, dev, b):
+    """Every node on the card in float32, fed the CPU float64 interpreter's
+    own input values for it, against that node's CPU float64 output; then
+    the whole net.  Returns (max op error, max net error, net output scale),
+    errors relative to max(1, max |cpu|)."""
+    cpu = torch.device("cpu")
+    inputs = _walenet_inputs(b, seed=b)
+    names = [o for n in graph.nodes for o in n.outputs if o]
+    probe = OnnxGraph(nodes=graph.nodes, initializers=graph.initializers,
+                      inputs=graph.inputs, outputs=names)
+    in64 = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in inputs.items()}
+    env = dict(zip(names, onnx_torch.build_torch_fn(probe, cpu, torch.float64)(**in64)))
+    env.update(onnx_torch.graph_to_torch(graph, cpu, torch.float64))
+    env.update(in64)
+    card = onnx_torch.build_torch_fn(graph, dev, torch.float32)
+
+    def to_card(x):
+        if isinstance(x, np.ndarray):
+            return x
+        return x.to(dev, torch.float32 if x.is_floating_point() else x.dtype)
+
+    op_err = 0.0
+    for node in graph.nodes:
+        outs = card.op(node.op_type, [to_card(env[n]) for n in node.inputs if n],
+                       node.attrs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        for name, got in zip(node.outputs, outs):
+            if not name:
+                continue
+            want = env[name]
+            if isinstance(want, np.ndarray):
+                check(isinstance(got, np.ndarray) and np.array_equal(got, want),
+                      f"walenet {node.name}: host value {got} vs {want}")
+                continue
+            got = got.cpu()
+            if node.op_type in WALENET_EXACT_OPS:
+                check(torch.equal(got, want.to(got.dtype)),
+                      f"walenet {node.name} ({node.op_type}) B={b}: not bitwise the "
+                      f"cpu float64 value in float32")
+                continue
+            err = float((got.double() - want).abs().max()) / max(1.0, float(want.abs().max()))
+            check(err <= WALENET_OP_TOL, f"walenet {node.name} ({node.op_type}) B={b}: "
+                                         f"relative error {err} > {WALENET_OP_TOL}")
+            op_err = max(op_err, err)
+    got = card(**{k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                  for k, v in inputs.items()})[0].cpu().double()
+    want = env["predictions"]
+    scale = max(1.0, float(want.abs().max()))
+    net_err = float((got - want).abs().max()) / scale
+    check(tuple(got.shape) == (40, b, 5) and bool(torch.isfinite(got).all()),
+          f"walenet net B={b}: shape {tuple(got.shape)}")
+    check(net_err <= WALENET_OP_TOL, f"walenet net B={b}: card f32 vs cpu f64 relative "
+                                     f"error {net_err} > {WALENET_OP_TOL}")
+    return op_err, net_err, scale
+
+
+def _walenet_sim(family, dev, batched=False):
+    config = load_config()
+    config.dtype = "float32"
+    config.prediction.mode = "walenet"
+    config.simulation.start_multiagent = family == "convoy"
+    config.simulation.batched_device_agents = batched
+    return Simulation(getattr(scenario_factory, f"make_{family}")(), config, dev)
+
+
+def _host_clock_ms(fn, n=5):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_walenet(dev, smi, launches):
+    cpu = torch.device("cpu")
+    os.makedirs(os.path.dirname(WALENET_FILE), exist_ok=True)
+    # the writer's default widths are the recorded ones
+    path = write_synthetic_walenet_onnx(WALENET_FILE, seed=0)
+    walenet.WALENET_ONNX_PATH = path
+    walenet._WALENET_CACHE.clear()
+    walenet.WaleNet._net_cache.clear()
+    graph = load_onnx(path)
+    n_params = sum(int(v.size) for v in graph.initializers.values())
+    phase(16, f"(a) synthetic Wale-Net export {path}: {os.path.getsize(path)} bytes, "
+              f"{len(graph.nodes)} nodes, {n_params} weights, sc_conv1 "
+              f"{graph.initializers['sc_conv1.weight'].shape}, ops "
+              f"{sorted({n.op_type for n in graph.nodes})}")
+
+    # (b) every op and the whole net on the card against the CPU float64
+    for b in WALENET_BATCHES:
+        op_err, net_err, scale = _walenet_op_errors(graph, dev, b)
+        phase(16, f"(b) B={b}: {len(graph.nodes)} nodes on the card in float32 (TF32 "
+                  f"off) against the cpu float64 interpreter: move/pick ops bitwise, "
+                  f"the rest within {op_err:.3e} (limit {WALENET_OP_TOL}); the whole "
+                  f"net within {net_err:.3e} relative of its scale {scale:.3f} [{smi}]")
+
+    # (c) per call: the net (CUDA events), the preprocessing (host clock)
+    scenario = scenario_factory.make_convoy(n_vehicles=max(WALENET_BATCHES))
+    ids = [ob.obstacle_id for ob in scenario.dynamic_obstacles]
+    net = walenet.WaleNet(scenario, device=dev)
+    for b in WALENET_BATCHES:
+        hist, nbrs, sc, _ = net._preprocess(ids[:b], 40)
+        args = {k: torch.as_tensor(v, device=dev) for k, v in
+                (("hist", hist), ("nbrs", nbrs), ("sc_img", sc))}
+        net._net(**args)
+        ms = cuda_ms(lambda: net._net(**args), 1, 5)
+        wall = _host_clock_ms(lambda: net._net(**args))
+        pre = _host_clock_ms(lambda: net._preprocess(ids[:b], 40))
+        pred = _host_clock_ms(lambda: net.predict(ids[:b], 40))
+        phase(16, f"(c) B={b}: net {ms:.3f} ms on the device (CUDA events), "
+                  f"{wall:.3f} ms host clock per call; preprocessing (raster + "
+                  f"neighbour grid) {pre:.3f} ms; predict (preprocess, one copy each "
+                  f"way, net, postprocess) {pred:.3f} ms [{smi}]")
+
+    # (d) the convoy A = 8 on the three paths
+    runs = {}
+    for path_name, batched in (("sequential", False), ("batched", True)):
+        launches.start()
+        res = _walenet_sim("convoy", dev, batched).run()
+        launches.stop(f"walenet convoy host {path_name}")
+        runs[path_name] = res
+    sim = _walenet_sim("convoy", dev)
+    ds = device_sim.DeviceSimulation(sim)
+    fetches = device_sim.FETCHES
+    launches.start()
+    dres = ds.run()
+    programs = 2 * len(ds.levels)
+    k1 = dres.extras["k1_launches"]
+    launches.stop("walenet convoy device hybrid, replayed", replayed=k1)
+    check(device_sim.FETCHES - fetches == ds.n_cycles + 1,
+          f"walenet device run: {device_sim.FETCHES - fetches} fetches, expected one "
+          f"per cycle + 1")
+    check(k1 == programs * ds.n_cycles, f"walenet device run: {k1} K1 launches")
+    seq, bat = runs["sequential"], runs["batched"]
+    status = _dres_statuses(dres)
+    for name, host in runs.items():
+        check(status == _statuses(host) and dres.steps == host.steps,
+              f"walenet convoy: device {status} {dres.steps} steps vs host {name} "
+              f"{host.agent_status} {host.steps} steps")
+    # the device run keeps the sequential loop's order; the batched step
+    # retires a finished agent one step earlier, so it is held up to there
+    gap_seq = _position_gap(dres, seq)
+    retire = min(len(h) for r in (bat, seq) for h in r.histories.values())
+    gap_bat = _history_gap(bat, seq, steps=retire)
+    check(gap_seq <= POS_TOL, f"walenet convoy: device {gap_seq} m from the host "
+                              f"sequential run (limit {POS_TOL})")
+    check(gap_bat <= POS_TOL, f"walenet convoy: host batched {gap_bat} m from the "
+                              f"sequential run up to step {retire - 1} (limit {POS_TOL})")
+    c_n = ds.n_cycles
+    phase(16, f"(d) walenet convoy A={len(ds.agents)}, {dres.steps} steps, statuses "
+              f"{sorted(status.values())}: host sequential {seq.wall_time:.3f} s, host "
+              f"batched {bat.wall_time:.3f} s, device hybrid replayed {dres.wall_time:.3f} "
+              f"s = {1e3 * dres.wall_time / c_n:.3f} ms per cycle ({c_n} cycles, "
+              f"{dres.extras['captures']} capture, {c_n + 1} fetches, K1 {k1} = "
+              f"{programs} x {c_n}); equal statuses and steps; device positions within "
+              f"{gap_seq:.3e} m of sequential, batched within {gap_bat:.3e} m of "
+              f"sequential up to the first retirement (step {retire - 1}) (limit "
+              f"{POS_TOL}) [{smi}]")
+
+    # (e) a fleet of two, members one after another, each against its solo run
+    families = ("highway", "overtake")
+    sims = [device_sim.DeviceSimulation(_walenet_sim(f, dev)) for f in families]
+    launches.start()
+    t0 = time.perf_counter()
+    results = device_sim.run_fleet(sims)
+    fleet_wall = time.perf_counter() - t0
+    launches.stop("walenet fleet S=2, replayed",
+                  replayed=sum(r.extras["k1_launches"] for r in results))
+    for family, res in zip(families, results):
+        solo = device_sim.DeviceSimulation(_walenet_sim(family, dev)).run()
+        check(res.extras["fleet_size"] == 2 and np.array_equal(res.status, solo.status)
+              and res.steps == solo.steps
+              and np.array_equal(res.trajectories, solo.trajectories),
+              f"walenet fleet member {family}: {res.status} {res.steps} vs solo "
+              f"{solo.status} {solo.steps}")
+    phase(16, f"(e) walenet fleet S=2 (highway, overtake), members one after another: "
+              f"wall {fleet_wall:.3f} s, statuses "
+              f"{[r.status.tolist() for r in results]}, each equal to its solo run "
+              f"[{smi}]")
+
+    # (f) the command line
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_walenet_") as root:
+        spy = _CliSpy()
+        with spy.active():
+            launches.start()
+            _cli(["highway", "--prediction", "walenet", "--evaluate", "--logs", root,
+                  "--device", "cuda"], "(f)")
+            n_f = launches.stop("cli highway --prediction walenet --evaluate")
+        (cfg_f, res_f), = spy.runs
+        check(cfg_f.prediction.mode == "walenet" and os.path.exists(
+            os.path.join(root, "highway", "solution_60000.xml")),
+            f"(f): {cfg_f.prediction.mode}, {res_f.agent_status}")
+        phase(16, f"(f) highway --prediction walenet --evaluate on the card: exit 0, "
+                  f"{res_f.agent_status[60000].name}, {res_f.steps} steps, wall "
+                  f"{res_f.wall_time:.3f} s = {1e3 * res_f.wall_time / len(res_f.planning_times):.3f} "
+                  f"ms per cycle, evaluation {spy.eval_s[0]:.3f} s, K1 launches {n_f} "
+                  f"[{smi}]")
+
+    # (g) a missing export raises; nothing stands in
+    walenet.WALENET_ONNX_PATH = os.path.join("build", "absent_walenet.onnx")
+    walenet._WALENET_CACHE.clear()
+    try:
+        walenet.walenet_predictions(scenario, ids[:2], 40, 30, device=dev)
+    except FileNotFoundError as e:
+        phase(16, f"(g) missing export: FileNotFoundError ({e.strerror})")
+    else:
+        check(False, "walenet with a missing export did not raise")
+    finally:
+        walenet.WALENET_ONNX_PATH = path
+        walenet._WALENET_CACHE.clear()
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -1561,6 +1821,7 @@ def main() -> int:
     phase_behavior(dev, smi, launches)
     phase_device_post(dev, smi, launches, host_resp, host_occ)
     phase_cli(dev, smi, launches)
+    phase_walenet(dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

@@ -10,6 +10,7 @@ Laid out like the JAX package `frenetix_tpu`, which stays the reference:
 - ``parallel``  the agent axis: stacked contexts, the batched cycle, the
                 batched stepper of the multi-agent simulation
 - ``risk``      collision probabilities, harm models, per-candidate risks
+- ``models``    Wale-Net prediction: the ONNX reader and its torch interpreter
 - ``sim``       the host simulation loop (single- and multi-agent)
 - ``io``        CommonRoad XML reader and the synthetic scenario families
 - ``utils``     the configuration dataclasses

@@ -67,12 +67,22 @@ trim is exact (every sum over obstacle rows adds an invalid row's exact
 zero) and shrinks the risk stack's quadrature, which dominates a cycle with
 a post-pass.
 
-What this module carries of the JAX original: ground-truth and
-constant-velocity predictions with mode-faithful peers, the full sensor
-pipeline, progressive densification, low-velocity kinematics, the emergency
-ladder in both modes ("stopping", "min_risk"), the post-passes, the behavior
-planner (in the run and hybrid), fleets and chunks.  Wale-Net predictions
-(ROADMAP.md slice 5) and a device mesh (7) raise NotImplementedError here.
+Wale-Net predictions (`prediction.mode = "walenet"`) take the hybrid path
+too: the net reads the agents' executed histories, so no window can be
+precomputed.  Per cycle the one carry fetch also brings the previous cycle's
+executed sub-steps, the host agents are synced to them as mirrors
+(`_sync_exec_mirrors`), the host Simulation builds every agent's rows as its
+own loop does (`_hybrid_pred_cycle`: the net, the sensor filter, the peers),
+and the body takes them from the input buffers `p_in` in place of its
+window and peer rows.  Walenet fleets run their members one after another.
+
+What this module carries of the JAX original: ground-truth,
+constant-velocity and Wale-Net predictions with mode-faithful peers, the
+full sensor pipeline, progressive densification, low-velocity kinematics,
+the emergency ladder in both modes ("stopping", "min_risk"), the
+post-passes, the behavior planner (in the run and hybrid), fleets and
+chunks.  A device mesh (ROADMAP.md slice 7) and Wale-Net with the occlusion
+module (as in the JAX package) raise NotImplementedError here.
 The road-departure check of executed poses is skipped, as in the JAX
 package: selected plans are corridor-checked inside the cycle.
 """
@@ -109,6 +119,7 @@ from frenetix_tpu_torch.risk.reachable_set import (
 )
 from frenetix_tpu_torch.sim.agent import AgentStatus, EgoState
 from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
+from frenetix_tpu_torch.sim.prediction import ground_truth_predictions
 from frenetix_tpu_torch.sim.visible_area import (
     obb_segments_batch, polar_visibility_batch, road_boundary_segments,
 )
@@ -804,13 +815,14 @@ class _Runner:
     whose leading axes before the agent axis (none, or the scenario axis) the
     body carries along.  With `g_host.fsm` the body runs the in-run behavior
     FSM and the stopping program; with `hybrid` it takes the behavior's
-    velocities and stopping matrices from the input buffers `b_in` instead.
+    velocities and stopping matrices from the input buffers `b_in` instead;
+    with `hybrid_pred` its prediction rows from the input buffers `p_in`.
     `load` copies another input set of the same shapes into the input
     buffers (a fleet's next chunk, restacked tables), `run` resets the carry,
     drives `n_cycles` cycles and fetches once."""
 
     def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int,
-                 hybrid: bool = False, keep=None):
+                 hybrid: bool = False, hybrid_pred: bool = False, keep=None):
         self.p = proto
         self.device = proto.device
         self.dtype = proto.dtype
@@ -853,6 +865,17 @@ class _Runner:
                 v_des=buf(lead + (a_n,)), stop_mat=buf(lead + (a_n, m_stop, 13)),
                 stop_mask=buf(lead + (a_n, m_stop), torch.bool),
                 wants=buf(lead + (a_n,), torch.bool))
+        self.p_in = None
+        if hybrid_pred:
+            # the host-built (A, O, H, ...) rows at the nominal width
+            pc = proto.config.prediction
+            rows = lead + (a_n, int(pc.max_obstacles))
+            steps = rows + (int(pc.horizon_steps),)
+            self.p_in = dict(
+                means=buf(steps + (2,)), covs=buf(steps + (2, 2)),
+                inv_covs=buf(steps + (2, 2)), orientations=buf(steps),
+                velocities=buf(steps), lengths=buf(rows), widths=buf(rows),
+                valid=buf(steps, torch.bool))
         self.out = dict(
             traj=buf((c_n,) + lead + (k, a_n, 5)),
             status_steps=buf((c_n,) + lead + (k, a_n), torch.int32),
@@ -961,7 +984,7 @@ class _Runner:
         """One replanning cycle of all agents: enqueues device work only."""
         p, g, st, nl, lead, a_n = self.p, self.g, self.state, self.nl, self.lead, self.a_n
         dtype = self.dtype
-        veh, pcfg = p.veh, p.config.prediction
+        veh = p.veh
         k, dt, n_steps = p.k_replan, p.dt, p.n_steps
         wb = veh.wb_rear_axle
         c = st["cycle"]                                   # (1,) int64
@@ -1014,65 +1037,13 @@ class _Runner:
             v_des = desired_velocity(g, x_cl, v, t0.to(dtype), dt)
 
         # --- this cycle's predictions ----------------------------------------
-        def window_field(name):
-            w = at(g.pred_windows[name], c)               # (..., O, ...)
-            return w.unsqueeze(nl).expand(lead + (a_n,) + tuple(w.shape[nl:]))
-
-        window = PredictionTensors(*(window_field(f) for f in PredictionTensors._fields))
-        horizon = window.means.shape[-2]
-        # the occluding edges of this cycle (the sensor stage, occ_um)
-        occl = None
-        if p.use_vis_occl or p.use_occ_geom:
-            occl = self._occluders(t0, center, theta, running_pre)
-        if pcfg.use_sensor_model:
-            # radius and rear-cone filter on the scenario obstacles' rows
-            # (`sensor_model.obstacles_in_radius`, `filter_cone_angle`),
-            # applied before the peers are appended
-            cur = at(g.cur_obst, c)                       # (..., O, 3)
-            rel = cur[..., None, :, :2] - center[..., :, None, :]     # (..., A, O, 2)
-            in_radius = (torch.linalg.norm(rel, dim=-1) < float(pcfg.sensor_radius)) \
-                & at(g.cur_obst_valid, c)[..., None, :]
-            c0 = torch.cos(-theta)[..., None]
-            s0 = torch.sin(-theta)[..., None]
-            loc_x = c0 * rel[..., 0] - s0 * rel[..., 1] - veh.length / 2.0
-            loc_y = s0 * rel[..., 0] + c0 * rel[..., 1]
-            dist = torch.sqrt(loc_x ** 2 + loc_y ** 2)
-            ang = torch.atan2(loc_y, loc_x)
-            cone_half = float(pcfg.cone_angle) * np.pi / 180.0 / 2.0
-            dropped = ((loc_x < 0) & (dist > float(pcfg.cone_safety_dist))
-                       & (torch.abs(torch.abs(ang) - np.pi) < cone_half))
-            sensor_ok = in_radius & ~dropped
-            if p.use_vis_occl:
-                # the visible-area stage (`sensor_model.visible_obstacles`):
-                # a polar map per agent from the road walls, the scenario
-                # obstacles at the replan step and the live peers, probed at
-                # each window row's corners and center
-                segs_o, segs_p, o4, p4 = occl
-                road = g.road_segs
-                seg = torch.cat([road, segs_o, segs_p], dim=-3)[..., None, :, :, :]
-                seg_ok = torch.cat([torch.ones(lead + (a_n, road.shape[-3]),
-                                               dtype=torch.bool, device=center.device),
-                                    o4, p4], dim=-1)
-                r_vis = polar_visibility_batch(center, seg[..., 0, :], seg[..., 1, :],
-                                               seg_ok, float(pcfg.sensor_radius))
-                sensor_ok = sensor_ok & visible_window_rows(
-                    center, r_vis, cur, at(g.cur_half, c))
-            window = window._replace(valid=window.valid & sensor_ok[..., None])
-        peer_kw = dict(horizon=horizon, length=veh.length + 0.5, width=veh.width + 0.2,
-                       cov_pos=pcfg.cov_pos, active=running_pre)
-        if pcfg.mode == "ground_truth":
-            # the rest of each peer's executing plan from the carried bank:
-            # offset 1 at cycle 0 (the seed holds the states of the current
-            # step), k + 1 afterwards (selected one cycle ago, k steps done)
-            agent_preds = agent_plan_predictions(
-                bank, bank_len, torch.where(c == 0, 1, k + 1), **peer_kw)
+        if self.p_in is not None:
+            # the host's rows of this cycle (`DeviceSimulation._hybrid_pred_cycle`:
+            # the net, the sensor filter, the peers and the eviction applied)
+            preds, post = PredictionTensors(**self.p_in), {}
         else:
-            poses_all = torch.cat([center, theta[..., None], v[..., None]], dim=-1)
-            agent_preds = agent_pose_predictions(poses_all, dt=dt, **peer_kw)
-        preds = concat_obstacles(window, agent_preds)
-        post = {}
-        if p.use_occlusion:
-            preds, post = self._phantoms(window, preds, c, center, running_pre, occl)
+            preds, post = self._window_predictions(c, t0, center, theta, v, running_pre,
+                                                   bank, bank_len)
         if p.resp_weight != 0.0:
             # the reach grids depend on the predictions alone: built once per
             # cycle for every program
@@ -1208,6 +1179,79 @@ class _Runner:
                 getattr(self.fsm_state, f.name).copy_(getattr(fsm_new, f.name))
         c.add_(1)
 
+    def _window_predictions(self, c, t0, center, theta, v, running_pre, bank, bank_len):
+        """This cycle's prediction rows from the run's own tensors: the
+        scenario obstacles' window with the radius / cone filter and the
+        visible-area stage, the live peers' rows, the occlusion module's
+        phantoms.  Returns (preds, the post-pass inputs)."""
+        p, g, nl, lead, a_n = self.p, self.g, self.nl, self.lead, self.a_n
+        veh, pcfg = p.veh, p.config.prediction
+        k, dt = p.k_replan, p.dt
+
+        def at(x, index):
+            return torch.index_select(x, nl, index).squeeze(nl)
+
+        def window_field(name):
+            w = at(g.pred_windows[name], c)               # (..., O, ...)
+            return w.unsqueeze(nl).expand(lead + (a_n,) + tuple(w.shape[nl:]))
+
+        window = PredictionTensors(*(window_field(f) for f in PredictionTensors._fields))
+        horizon = window.means.shape[-2]
+        # the occluding edges of this cycle (the sensor stage, occ_um)
+        occl = None
+        if p.use_vis_occl or p.use_occ_geom:
+            occl = self._occluders(t0, center, theta, running_pre)
+        if pcfg.use_sensor_model:
+            # radius and rear-cone filter on the scenario obstacles' rows
+            # (`sensor_model.obstacles_in_radius`, `filter_cone_angle`),
+            # applied before the peers are appended
+            cur = at(g.cur_obst, c)                       # (..., O, 3)
+            rel = cur[..., None, :, :2] - center[..., :, None, :]     # (..., A, O, 2)
+            in_radius = (torch.linalg.norm(rel, dim=-1) < float(pcfg.sensor_radius)) \
+                & at(g.cur_obst_valid, c)[..., None, :]
+            c0 = torch.cos(-theta)[..., None]
+            s0 = torch.sin(-theta)[..., None]
+            loc_x = c0 * rel[..., 0] - s0 * rel[..., 1] - veh.length / 2.0
+            loc_y = s0 * rel[..., 0] + c0 * rel[..., 1]
+            dist = torch.sqrt(loc_x ** 2 + loc_y ** 2)
+            ang = torch.atan2(loc_y, loc_x)
+            cone_half = float(pcfg.cone_angle) * np.pi / 180.0 / 2.0
+            dropped = ((loc_x < 0) & (dist > float(pcfg.cone_safety_dist))
+                       & (torch.abs(torch.abs(ang) - np.pi) < cone_half))
+            sensor_ok = in_radius & ~dropped
+            if p.use_vis_occl:
+                # the visible-area stage (`sensor_model.visible_obstacles`):
+                # a polar map per agent from the road walls, the scenario
+                # obstacles at the replan step and the live peers, probed at
+                # each window row's corners and center
+                segs_o, segs_p, o4, p4 = occl
+                road = g.road_segs
+                seg = torch.cat([road, segs_o, segs_p], dim=-3)[..., None, :, :, :]
+                seg_ok = torch.cat([torch.ones(lead + (a_n, road.shape[-3]),
+                                               dtype=torch.bool, device=center.device),
+                                    o4, p4], dim=-1)
+                r_vis = polar_visibility_batch(center, seg[..., 0, :], seg[..., 1, :],
+                                               seg_ok, float(pcfg.sensor_radius))
+                sensor_ok = sensor_ok & visible_window_rows(
+                    center, r_vis, cur, at(g.cur_half, c))
+            window = window._replace(valid=window.valid & sensor_ok[..., None])
+        peer_kw = dict(horizon=horizon, length=veh.length + 0.5, width=veh.width + 0.2,
+                       cov_pos=pcfg.cov_pos, active=running_pre)
+        if pcfg.mode == "ground_truth":
+            # the rest of each peer's executing plan from the carried bank:
+            # offset 1 at cycle 0 (the seed holds the states of the current
+            # step), k + 1 afterwards (selected one cycle ago, k steps done)
+            agent_preds = agent_plan_predictions(
+                bank, bank_len, torch.where(c == 0, 1, k + 1), **peer_kw)
+        else:
+            poses_all = torch.cat([center, theta[..., None], v[..., None]], dim=-1)
+            agent_preds = agent_pose_predictions(poses_all, dt=dt, **peer_kw)
+        preds = concat_obstacles(window, agent_preds)
+        post = {}
+        if p.use_occlusion:
+            preds, post = self._phantoms(window, preds, c, center, running_pre, occl)
+        return preds, post
+
     def _occluders(self, t0, center, theta, running_pre):
         """`occluder_segments` of this cycle (the scenario obstacles at the
         replan step t0 and the live peers), computed once per cycle."""
@@ -1296,12 +1340,21 @@ class _Runner:
         else:
             self.step()
 
-    def fetch_carry(self) -> dict:
+    def fetch_carry(self, prev_cycle=None) -> dict:
         """The small per-cycle fetch of the hybrid path: the carried pose,
-        curvilinear state, curvature, previous orientation and status."""
+        curvilinear state and status, with behavior the curvature and the
+        previous orientation, and with `prev_cycle` that cycle's executed
+        sub-steps (`traj` (k, A, 5) and `status_steps` (k, A): the walenet
+        mirrors' histories), all in one copy."""
         global FETCHES
-        names = ("x_cl", "center", "theta", "v", "acc", "kap", "th_prev", "status")
+        names = ["x_cl", "center", "theta", "v", "acc", "status"]
+        if self.hybrid:
+            names += ["kap", "th_prev"]
         parts = [self.state[n] for n in names]
+        if prev_cycle is not None:
+            names += ["traj", "status_steps"]
+            parts += [self.out["traj"][prev_cycle], self.out["status_steps"][prev_cycle]]
+        # statuses are small integers: exact in float32
         host = torch.cat([t.to(self.dtype).reshape(-1) for t in parts]).cpu().numpy()
         FETCHES += 1
         out, pos = {}, 0
@@ -1309,6 +1362,8 @@ class _Runner:
             out[n] = host[pos:pos + t.numel()].reshape(tuple(t.shape))
             pos += t.numel()
         out["status"] = out["status"].astype(np.int32)
+        if prev_cycle is not None:
+            out["status_steps"] = out["status_steps"].astype(np.int32)
         return out
 
     def fetch_outputs(self) -> dict:
@@ -1413,7 +1468,8 @@ class DeviceSimulation:
     the run (else `fsm_reason` says why not, and `run` takes the hybrid
     path, which steps the host Simulation's agents and behavior modules as
     mirrors of the device state: a hybrid run is made once per
-    DeviceSimulation)."""
+    DeviceSimulation).  A walenet run always takes the hybrid path, with the
+    same rule."""
 
     def __init__(self, sim, device=None, mesh=None):
         config = sim.config
@@ -1426,17 +1482,17 @@ class DeviceSimulation:
             raise NotImplementedError(
                 "walenet + occlusion module is host-loop only (the device run "
                 "does not thread host phantom geometry); run sim.run() instead")
-        if pcfg.mode == "walenet":
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: prediction.mode='walenet' in "
-                "the device-resident run (Wale-Net: slice 5)")
-        if pcfg.mode not in ("ground_truth", "constant_velocity"):
+        if pcfg.mode not in ("ground_truth", "constant_velocity", "walenet"):
             raise ValueError(f"unknown prediction mode {pcfg.mode!r}")
         if p.emergency_mode not in ("stopping", "min_risk"):
             raise ValueError(f"unknown emergency_mode {p.emergency_mode!r}")
 
         self.sim = sim
         self.config = config
+        # walenet: the net reads the agents' executed histories, which no
+        # precomputed window holds; every cycle the host builds the rows from
+        # mirrors of the run's state (`_drive_hybrid`, `_hybrid_pred_cycle`)
+        self.hybrid_pred = pcfg.mode == "walenet"
         self.device = torch.device(device) if device is not None else sim.device
         self.agents = sim.agents
         self.veh = config.vehicle
@@ -1513,7 +1569,9 @@ class DeviceSimulation:
         fsm_tensors = fsm_carry = None
         if self.hybrid_behavior:
             self.fsm_reason = "behavior.device_fsm = 'hybrid'"
-            if bcfg.device_fsm == "auto":
+            if self.hybrid_pred:
+                self.fsm_reason = "walenet predictions run on the hybrid path"
+            elif bcfg.device_fsm == "auto":
                 fsm_tensors, self.fsm_in_scan, self.fsm_reason = build_fsm_tensors(
                     sim, dtype)
                 if self.fsm_in_scan:
@@ -1572,7 +1630,13 @@ class DeviceSimulation:
         pds, cur_obst, cur_valid, cur_half = [], [], [], []
         for c in range(self.n_cycles):
             t_c = c * self.k_replan
-            pd, ids = sim._predictions_for_step(t_c)
+            if self.hybrid_pred:
+                # no window: the host builds each cycle's rows in the run
+                pd, ids = ground_truth_predictions(
+                    sim.scenario, [], t_c, pcfg.horizon_steps,
+                    max_obstacles=pcfg.max_obstacles, dtype=dtype), []
+            else:
+                pd, ids = sim._predictions_for_step(t_c)
             pds.append(pd)
             o_slots = pd["valid"].shape[0]
             cur = np.zeros((o_slots, 3), dtype)
@@ -1654,11 +1718,12 @@ class DeviceSimulation:
         call and replayed; `graph=False` keeps the eager loop there (what the
         CPU always runs), for checks of the replayed run against it.  With
         `sync_debug` the loop raises on a CUDA device if anything in it makes
-        the host wait for the device.  A behavior run outside the FSM's
-        scope, or one whose FSM bailed, takes the hybrid path instead
-        (`_drive_hybrid`: one fetch per cycle, `sync_debug` does not apply)."""
+        the host wait for the device.  A walenet run, a behavior run outside
+        the FSM's scope, or one whose FSM bailed, takes the hybrid path
+        instead (`_drive_hybrid`: one fetch per cycle, `sync_debug` does not
+        apply)."""
         t_start = time.perf_counter()
-        if self.hybrid_behavior and not self.fsm_in_scan:
+        if self.hybrid_pred or (self.hybrid_behavior and not self.fsm_in_scan):
             res = _drive_hybrid([self], graph=graph)[0]
         else:
             if self._runner is None:
@@ -1756,7 +1821,8 @@ class DeviceSimulation:
             lane_segments=stepper.lane_segments.numpy(),
             lane_valid=stepper.lane_valid.numpy())
 
-    def _hybrid_host_cycle(self, c: int, carry: dict, inert: bool = False):
+    def _hybrid_host_cycle(self, c: int, carry: dict, inert: bool = False,
+                           synced: bool = False):
         """The host side of one hybrid cycle: bring the agents' mirrors up to
         the device state, run each running agent's behavior module and
         `apply_behavior_output`, and build the stopping matrices of the
@@ -1765,8 +1831,9 @@ class DeviceSimulation:
         `carry` holds this member's fetched carry (its agent axis may be a
         fleet's padded one; padded rows get no stopping rows and their own
         velocity).  `inert`: a fleet member past its own cycles, whose host
-        side is left alone.  Returns (v_des, stop_mat, stop_mask, wants,
-        x_cl_new, swapped)."""
+        side is left alone.  `synced`: `_sync_exec_mirrors` has brought the
+        mirrors up already (a walenet run).  Returns (v_des, stop_mat,
+        stop_mask, wants, x_cl_new, swapped)."""
         dtype = self.np_dtype
         t0 = c * self.k_replan
         stop_thr = self.config.behavior.stopping_mode_threshold
@@ -1785,7 +1852,7 @@ class DeviceSimulation:
         # records (WorldView).  At cycle 0 a fresh Simulation's mirrors are
         # already exact, the scenario's initial yaw rate included
         status = carry["status"]
-        for i, a in enumerate(self.agents if c > 0 else ()):
+        for i, a in enumerate(self.agents if c > 0 and not synced else ()):
             a.state = EgoState(
                 time_step=t0, position=np.asarray(carry["center"][i]).copy(),
                 orientation=float(carry["theta"][i]), velocity=float(carry["v"][i]),
@@ -1817,6 +1884,77 @@ class DeviceSimulation:
                 stop_mask[i, :m.shape[0]] = True
                 wants[i] = True
         return v_des, stop_mat, stop_mask, wants, x_cl_new, swapped
+
+    def _sync_exec_mirrors(self, c: int, carry: dict) -> None:
+        """Bring the host agents up to the run's state for the walenet rows
+        of cycle `c`: the previous cycle's executed sub-steps appended to
+        each agent's record (the net reads 30-step executed histories; the
+        host appends one state per executed step, the colliding one
+        included), then status, state and curvilinear state.  At cycle 0 a
+        fresh Simulation's agents are already exact."""
+        if c == 0:
+            self._mirror_prev_running = [True] * len(self.agents)
+            return
+        k = self.k_replan
+        traj, sps = carry["traj"], carry["status_steps"]       # (k, A, 5), (k, A)
+        prev_running = self._mirror_prev_running
+        for i, a in enumerate(self.agents):
+            was_running = prev_running[i]
+            for j in range(traj.shape[0]):
+                s_j = int(sps[j, i])
+                executed = s_j == _RUNNING or (s_j == _COLLISION and was_running)
+                was_running = s_j == _RUNNING
+                if not executed:
+                    continue
+                x, y, th, vv, aa = (float(f) for f in traj[j, i])
+                t_j = (c - 1) * k + j + 1
+                if a.record.states and a.record.states[-1].time_step >= t_j:
+                    continue
+                prev_th = a.record.states[-1].orientation if a.record.states else th
+                yaw = (th - prev_th) / self.dt
+                a.record.states.append(EgoState(
+                    time_step=t_j, position=np.array([x, y]), orientation=th,
+                    velocity=vv, acceleration=aa, yaw_rate=yaw,
+                    steering_angle=float(np.arctan2(self.veh.wheelbase * yaw,
+                                                    max(vv, 1e-3)))))
+            prev_running[i] = was_running
+            a.status = AgentStatus(int(carry["status"][i]))
+            if int(carry["status"][i]) == _RUNNING:
+                a.state = EgoState(
+                    time_step=c * k, position=np.asarray(carry["center"][i]).copy(),
+                    orientation=float(carry["theta"][i]), velocity=float(carry["v"][i]),
+                    acceleration=float(carry["acc"][i]))
+                a.x_cl = (carry["x_cl"][i, :3].copy(), carry["x_cl"][i, 3:].copy())
+            elif a.record.states:
+                a.state = a.record.states[-1]
+
+    def _hybrid_pred_cycle(self, c: int) -> dict:
+        """The walenet rows of cycle `c`, built by the host Simulation's own
+        `_predictions_for_step` and `_agent_predictions` over the synced
+        mirrors (the net, the sensor filter, the peers' rows and the
+        eviction) and stacked to (A, O, H, ...) arrays; agents that left the
+        run get invalid rows."""
+        sim = self.sim
+        sim._peer_rows_cache = None
+        pd_base, ids = sim._predictions_for_step(c * self.k_replan)
+        a_n = len(self.agents)
+        o, h = pd_base["valid"].shape
+        eye = np.eye(2, dtype=self.np_dtype)
+        f = dict(
+            means=np.zeros((a_n, o, h, 2), self.np_dtype),
+            covs=np.tile(eye, (a_n, o, h, 1, 1)), inv_covs=np.tile(eye, (a_n, o, h, 1, 1)),
+            orientations=np.zeros((a_n, o, h), self.np_dtype),
+            velocities=np.zeros((a_n, o, h), self.np_dtype),
+            lengths=np.full((a_n, o), 4.5, self.np_dtype),
+            widths=np.full((a_n, o), 2.0, self.np_dtype),
+            valid=np.zeros((a_n, o, h), bool))
+        for i, a in enumerate(self.agents):
+            if a.status not in (AgentStatus.IDLE, AgentStatus.RUNNING):
+                continue
+            pd = sim._agent_predictions(pd_base, ids, a)[0]
+            for name in f:
+                f[name][i] = pd[name]
+        return f
 
     # ----------------------------------------------------------------- fleet
     def _padded_tensors(self, dims: dict, use_fsm: bool = False) -> SimTensors:
@@ -1968,14 +2106,16 @@ def _fleet_stack(sims, dims=None, use_fsm: bool = False) -> SimTensors:
 
 
 def _drive_hybrid(sims: list, graph: bool = True) -> list:
-    """The hybrid behavior path of one simulation, or of a fleet (more than
+    """The hybrid path of one simulation, or of a behavior fleet (more than
     one member: stacked along a leading scenario axis).
 
-    Per cycle: ONE fetch of the small carry, every member's host cycle
-    (`_hybrid_host_cycle`: mirrors, behavior modules, stopping matrices; a
-    member past its own cycles stays inert), the inputs copied into the
-    body's buffers, then one cycle on the device (a replay of the captured
-    single-cycle body on a CUDA device).  A reference-path swap restacks the
+    Per cycle: ONE fetch of the small carry (with walenet also the previous
+    cycle's executed sub-steps), the host side (walenet: `_sync_exec_mirrors`
+    and `_hybrid_pred_cycle`; behavior: every member's `_hybrid_host_cycle`,
+    mirrors, behavior modules, stopping matrices, a member past its own
+    cycles staying inert), its outputs copied into the body's input buffers,
+    then one cycle on the device (a replay of the captured single-cycle body
+    on a CUDA device).  A reference-path swap restacks the
     member's tables; while they fit the run's buffers they are copied in,
     and when they grow the body gets new buffers and a new capture (counted
     in `extras["captures"]`).  The outputs stay on the device until the
@@ -1983,6 +2123,7 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
     global FETCHES
     base = sims[0]
     fleet = len(sims) > 1
+    behavior_on, pred_on = base.hybrid_behavior, base.hybrid_pred
     dims = _fleet_dims(sims)
 
     def inputs():
@@ -1991,7 +2132,7 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
         return base._padded_tensors(dims)
 
     fetches0 = FETCHES
-    runner = _Runner(base, inputs(), dims["c"], hybrid=True)
+    runner = _Runner(base, inputs(), dims["c"], hybrid=behavior_on, hybrid_pred=pred_on)
     use_graph = bool(graph) and runner.device.type == "cuda"
     guard = contextlib.nullcontext()
     if runner.device.type == "cuda":
@@ -2000,38 +2141,47 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
     captures, replays, k1_launches, capture_s = 0, 0, 0, 0.0
     with torch.no_grad(), guard:
         runner.reset()
-        kap0 = np.stack([s._hybrid_kappa0(dims["a"]) for s in sims])
-        runner.state["kap"].copy_(torch.as_tensor(kap0 if fleet else kap0[0]))
+        if behavior_on:
+            kap0 = np.stack([s._hybrid_kappa0(dims["a"]) for s in sims])
+            runner.state["kap"].copy_(torch.as_tensor(kap0 if fleet else kap0[0]))
         for c in range(dims["c"]):
-            carry = runner.fetch_carry()
-            members = ([{k: v[i] for k, v in carry.items()} for i in range(len(sims))]
-                       if fleet else [carry])
-            results = [s._hybrid_host_cycle(c, m, inert=c >= s.n_cycles)
-                       for s, m in zip(sims, members)]
-            v_des, stop_mat, stop_mask, wants, x_cl_new, swapped = (
-                np.stack(x) if fleet else x[0] for x in zip(*results))
-            if np.any(swapped):
-                for s, r in zip(sims, results):
-                    if r[5]:
-                        s._hybrid_restack()
-                grown = _fleet_dims(sims)
-                if any(grown[k] > dims[k] for k in dims):
-                    # the tables outgrew the buffers: a new body
-                    dims = {k: max(dims[k], grown[k]) for k in dims}
-                    old = runner
-                    runner = _Runner(base, inputs(), dims["c"], hybrid=True,
-                                     keep=old.keep)
-                    for new_b, old_b in zip(runner._buffers(), old._buffers()):
-                        new_b.copy_(old_b)
-                    if old.graph is not None:
-                        k1_launches += old.k1_per_cycle * replays
-                    replays = 0
-                else:
-                    runner.load(inputs())
-                runner.state["x_cl"].copy_(torch.as_tensor(x_cl_new))
-            for name, value in (("v_des", v_des), ("stop_mat", stop_mat),
-                                ("stop_mask", stop_mask), ("wants", wants)):
-                runner.b_in[name].copy_(torch.as_tensor(value))
+            carry = runner.fetch_carry(c - 1 if pred_on and c > 0 else None)
+            if pred_on:
+                # walenet runs one member at a time (`run_fleet`)
+                base._sync_exec_mirrors(c, carry)
+            if behavior_on:
+                members = ([{k: v[i] for k, v in carry.items()}
+                            for i in range(len(sims))] if fleet else [carry])
+                results = [s._hybrid_host_cycle(c, m, inert=c >= s.n_cycles,
+                                                synced=pred_on)
+                           for s, m in zip(sims, members)]
+                v_des, stop_mat, stop_mask, wants, x_cl_new, swapped = (
+                    np.stack(x) if fleet else x[0] for x in zip(*results))
+                if np.any(swapped):
+                    for s, r in zip(sims, results):
+                        if r[5]:
+                            s._hybrid_restack()
+                    grown = _fleet_dims(sims)
+                    if any(grown[k] > dims[k] for k in dims):
+                        # the tables outgrew the buffers: a new body
+                        dims = {k: max(dims[k], grown[k]) for k in dims}
+                        old = runner
+                        runner = _Runner(base, inputs(), dims["c"], hybrid=True,
+                                         hybrid_pred=pred_on, keep=old.keep)
+                        for new_b, old_b in zip(runner._buffers(), old._buffers()):
+                            new_b.copy_(old_b)
+                        if old.graph is not None:
+                            k1_launches += old.k1_per_cycle * replays
+                        replays = 0
+                    else:
+                        runner.load(inputs())
+                    runner.state["x_cl"].copy_(torch.as_tensor(x_cl_new))
+                for name, value in (("v_des", v_des), ("stop_mat", stop_mat),
+                                    ("stop_mask", stop_mask), ("wants", wants)):
+                    runner.b_in[name].copy_(torch.as_tensor(value))
+            if pred_on:
+                for name, value in base._hybrid_pred_cycle(c).items():
+                    runner.p_in[name].copy_(torch.as_tensor(value))
             if use_graph and runner.graph is None:
                 captures += 1
                 runner._capture()
@@ -2065,7 +2215,8 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
 
     Behavior members share the in-run FSM when every member supports it;
     otherwise the whole fleet takes the hybrid path (`_drive_hybrid`, one
-    small fetch per cycle).  A member whose FSM wanted to overtake (`bail`)
+    small fetch per cycle).  Walenet members run one after another, each on
+    its own hybrid path.  A member whose FSM wanted to overtake (`bail`)
     is run again alone on the hybrid path.
 
     `chunk`: run the S simulations as ceil(S / chunk) runs of `chunk` members
@@ -2084,7 +2235,11 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
                 "weight, prediction mode and sensor settings, occlusion "
                 "settings, behavior settings)")
     use_fsm = base.hybrid_behavior and all(s.fsm_in_scan for s in sims)
-    if base.hybrid_behavior and not use_fsm:
+    if base.hybrid_pred:
+        # the host builds every member's rows each cycle from that member's
+        # executed states: the members run one after another
+        results = [s.run(graph=graph) for s in sims]
+    elif base.hybrid_behavior and not use_fsm:
         results = _drive_hybrid(list(sims), graph=graph) if len(sims) > 1 \
             else [sims[0].run(graph=graph)]
     else:

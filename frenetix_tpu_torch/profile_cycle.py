@@ -17,13 +17,18 @@ with the responsibility term 0.2, and gated (the occlusion module with occ_um
 and occ_ve, and the visible-area sensor stage).  For the two post-pass
 bodies the risk stack's collision-probability quadrature is profiled alone
 on the calls one cycle makes, and its share of the replayed body's busy time
-is printed.  The profiler slows the
+is printed.  Last the Wale-Net net (`models.walenet`) at B = 1 and 16
+obstacles on a synthetic export at the recorded widths
+(`workloads.write_synthetic_walenet_onnx`, written to
+build/walenet_synth.onnx), fed the convoy's preprocessed inputs.  The
+profiler slows the
 host, so the wall time it reports per call is longer than an unprofiled
 call's; device times per kernel are not affected.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
@@ -33,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from frenetix_tpu_torch import default_device
 from frenetix_tpu_torch.io.scenario_factory import make_convoy
+from frenetix_tpu_torch.models.walenet import WaleNet
 from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner.core import evaluate_cycle
@@ -44,6 +50,7 @@ from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.workloads import (
     dense_cycle_problem, stacked_cycle_problem, stacked_post_pass_extras,
+    write_synthetic_walenet_onnx,
 )
 
 
@@ -105,6 +112,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = default_device()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -204,6 +212,19 @@ def main(argv=None) -> int:
         print(f"[profile] quadrature share of the replayed body{what}: "
               f"{quad / busy[True]:.2f} ({quad:.3f} of {busy[True]:.3f} ms busy per "
               f"cycle) [{card}]")
+
+    # the Wale-Net net, one call per obstacle batch
+    os.makedirs("build", exist_ok=True)
+    path = write_synthetic_walenet_onnx(os.path.join("build", "walenet_synth.onnx"))
+    scenario = make_convoy(n_vehicles=16)
+    ids = [ob.obstacle_id for ob in scenario.dynamic_obstacles]
+    net = WaleNet(scenario, onnx_path=path, device=dev)
+    for b in (1, 16):
+        hist, nbrs, sc, _ = net._preprocess(ids[:b], 40)
+        inputs = {k: torch.as_tensor(v, device=dev)
+                  for k, v in (("hist", hist), ("nbrs", nbrs), ("sc_img", sc))}
+        profile_calls(f"Wale-Net net B={b} (synthetic export, recorded widths)",
+                      lambda: net._net(**inputs), args.calls, args.top, card)
     return 0
 
 

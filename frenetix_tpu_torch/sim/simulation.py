@@ -36,10 +36,13 @@ batched path runs the behavior modules on the host before the fused pass; an
 agent whose stop point asks for stopping mode goes to the host path that
 step, and a reference-path swap rebuilds the stacked tables.
 
-The sharded path, Wale-Net predictions and plotting
-(`visualization.save_plots`, `show_plots`) are not ported yet; a config that
-asks for them raises NotImplementedError naming the ROADMAP.md
-slice that brings them.
+With `prediction.mode = "walenet"` the global prediction and the peers'
+rows come from `models.walenet` (the net on the simulation's device, fed the
+agents' executed histories through a `WorldView`).
+
+The sharded path and plotting (`visualization.save_plots`, `show_plots`) are
+not ported yet; a config that asks for them raises NotImplementedError
+naming the ROADMAP.md slice that brings them.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ import torch
 
 from frenetix_tpu_torch import default_device
 from frenetix_tpu_torch.evaluation.collision_report import collision_report
+from frenetix_tpu_torch.models.walenet import walenet_predictions
 from frenetix_tpu_torch.io.commonroad import GoalCondition, PlanningProblem, State
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
@@ -66,7 +70,7 @@ from frenetix_tpu_torch.sim.prediction import (
 from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
 from frenetix_tpu_torch.sim.sensor_model import visible_obstacles
 from frenetix_tpu_torch.sim.visible_area import road_boundary_segments
-from frenetix_tpu_torch.sim.world_view import attach_world_views
+from frenetix_tpu_torch.sim.world_view import WorldView, attach_world_views
 from frenetix_tpu_torch.utils.config import EXTERNAL_COST_KEYS, FrenetixConfig
 
 __all__ = ["Simulation", "SimulationResult"]
@@ -95,8 +99,6 @@ def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
     out = []
     if sim.sharded_device_agents:
         out.append("simulation.sharded_device_agents (multi-GPU: slice 7)")
-    if config.prediction.mode not in ("ground_truth", "constant_velocity"):
-        out.append(f"prediction.mode={config.prediction.mode!r} (Wale-Net: slice 5)")
     vis = config.visualization
     for name in ("save_plots", "show_plots"):
         if getattr(vis, name):
@@ -139,6 +141,9 @@ class Simulation:
             # weight without the module must not be a silent no-op
             raise ValueError(
                 "external_cost_weights require occlusion.use_occlusion_module")
+        if self.config.prediction.mode not in ("ground_truth", "constant_velocity",
+                                               "walenet"):
+            raise ValueError(f"unknown prediction mode {self.config.prediction.mode!r}")
         unsupported = _unsupported(self.config, scenario)
         if unsupported:
             raise NotImplementedError(
@@ -243,6 +248,15 @@ class Simulation:
             pd = ground_truth_predictions(
                 self.scenario, ids, t, pcfg.horizon_steps, cov_pos=pcfg.cov_pos,
                 max_obstacles=pcfg.max_obstacles, dtype=self.np_dtype,
+            )
+        elif pcfg.mode == "walenet":
+            # histories and neighbour grids read the agents' executed states
+            # (the reference rewrites its agent dummies before each global
+            # prediction), also for the scenario obstacles' nets
+            pd = walenet_predictions(
+                self.scenario, ids, t, pcfg.horizon_steps,
+                max_obstacles=pcfg.max_obstacles, dtype=self.np_dtype,
+                world=self._world_view() if self.agents else None, device=self.device,
             )
         else:
             pd = constant_velocity_predictions(
@@ -363,20 +377,38 @@ class Simulation:
             return cached[1]
         horizon = self.config.prediction.horizon_steps
         dtype = self.np_dtype
+        live = [a for a in self.agents
+                if a.status in (AgentStatus.IDLE, AgentStatus.RUNNING)]
         rows = {}
-        for a in self.agents:
-            if a.status not in (AgentStatus.IDLE, AgentStatus.RUNNING):
-                continue
-            means, orient, vel, valid, cov = self._peer_future(a, t, horizon)
-            rows[a.id] = dict(
-                means=means.astype(dtype),
-                orientations=orient.astype(dtype),
-                velocities=vel.astype(dtype), valid=valid,
-                covs=np.broadcast_to(cov.astype(dtype), (horizon, 2, 2)),
-                inv_covs=np.broadcast_to(np.linalg.inv(cov).astype(dtype),
-                                         (horizon, 2, 2)))
+        if self.config.prediction.mode == "walenet" and live:
+            # the net over each peer's executed history (the reference reads
+            # the dummy's updated trajectory, wale_net.py:236-259)
+            ids = [a.id for a in live]
+            wp = walenet_predictions(
+                self.scenario, ids, t, horizon, max_obstacles=len(ids), dtype=dtype,
+                world=self._world_view(), device=self.device)
+            for k, a in enumerate(live):
+                rows[a.id] = {f: wp[f][k] for f in (
+                    "means", "orientations", "velocities", "valid", "covs", "inv_covs")}
+        else:
+            for a in live:
+                means, orient, vel, valid, cov = self._peer_future(a, t, horizon)
+                rows[a.id] = dict(
+                    means=means.astype(dtype),
+                    orientations=orient.astype(dtype),
+                    velocities=vel.astype(dtype), valid=valid,
+                    covs=np.broadcast_to(cov.astype(dtype), (horizon, 2, 2)),
+                    inv_covs=np.broadcast_to(np.linalg.inv(cov).astype(dtype),
+                                             (horizon, 2, 2)))
         self._peer_rows_cache = (t, rows)
         return rows
+
+    def _world_view(self) -> WorldView:
+        """The scenario with the agents' executed states in place of the
+        recordings of the obstacles they were converted from."""
+        veh = self.config.vehicle
+        return WorldView(self.scenario, self.agents, veh_length=veh.length,
+                         veh_width=veh.width)
 
     def _augment_with_agents(self, pd, for_agent: Agent):
         """The other live agents as predicted obstacles (`_peer_future`).

@@ -23,8 +23,15 @@ occluder geometry that the batched cycle's post-passes take.
 overtake with its lead as a second agent, the curve and the convoy of eight
 agents, each with gaps and speeds drawn from a seed, so that no two members
 are the same run.
+
+`write_synthetic_walenet_onnx` writes an ONNX file with the I/O contract of
+the Wale-Net export that `models.walenet` reads (`WALENET_ONNX_PATH`):
+inputs `hist` (30, B, 2), `nbrs` (30, 39·B, 2), `sc_img` (B, 1, 256, 256),
+output `predictions` (40, B, 5), with weights drawn from a seed.
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -40,7 +47,7 @@ from frenetix_tpu_torch.planner.core import context_from_numpy
 from frenetix_tpu_torch.risk.reachable_set import ReachSetGrid
 
 __all__ = ["dense_cycle_problem", "stacked_cycle_problem",
-           "stacked_post_pass_extras", "device_fleet"]
+           "stacked_post_pass_extras", "device_fleet", "write_synthetic_walenet_onnx"]
 
 N_STEPS = 30
 DT = 0.1
@@ -269,3 +276,218 @@ def device_fleet(n_members: int, device=None, dtype: str = "float32", seed: int 
         cfg.simulation.start_multiagent = family in (1, 3)
         sims.append(DeviceSimulation(Simulation(scenario, cfg, device)))
     return sims
+
+
+# --------------------------------------------------------------------------
+# a synthetic Wale-Net export
+# --------------------------------------------------------------------------
+
+
+def _varint(n: int) -> bytes:
+    n &= (1 << 64) - 1              # a negative int64 as its two's complement
+    out = bytearray()
+    while True:
+        low, n = n & 0x7F, n >> 7
+        out.append(low | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _field(fnum: int, value) -> bytes:
+    """One protobuf field: an int as a varint, bytes or str length-delimited."""
+    if isinstance(value, int):
+        return _varint(fnum << 3) + _varint(value)
+    data = value.encode() if isinstance(value, str) else value
+    return _varint((fnum << 3) | 2) + _varint(len(data)) + data
+
+
+_ONNX_DTYPE = {np.dtype(np.float32): 1, np.dtype(np.int64): 7}
+
+
+def _tensor_proto(name: str, arr: np.ndarray) -> bytes:
+    """TensorProto: dims (1), data_type (2), name (8), little-endian raw_data (9)."""
+    arr = np.asarray(arr)
+    out = b"".join(_field(1, int(d)) for d in arr.shape)
+    out += _field(2, _ONNX_DTYPE[arr.dtype]) + _field(8, name)
+    return out + _field(9, arr.astype(arr.dtype.newbyteorder("<")).tobytes())
+
+
+def _attribute(name: str, value) -> bytes:
+    """AttributeProto: name (1), then f (2), i (3), t (5) or ints (8), and
+    its type (20)."""
+    out = _field(1, name)
+    if isinstance(value, float):
+        return out + _varint((2 << 3) | 5) + struct.pack("<f", value) + _field(20, 1)
+    if isinstance(value, int):
+        return out + _field(3, value) + _field(20, 2)
+    if isinstance(value, np.ndarray):
+        return out + _field(5, _tensor_proto("", value)) + _field(20, 4)
+    return out + _field(8, b"".join(_varint(int(v)) for v in value)) + _field(20, 7)
+
+
+class _OnnxGraphWriter:
+    """Nodes and initializers of one GraphProto, in the order they are added."""
+
+    def __init__(self):
+        self.nodes, self.inits, self.count = [], [], 0
+
+    def init(self, name: str, arr) -> str:
+        self.inits.append(_tensor_proto(name, np.asarray(arr)))
+        return name
+
+    def node(self, op: str, inputs, n_out: int = 1, **attrs):
+        self.count += 1
+        outs = [f"{op.lower()}_{self.count}_{i}" for i in range(n_out)]
+        body = b"".join(_field(1, i) for i in inputs)
+        body += b"".join(_field(2, o) for o in outs)
+        body += _field(3, f"{op}_{self.count}") + _field(4, op)
+        body += b"".join(_field(5, _attribute(k, v)) for k, v in attrs.items())
+        self.nodes.append(body)
+        return outs[0] if n_out == 1 else outs
+
+    def const(self, value) -> str:
+        return self.node("Constant", [], value=np.asarray(value))
+
+    def model(self, inputs, outputs) -> bytes:
+        graph = b"".join(_field(1, n) for n in self.nodes)
+        graph += _field(2, "walenet_synthetic")
+        graph += b"".join(_field(5, t) for t in self.inits)
+        graph += b"".join(_field(11, _field(1, n)) for n in inputs)
+        graph += b"".join(_field(12, _field(1, n)) for n in outputs)
+        opset = _field(1, "") + _field(2, 11)
+        return (_field(1, 7) + _field(2, "frenetix_tpu_torch.workloads")
+                + _field(7, graph) + _field(8, opset))
+
+
+def write_synthetic_walenet_onnx(path: str, seed: int = 0, *, conv1: int = 32,
+                                 conv2: int = 16, embed: int = 32, enc: int = 64,
+                                 nbr_feat: int = 32, scene_feat: int = 32,
+                                 dec: int = 128) -> str:
+    """Write a Wale-Net-shaped ONNX graph (opset 11) to `path`; returns `path`.
+
+    The I/O contract is the real export's: inputs `hist` (30, B, 2), `nbrs`
+    (30, 39·B, 2) and `sc_img` (B, 1, 256, 256), output `predictions` (40, B,
+    5) with the channels (μx, μy, 1/σx, 1/σy, ρ) in the obstacle frame; its
+    first layer is `sc_conv1` (conv1, 1, 3, 3) on the full raster.  Only those
+    are known of the real net; its other widths (here `conv2`, `embed`,
+    `enc`, `nbr_feat`, `scene_feat`, `dec`) wait for the file, so the
+    defaults are guesses of the usual size and the predictions mean nothing
+    physically.
+
+    The graph: scene raster → Conv (pads 1) → LeakyRelu → MaxPool 2×2/2 →
+    Conv (stride 2) → LeakyRelu → AveragePool 16×16 → Reshape → Gemm; the
+    histories of the obstacle and of its 39 grid cells → one shared MatMul +
+    Add embedding → GRU encoder (linear_before_reset = 1); the last step of
+    `hist` (Gather) and its last displacement (Slice, Transpose, MatMul);
+    all concatenated → Gemm → Tanh, repeated over 40 steps (Tile, plus a
+    time embedding by Expand) → GRU decoder → MatMul + Add.  μ is the
+    constant-velocity extrapolation of the last displacement plus the
+    decoder's linear output (weights scaled so that it stays within about a
+    metre), 1/σ goes through Exp (about 2 m⁻¹), ρ through Tanh.  Every op of
+    the interpreter's Wale-Net list appears at least once, shape chains
+    (Shape, Gather, Unsqueeze, Concat, ConstantOfShape) included."""
+    rng = np.random.default_rng(seed)
+
+    def weight(shape, fan_in, gain=1.0):
+        return (rng.standard_normal(shape) * gain / np.sqrt(fan_in)).astype(np.float32)
+
+    g = _OnnxGraphWriter()
+    i64 = np.int64
+    # shape data: B, the flattening target (B, -1), (40, B, 2), (40, 1, 1)
+    batch = g.node("Unsqueeze", [g.node("Gather", [g.node("Shape", ["sc_img"]),
+                                                   g.const(np.array(0, i64))], axis=0)],
+                   axes=[0])
+    flat = g.node("Concat", [batch, g.const(np.array([-1], i64))], axis=0)
+    steps40 = g.const(np.array([40], i64))
+
+    # scene encoder
+    x = g.node("Conv", ["sc_img", g.init("sc_conv1.weight",
+                                         weight((conv1, 1, 3, 3), 9, 1.0 / 255.0)),
+                        g.init("sc_conv1.bias", np.zeros(conv1, np.float32))],
+               kernel_shape=[3, 3], pads=[1, 1, 1, 1], strides=[1, 1])
+    x = g.node("MaxPool", [g.node("LeakyRelu", [x], alpha=0.1)],
+               kernel_shape=[2, 2], strides=[2, 2])
+    x = g.node("Conv", [x, g.init("sc_conv2.weight", weight((conv2, conv1, 3, 3), 9 * conv1)),
+                        g.init("sc_conv2.bias", np.zeros(conv2, np.float32))],
+               kernel_shape=[3, 3], pads=[1, 1, 1, 1], strides=[2, 2])
+    x = g.node("AveragePool", [g.node("LeakyRelu", [x], alpha=0.1)],
+               kernel_shape=[16, 16], strides=[16, 16])
+    x = g.node("Gemm", [g.node("Reshape", [x, flat]),
+                        g.init("sc_fc.weight", weight((scene_feat, conv2 * 16), conv2 * 16)),
+                        g.init("sc_fc.bias", np.zeros(scene_feat, np.float32))], transB=1)
+    scene = g.node("LeakyRelu", [x], alpha=0.1)
+
+    # history encoders: one embedding and one GRU for the obstacle and its
+    # neighbour cells
+    emb_w = g.init("ip_emb.weight_t", weight((2, embed), 2, 1.0 / 20.0))
+    emb_b = g.init("ip_emb.bias", np.zeros(embed, np.float32))
+    gru_w = [g.init("enc_lstm.W", weight((1, 3 * enc, embed), embed)),
+             g.init("enc_lstm.R", weight((1, 3 * enc, enc), enc)),
+             g.init("enc_lstm.B", np.zeros((1, 6 * enc), np.float32))]
+
+    def encode(seq):
+        e = g.node("LeakyRelu", [g.node("Add", [g.node("MatMul", [seq, emb_w]), emb_b])],
+                   alpha=0.1)
+        return g.node("GRU", [e, *gru_w], n_out=2, hidden_size=enc,
+                      linear_before_reset=1)[1]                  # Y_h (1, ·, enc)
+
+    hist_enc = g.node("Squeeze", [encode("hist")], axes=[0])
+    nbr = g.node("Reshape", [g.node("Transpose", [encode("nbrs")], perm=[1, 0, 2]), flat])
+    nbr_enc = g.node("LeakyRelu", [g.node("Gemm", [
+        nbr, g.init("dyn_emb.weight", weight((nbr_feat, 39 * enc), 39 * enc)),
+        g.init("dyn_emb.bias", np.zeros(nbr_feat, np.float32))], transB=1)], alpha=0.1)
+    last = g.node("Gather", ["hist", g.const(np.array(29, i64))], axis=0)      # (B, 2)
+    two = g.node("Slice", ["hist", g.const(np.array([28], i64)),
+                           g.const(np.array([np.iinfo(i64).max], i64)),
+                           g.const(np.array([0], i64))])                    # (2, B, 2)
+    vel = g.node("MatMul", [g.node("Transpose", [two], perm=[1, 2, 0]),
+                            g.init("last_step.weight", np.array([[-1.0], [1.0]], np.float32))])
+    vel = g.node("Reshape", [vel, flat])                                     # (B, 2)
+
+    # decoder
+    feat = enc + nbr_feat + scene_feat + 4
+    x = g.node("Concat", [hist_enc, nbr_enc, scene, vel, last], axis=1)
+    x = g.node("Tanh", [g.node("Gemm", [
+        x, g.init("dec_in.weight", weight((enc, feat), feat)),
+        g.init("dec_in.bias", np.zeros(enc, np.float32))], transB=1)])
+    reps = g.node("Concat", [steps40, g.node("ConstantOfShape", [g.const(np.array([2], i64))],
+                                             value=np.ones(1, i64))], axis=0)
+    x = g.node("Tile", [g.node("Unsqueeze", [x], axes=[0]), reps])         # (40, B, enc)
+    t_shape = g.node("Concat", [steps40, batch, g.const(np.array([enc], i64))], axis=0)
+    x = g.node("Add", [x, g.node("Expand", [
+        g.init("dec_time.weight", weight((40, 1, enc), 1, 0.1)), t_shape])])
+    x = g.node("Add", [x, g.node("ConstantOfShape", [g.const(np.array([enc], i64))],
+                                 value=np.zeros(1, np.float32))])
+    y = g.node("GRU", [x, g.init("dec_lstm.W", weight((1, 3 * dec, enc), enc)),
+                       g.init("dec_lstm.R", weight((1, 3 * dec, dec), dec)),
+                       g.init("dec_lstm.B", np.zeros((1, 6 * dec), np.float32))],
+               n_out=2, hidden_size=dec, linear_before_reset=1)[0]          # (40, 1, B, dec)
+    out_w = weight((dec, 5), dec) * np.array([0.5, 0.5, 0.1, 0.1, 0.1], np.float32)
+    out_b = np.array([0.0, 0.0, np.log(2.0), np.log(2.0), 0.0], np.float32)
+    raw = g.node("Add", [g.node("MatMul", [g.node("Squeeze", [y], axes=[1]),
+                                            g.init("op.weight_t", out_w)]),
+                         g.init("op.bias", out_b)])                          # (40, B, 5)
+
+    # heads: μ = constant velocity + the linear channels, 1/σ = exp, ρ = tanh
+    ramp = g.init("cv_ramp", np.arange(1, 41, dtype=np.float32)[:, None])
+    cv = g.node("MatMul", [ramp, g.node("Reshape", [vel, g.const(np.array([1, -1], i64))])])
+    cv = g.node("Reshape", [cv, g.node("Concat", [steps40, batch,
+                                                  g.const(np.array([2], i64))], axis=0)])
+
+    def channels(lo, hi, **steps):
+        ins = [raw, g.const(np.array([lo], i64)), g.const(np.array([hi], i64)),
+               g.const(np.array([2], i64))]
+        if steps:
+            ins.append(g.const(np.array([1], i64)))
+        return g.node("Slice", ins)
+
+    mu = g.node("Add", [cv, channels(0, 2)])
+    sig = g.node("Exp", [channels(2, 4)])
+    rho = g.node("Tanh", [channels(4, np.iinfo(i64).max, steps=True)])
+    out = g.node("Concat", [mu, sig, rho], axis=2)
+    g.count += 1
+    g.nodes.append(_field(1, out) + _field(2, "predictions") + _field(3, "Identity_out")
+                   + _field(4, "Identity"))
+    with open(path, "wb") as f:
+        f.write(g.model(["hist", "nbrs", "sc_img"], ["predictions"]))
+    return path

@@ -2,7 +2,7 @@
 
 `frenetix_tpu_torch` imports nothing of `frenetix_tpu`; it carries copies of
 `geometry/refpath.py`, `geometry/corridor.py`, `ops/sampling.py`,
-`io/commonroad.py` and `io/scenario_factory.py`.  Each test feeds the same
+`io/commonroad.py`, `io/scenario_factory.py` and `models/onnx_lite.py`.  Each test feeds the same
 inputs, made from a seed with NumPy, to the original and to the copy and
 asks for equal arrays (exact: the copies run the same NumPy expressions), so
 a copy cannot drift unnoticed.
@@ -17,13 +17,16 @@ from frenetix_tpu.geometry import corridor as jcorridor
 from frenetix_tpu.geometry import refpath as jrefpath
 from frenetix_tpu.io import commonroad as jcr
 from frenetix_tpu.io import scenario_factory as jfactory
+from frenetix_tpu.models import onnx_lite as jonnx
 from frenetix_tpu.ops import sampling as jsampling
 from frenetix_tpu_torch.geometry import corridor as tcorridor
 from frenetix_tpu_torch.geometry import refpath as trefpath
 from frenetix_tpu_torch.io import commonroad as tcr
 from frenetix_tpu_torch.io import commonroad_writer
 from frenetix_tpu_torch.io import scenario_factory as tfactory
+from frenetix_tpu_torch.models import onnx_lite as tonnx
 from frenetix_tpu_torch.ops import sampling as tsampling
+from frenetix_tpu_torch.workloads import write_synthetic_walenet_onnx
 
 
 def _wavy_polyline(seed):
@@ -144,6 +147,24 @@ def test_commonroad_reader_copy_equals_original(tmp_path):
     assert got.dynamic_obstacles and got.planning_problems
     p = np.array([30.0, 0.5])
     assert got.find_lanelets_by_position(p) == want.find_lanelets_by_position(p)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_onnx_reader_copy_equals_original(tmp_path, seed):
+    """A written Wale-Net-shaped graph reads back the same through the
+    original reader and the copy: nodes, attributes, initializers, I/O."""
+    path = write_synthetic_walenet_onnx(str(tmp_path / "net.onnx"), seed, conv1=4,
+                                        conv2=3, embed=4, enc=6, nbr_feat=5,
+                                        scene_feat=3, dec=7)
+    want, got = jonnx.load_onnx(path), tonnx.load_onnx(path)
+    _assert_equal_values(want, got, "graph")
+    assert got.inputs == ["hist", "nbrs", "sc_img"] and len(got.nodes) > 60
+    for name, arr in want.initializers.items():
+        assert got.initializers[name].dtype == arr.dtype, name
+    assert tonnx.__all__ == jonnx.__all__
+    with pytest.raises(ValueError, match="no graph"):
+        (tmp_path / "empty.onnx").write_bytes(b"\x08\x07")
+        tonnx.load_onnx(str(tmp_path / "empty.onnx"))
 
 
 _FAMILIES = sorted(n for n in dir(jfactory) if n.startswith("make_"))

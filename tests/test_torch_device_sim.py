@@ -418,19 +418,37 @@ def test_low_velocity_start_takes_the_lo_kinematics_merge():
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    (("prediction", "mode"), "walenet", "slice 5"),
     (("occlusion", "use_occlusion_module"), True, "host-loop only"),
 ])
 def test_options_of_later_slices_raise_in_the_device_run(field, value, slice_name):
-    """Wale-Net predictions (slice 5) raise; with the occlusion module as
-    well they raise as in the JAX package (its device run threads no host
-    phantom geometry)."""
+    """Wale-Net predictions with the occlusion module raise, as in the JAX
+    package (its device run threads no host phantom geometry)."""
     sim = Simulation(tfactory.make_highway(n_steps=30), _tcfg(), CPU)
     sim.config.prediction.mode = "walenet"
     section, name = field
     setattr(getattr(sim.config, section), name, value)
     with pytest.raises(NotImplementedError, match=slice_name):
         tds.DeviceSimulation(sim)
+
+
+@pytest.mark.parametrize("behavior", [False, True])
+def test_walenet_constructs_the_hybrid_prediction_path(behavior, tmp_path, monkeypatch):
+    """A walenet device run builds no prediction window (the net is not
+    loaded at construction: a missing export raises only when the run
+    starts), and with behavior its FSM stays on the host."""
+    from frenetix_tpu_torch.models import walenet
+
+    monkeypatch.setattr(walenet, "WALENET_ONNX_PATH", str(tmp_path / "absent.onnx"))
+    walenet._WALENET_CACHE.clear()
+    cfg = _tcfg(prediction={"mode": "walenet"},
+                behavior={"use_behavior_planner": behavior})
+    ds = tds.DeviceSimulation(Simulation(tfactory.make_highway(n_steps=30), cfg, CPU))
+    assert ds.hybrid_pred and not ds.fsm_in_scan
+    assert not ds.tensors.pred_windows["valid"].any()
+    if behavior:
+        assert ds.fsm_reason == "walenet predictions run on the hybrid path"
+    with pytest.raises(FileNotFoundError):
+        ds.run()
 
 
 @pytest.mark.parametrize("field,value,flag", [

@@ -96,11 +96,8 @@ def test_run_scenario_cuda_without_cuda_raises():
 @pytest.mark.parametrize("override", [
     {"simulation": {"sharded_device_agents": True}},
     {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
-    {"behavior": {"use_behavior_planner": True}, "prediction": {"mode": "walenet"}},
     {"simulation": {"device_resident_sim": True, "sharded_device_agents": True},
      "behavior": {"use_behavior_planner": True}},
-    {"simulation": {"device_resident_sim": True}, "prediction": {"mode": "walenet"}},
-    {"prediction": {"mode": "walenet"}},
 ])
 def test_features_outside_the_slice_raise(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -127,6 +124,9 @@ def test_features_outside_the_slice_raise(override):
      "simulation": {"start_multiagent": True, "batched_device_agents": True}},
     {"behavior": {"use_behavior_planner": True, "device_fsm": "hybrid"},
      "simulation": {"start_multiagent": True, "device_resident_sim": True}},
+    {"behavior": {"use_behavior_planner": True}, "prediction": {"mode": "walenet"}},
+    {"simulation": {"device_resident_sim": True}, "prediction": {"mode": "walenet"}},
+    {"prediction": {"mode": "walenet"}},
 ])
 def test_features_of_this_slice_construct(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -219,15 +219,26 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "behavior", "behavior.frame", "behavior.static_route",
                  "behavior.velocity_planner", "behavior.path_planner", "behavior.fsm",
                  "behavior.behavior_module", "behavior.device_fsm", "sim.world_view",
-                 "sim.planner_interfaces", "run_scenario", "workloads"):
+                 "sim.planner_interfaces", "run_scenario", "workloads", "models",
+                 "models.onnx_lite", "models.onnx_torch", "models.walenet"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 import os
+from frenetix_tpu_torch.models import walenet
 from frenetix_tpu_torch.run_scenario import main
+from frenetix_tpu_torch.workloads import write_synthetic_walenet_onnx
 logs = sys.argv[1]
 rc = main(["highway", "--device", "cpu", "--evaluate", "--logs", logs,
            "--set", "planning.sampling_min=1", "--set", "planning.sampling_max=2"])
 assert rc == 0, rc
+walenet.WALENET_ONNX_PATH = write_synthetic_walenet_onnx(
+    os.path.join(logs, "walenet.onnx"), conv1=4, conv2=3, embed=4, enc=6, nbr_feat=5,
+    scene_feat=3, dec=7)
+rc = main(["highway", "--device", "cpu", "--prediction", "walenet", "--evaluate",
+           "--logs", os.path.join(logs, "walenet"), "--set", "planning.sampling_min=1",
+           "--set", "planning.sampling_max=2"])
+assert rc == 0, rc
+assert os.path.exists(os.path.join(logs, "walenet", "highway", "solution_60000.xml"))
 for rel in ("messages.log", "score_overview.csv", "highway/simulation.db",
             "highway/60000/trajectories.db", "highway/60000/logs.csv",
             "highway/solution_60000.xml"):
