@@ -141,8 +141,40 @@ Phases, each printed on lines of its own:
    (f) `highway --prediction walenet --evaluate` through the CLI;
    (g) a missing export raises FileNotFoundError.
 
-Each path (phases 4 to 16) is driven with K1's launch count set to 0 just
-before and read just after; a path that launched no kernel fails the run.
+17. the torch.distributed mesh, last, in this process joined to a world of
+   one rank under NCCL (`parallel.distributed.initialize` over a file store
+   under build/; the group is destroyed at the end):
+   (a) the backend, `process_info() == (0, 1)`, `default_device()` the
+   rank's card;
+   (b) `parallel.mesh.sharded_full_cycle` on phase 6's stacked problem
+   (A = 8, M = 1024, float32): every output and `poses_all` bitwise equal
+   to `batched_full_cycle` on the card, one K1 launch per call; p50 of both
+   in turns (batched, sharded, sharded, batched) and of the all-gather
+   alone (`gather_rows`, a real NCCL call at W = 1), beside phase 6's p50;
+   (c) `DeviceSimulation(convoy A = 8, mesh)` eager and replayed with the
+   NCCL all-gather captured in the CUDA graph (sync debug mode "error", one
+   fetch, replayed = eager bitwise, K1 = programs x cycles), statuses and
+   steps equal to phase 11's unsharded run, positions within 1e-4 m; ms per
+   cycle beside phase 11's;
+   (d) `run_fleet(workloads.device_fleet(2), mesh)` equal to the unsharded
+   fleet (statuses, steps, trajectories bitwise);
+   (e) `graft_entry.entry()` on the card: best_idx equal to the CPU float64
+   run's or tied within 4 float32 ulps; `dryrun_multichip(1, "cuda")` in a
+   spawned NCCL rank of its own, which reports its K1 launches;
+   (f) `highway overtake --workers 2` through the CLI on the card against
+   the sequential CLI run: the same score rows up to wall_s; each worker
+   reports its K1 launches;
+   (g) a rehearsal on the CPU in a 2-rank gloo world of spawned processes:
+   (b)'s sharded cycle against the batched cycle, and the overtake (at
+   sampling level 1) through `DeviceSimulation(mesh=2 ranks)` against its
+   solo run (statuses, steps, positions within 1e-4 m); its wall.  It shows the split and the gather
+   across processes, which one card cannot show under NCCL (two NCCL ranks
+   cannot share a card); its ranks run K1's plain twin on the CPU, so it
+   counts no launch and is not a card path.
+
+Each path on the card (phases 4 to 17) is driven with K1's launch count set
+to 0 just before and read just after (spawned ranks and workers report
+their own counts); a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the script exits
 non-zero without printing the last line.  It needs no network and starts
@@ -311,9 +343,13 @@ class Launches:
         """`replayed`: the path replays a CUDA graph, which the counter does
         not see (it counted the launches recorded at capture); the path's
         launches are then the run's own figure, recorded × replays."""
-        n = table_interp.LAUNCHES
+        return self.record(path, table_interp.LAUNCHES if replayed is None else replayed)
+
+    def record(self, path, n):
+        """A path's launches as counted elsewhere (a replayed graph, or a
+        spawned process that reports its own count)."""
         check(n > 0, f"{path} launched K1 no time")
-        self.by_path[path] = n if replayed is None else replayed
+        self.by_path[path] = int(n)
         return self.by_path[path]
 
 
@@ -920,6 +956,9 @@ def _replayed_and_eager(ds, what, launches, programs):
 
 
 def phase_device_run(dev, smi, launches, host_runs):
+    """Returns {family: (replayed result, ms per cycle replayed, eager)},
+    which phase 17 holds the sharded run against."""
+    runs = {}
     for family, n_agents in (("convoy", 8), ("highway", 2)):
         host_batched, host = host_runs[family]
         ds = _device_sim(family, dev)
@@ -957,6 +996,9 @@ def phase_device_run(dev, smi, launches, host_runs):
                   f"sequential wall {host.wall_time:.3f} s, host batched wall "
                   f"{host_batched.wall_time:.3f} s; host batched / replayed "
                   f"{host_batched.wall_time / replayed.wall_time:.2f} [{smi}]")
+        runs[family] = (replayed, 1e3 * replayed.wall_time / c_n,
+                        1e3 * eager.wall_time / c_n)
+    return runs
 
 
 def phase_fleet(dev, smi, launches):
@@ -1804,6 +1846,263 @@ def phase_walenet(dev, smi, launches):
         walenet._WALENET_CACHE.clear()
 
 
+# ---------------------------------------------------------------- phase 17
+
+MESH_STORE = os.path.join("build", "chip_smoke_mesh_store")
+
+
+def _same_selection(a, b):
+    """Two selection dicts of tensors bitwise equal, key by key."""
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _mesh_cycle(dev, smi, launches, mesh, batched_p50):
+    """(b): the sharded cycle on phase 6's problem at W = 1."""
+    from frenetix_tpu_torch.parallel.mesh import _poses_from, gather_rows, sharded_full_cycle
+
+    matrices, masks, ctx, _, dt, n_steps = stacked_cycle_problem(
+        A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+    batched = batched_full_cycle(dt=dt, n_steps=n_steps)
+    sharded = sharded_full_cycle(mesh, dt=dt, n_steps=n_steps)
+    ref = batched(matrices, masks, ctx)
+    launches.start()
+    out, poses = sharded(matrices, masks, ctx)
+    check(launches.stop("sharded cycle W=1 (nccl)") == 1,
+          "a sharded call launches K1 once on its rank")
+    check(_same_selection(out, ref), "sharded cycle: the selection differs from the "
+                                     "batched cycle's")
+    check(torch.equal(poses, _poses_from(ref)), "sharded cycle: poses_all differ")
+    check(bool(out["found"].all()), f"sharded cycle: found {out['found'].tolist()}")
+
+    def run_batched():
+        batched(matrices, masks, ctx)
+
+    def run_sharded():
+        sharded(matrices, masks, ctx)
+
+    p50 = {}
+    for name, fn in (("batched", run_batched), ("sharded", run_sharded),
+                     ("sharded again", run_sharded), ("batched again", run_batched)):
+        p50[name] = timed_calls(fn)[0]
+    gather_p50 = timed_calls(lambda: gather_rows(mesh, ref))[0]
+    phase(17, f"(b) sharded_full_cycle W=1 A={A_BATCH} M={M_BATCH} on the card: "
+              f"selection and poses_all bitwise equal to batched_full_cycle, best "
+              f"{out['best'].tolist()}, 1 K1 launch per call; p50 in turns: batched "
+              f"{p50['batched']:.3f} / {p50['batched again']:.3f} ms, sharded "
+              f"{p50['sharded']:.3f} / {p50['sharded again']:.3f} ms (phase 6 batched "
+              f"{batched_p50:.3f} ms); the all-gather alone (gather_rows, one NCCL "
+              f"call) p50 {gather_p50:.3f} ms [{smi}]")
+
+
+def _mesh_device_run(dev, smi, launches, mesh, device_runs):
+    """(c): the convoy's device run on the mesh, replayed with the NCCL
+    all-gather inside the captured graph."""
+    config = load_config()
+    config.dtype = "float32"
+    config.simulation.start_multiagent = True
+    ds = device_sim.DeviceSimulation(
+        Simulation(scenario_factory.make_convoy(), config, dev), mesh=mesh)
+    programs = 2 * len(ds.levels)
+    _run_once(ds, graph=False)
+    eager, replayed, first = _replayed_and_eager(
+        ds, "device-resident convoy, mesh W=1 (nccl)", launches, programs)
+    base, base_ms, base_eager_ms = device_runs["convoy"]
+    check(np.array_equal(replayed.status, base.status) and replayed.steps == base.steps,
+          f"mesh convoy: status {replayed.status} steps {replayed.steps} vs phase 11 "
+          f"{base.status} steps {base.steps}")
+    n = replayed.steps
+    gap = float(np.abs(replayed.trajectories[:n, :, :2].astype(np.float64)
+                       - base.trajectories[:n, :, :2]).max())
+    check(gap <= POS_TOL, f"mesh convoy {gap} m from phase 11's run (limit {POS_TOL})")
+    bitwise = np.array_equal(replayed.trajectories, base.trajectories)
+    c_n = ds.n_cycles
+    phase(17, f"(c) convoy device-resident on the mesh W=1, 8 agents, {c_n} cycles of "
+              f"{programs} programs each with its NCCL all-gather, 1 fetch per run, no "
+              f"synchronisation in the loop: eager "
+              f"{1e3 * eager.wall_time / c_n:.3f} ms per cycle, replayed with the "
+              f"all-gather captured in the graph {1e3 * replayed.wall_time / c_n:.3f} ms "
+              f"per cycle (capture {first.extras['capture_s']:.3f} s), replayed = eager "
+              f"bitwise, K1 launches {first.extras['k1_launches']} = recorded x replays; "
+              f"phase 11 unsharded: eager {base_eager_ms:.3f}, replayed {base_ms:.3f} ms "
+              f"per cycle; statuses and steps ({n}) equal, positions within {gap:.3e} m "
+              f"(bitwise {bitwise}) [{smi}]")
+
+
+def _mesh_fleet(dev, smi, launches):
+    """(d): a fleet of two split over the mesh against the unsharded fleet."""
+    from frenetix_tpu_torch.parallel.mesh import make_agent_mesh
+
+    fleet_mesh = make_agent_mesh(axis_name="scenarios")
+    fetches = device_sim.FETCHES
+    launches.start()
+    t0 = time.perf_counter()
+    sharded = device_sim.run_fleet(device_fleet(2, dev, "float32"), mesh=fleet_mesh,
+                                   sync_debug=True)
+    wall = time.perf_counter() - t0
+    n_k1 = launches.record("fleet S=2 over the mesh W=1, replayed",
+                           sharded[0].extras["k1_launches"])
+    check(device_sim.FETCHES == fetches + 1, "a fleet on a mesh of one fetches once")
+    plain = device_sim.run_fleet(device_fleet(2, dev, "float32"))
+    for i, (a, b) in enumerate(zip(sharded, plain)):
+        check(np.array_equal(a.status, b.status) and a.steps == b.steps
+              and np.array_equal(a.trajectories, b.trajectories),
+              f"mesh fleet member {i} differs from the unsharded fleet")
+    phase(17, f"(d) run_fleet(device_fleet(2), mesh W=1) on the card: equal to the "
+              f"unsharded fleet bitwise (statuses {[r.status.tolist() for r in sharded]}, "
+              f"steps {[r.steps for r in sharded]}), 1 fetch, wall {wall:.3f} s with "
+              f"warm-up and capture, K1 launches {n_k1} [{smi}]")
+
+
+def _mesh_entry(dev, smi, launches):
+    """(e): the entry twin on the card and the dry run in an NCCL rank."""
+    from frenetix_tpu_torch.graft_entry import dryrun_multichip, entry
+
+    fn64, args64 = entry(torch.device("cpu"), torch.float64)
+    res64 = fn64(*args64)
+    fn, args = entry(dev)
+    launches.start()
+    res = fn(*args)
+    best = int(res.best_idx)
+    launches.stop("graft_entry.entry() on the card")
+    check(bool(res.found), "entry(): nothing found on the card")
+    tie = _same_or_tie(best, int(res64.best_idx), res64.cost.numpy(), "entry()")
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(1, "cuda")
+    wall = time.perf_counter() - t0
+    n_k1 = launches.record("dryrun_multichip(1, cuda), its rank", ranks[0]["k1_launches"])
+    phase(17, f"(e) entry() on the card: best_idx {best} (cpu f64 {int(res64.best_idx)}, "
+              f"{tie} ties within {ULPS} float32 ulps); dryrun_multichip(1, 'cuda') in a "
+              f"spawned NCCL rank: passed, K1 launches {n_k1}, wall {wall:.3f} s with the "
+              f"process start [{smi}]")
+
+
+def _mesh_workers(dev, smi, launches):
+    """(f): --workers 2 through the CLI on the card against the sequential
+    CLI run."""
+    import csv
+
+    seen = []
+    real = run_scenario.run_pipeline
+
+    def spy(*args, **kw):
+        seen.extend(real(*args, **kw))
+        return seen
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as root:
+        seq, par = os.path.join(root, "seq"), os.path.join(root, "par")
+        launches.start()
+        t0 = time.perf_counter()
+        _cli(["highway", "overtake", "--logs", seq, "--device", "cuda", "--no-logging"],
+             "(f) sequential")
+        seq_s = time.perf_counter() - t0
+        n_seq = launches.stop("cli highway overtake, sequential")
+        run_scenario.run_pipeline = spy
+        try:
+            t0 = time.perf_counter()
+            _cli(["highway", "overtake", "--logs", par, "--device", "cuda",
+                  "--no-logging", "--workers", "2"], "(f) --workers 2")
+            par_s = time.perf_counter() - t0
+        finally:
+            run_scenario.run_pipeline = real
+        n_par = launches.record("cli highway overtake --workers 2 (workers' counts)",
+                                sum(k for _, _, k in seen))
+        rows = {}
+        for name, d in (("seq", seq), ("par", par)):
+            with open(os.path.join(d, "score_overview.csv"), newline="") as f:
+                rows[name] = [r[:5] for r in csv.reader(f, delimiter=";")]
+        check(rows["par"] == rows["seq"] and len(rows["seq"]) == 3,
+              f"(f): --workers 2 rows {rows['par']} vs sequential {rows['seq']}")
+        check(all(ok for _, ok, _ in seen) and all(k > 0 for _, _, k in seen),
+              f"(f): workers {seen}")
+    phase(17, f"(f) highway overtake --workers 2 on the card: score rows equal to the "
+              f"sequential CLI run {[r[1:4] for r in rows['seq'][1:]]}; K1 launches "
+              f"{n_par} in the workers ({[k for _, _, k in seen]}), {n_seq} sequential; "
+              f"wall {par_s:.3f} s with 2 worker starts, sequential {seq_s:.3f} s [{smi}]")
+
+
+def _rehearsal_rank(rank, world):
+    """(g), one rank of the gloo world on the CPU."""
+    from frenetix_tpu_torch.parallel.mesh import make_agent_mesh, sharded_full_cycle
+
+    cpu = torch.device("cpu")
+    matrices, masks, ctx, _, dt, n_steps = stacked_cycle_problem(
+        A_BATCH, cpu, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+    mesh = make_agent_mesh()
+    t0 = time.perf_counter()
+    out, poses = sharded_full_cycle(mesh, dt=dt, n_steps=n_steps)(matrices, masks, ctx)
+    cycle_s = time.perf_counter() - t0
+    ref = batched_full_cycle(dt=dt, n_steps=n_steps)(matrices, masks, ctx)
+    # the overtake at sampling level 1: a rehearsal of the split on the
+    # host's CPU cores, not a measurement
+    config = load_config()
+    config.dtype = "float32"
+    config.simulation.start_multiagent = True
+    config.planning.sampling_min, config.planning.sampling_max = 1, 2
+    t0 = time.perf_counter()
+    sharded = device_sim.DeviceSimulation(
+        Simulation(scenario_factory.make_overtake(), config, cpu), mesh=mesh).run()
+    run_s = time.perf_counter() - t0
+    solo = device_sim.DeviceSimulation(
+        Simulation(scenario_factory.make_overtake(), config, cpu)).run()
+    return dict(cycle_equal=_same_selection(out, ref), best=out["best"].tolist(),
+                poses=poses.numpy(), cycle_s=cycle_s, run_s=run_s,
+                status=(sharded.status.tolist(), solo.status.tolist()),
+                steps=(sharded.steps, solo.steps),
+                gap=float(np.abs(sharded.trajectories[:, :, :2]
+                                 - solo.trajectories[:, :, :2]).max()))
+
+
+def _mesh_rehearsal(smi):
+    """(g): the split and the gather across two CPU processes."""
+    from frenetix_tpu_torch.parallel.distributed import run_world
+
+    t0 = time.perf_counter()
+    ranks = run_world(_rehearsal_rank, 2, device="cpu", timeout=400)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        check(res["cycle_equal"], f"(g) rank {r}: the sharded cycle differs from the "
+                                  f"batched cycle")
+        check(res["status"][0] == res["status"][1] and res["steps"][0] == res["steps"][1]
+              and res["gap"] <= POS_TOL, f"(g) rank {r}: sharded overtake {res}")
+        check(np.array_equal(res["poses"], ranks[0]["poses"]), f"(g) rank {r}: poses")
+    phase(17, f"(g) gloo rehearsal, 2 CPU ranks: sharded cycle A={A_BATCH} = batched on "
+              f"every rank (best {ranks[0]['best']}), {ranks[0]['cycle_s']:.3f} s per call; "
+              f"overtake DeviceSimulation(mesh=2 ranks) = solo (statuses "
+              f"{ranks[0]['status'][0]}, steps {ranks[0]['steps'][0]}, positions within "
+              f"{max(r['gap'] for r in ranks):.3e} m), {ranks[0]['run_s']:.3f} s per run; "
+              f"world wall {wall:.3f} s with process starts (CPU, not the card) [{smi}]")
+
+
+def phase_mesh(dev, smi, launches, batched_p50, device_runs):
+    import frenetix_tpu_torch
+    from frenetix_tpu_torch.parallel import distributed
+    from frenetix_tpu_torch.parallel.mesh import make_agent_mesh
+
+    os.makedirs(os.path.dirname(MESH_STORE), exist_ok=True)
+    store = os.path.abspath(MESH_STORE)
+    if os.path.exists(store):
+        os.remove(store)
+    check(distributed.initialize(init_method=f"file://{store}", num_processes=1,
+                                 process_id=0, device="cuda"), "initialize() joined nothing")
+    try:
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl", f"backend {backend}")
+        check(distributed.process_info() == (0, 1), f"{distributed.process_info()}")
+        check(frenetix_tpu_torch.default_device() == dev, "default_device()")
+        mesh = make_agent_mesh()
+        phase(17, f"(a) initialize(): backend {backend}, process_info() (0, 1), "
+                  f"default_device() {frenetix_tpu_torch.default_device()}, mesh "
+                  f"{mesh.mesh.tolist()} of device type {mesh.device_type} [{smi}]")
+        _mesh_cycle(dev, smi, launches, mesh, batched_p50)
+        _mesh_device_run(dev, smi, launches, mesh, device_runs)
+        _mesh_fleet(dev, smi, launches)
+        _mesh_entry(dev, smi, launches)
+    finally:
+        torch.distributed.destroy_process_group()
+    _mesh_workers(dev, smi, launches)
+    _mesh_rehearsal(smi)
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -1816,12 +2115,13 @@ def main() -> int:
     phase_risk(dev, smi, launches)
     host_resp = phase_responsibility(dev, smi, launches, batched_p50)
     host_occ = phase_occlusion(dev, smi, launches)
-    phase_device_run(dev, smi, launches, host_runs)
+    device_runs = phase_device_run(dev, smi, launches, host_runs)
     phase_fleet(dev, smi, launches)
     phase_behavior(dev, smi, launches)
     phase_device_post(dev, smi, launches, host_resp, host_occ)
     phase_cli(dev, smi, launches)
     phase_walenet(dev, smi, launches)
+    phase_mesh(dev, smi, launches, batched_p50, device_runs)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

@@ -8,7 +8,9 @@ Laid out like the JAX package `frenetix_tpu`, which stays the reference:
 - ``geometry``  reference-path tables, drivable corridor, Frenet ↔ Cartesian
 - ``planner``   the replanning cycle and the host planner around it
 - ``parallel``  the agent axis: stacked contexts, the batched cycle, the
-                batched stepper of the multi-agent simulation
+                batched stepper of the multi-agent simulation, the
+                device-resident run and fleets, and the torch.distributed
+                mesh that splits agents or scenarios over processes
 - ``risk``      collision probabilities, harm models, per-candidate risks
 - ``models``    Wale-Net prediction: the ONNX reader and its torch interpreter
 - ``sim``       the host simulation loop (single- and multi-agent)
@@ -20,6 +22,7 @@ it keeps its own copy of every host module it needs.  Entry points run on
 the CUDA device unless the caller passes another ``torch.device``.
 """
 import torch
+import torch.distributed as dist
 
 __version__ = "0.2.0"
 
@@ -28,10 +31,14 @@ __all__ = ["default_device"]
 
 def default_device() -> torch.device:
     """The device the port's entry points use when the caller names none:
-    the first CUDA device.  Raises where there is none; the CPU is used only
-    when a caller asks for it."""
+    the first CUDA device, or in a torch.distributed world the rank's own
+    card (`parallel.distributed.initialize` made it the current device).
+    Raises where there is none; the CPU is used only when a caller asks for
+    it."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "frenetix_tpu_torch runs on a CUDA device and none is available; "
             "pass torch.device('cpu') explicitly to run on the CPU")
+    if dist.is_available() and dist.is_initialized():
+        return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cuda", 0)

@@ -16,8 +16,10 @@ reach grids), with the occlusion module the safety gate and the soft costs
 do (phantom masks, stacked occluder geometry); see
 `parallel.mesh.batched_full_cycle`.
 
-A device mesh for the agent axis is not ported yet (ROADMAP.md slice 7) and
-raises NotImplementedError.
+With a `mesh` (`parallel.mesh.make_agent_mesh`) the agent axis is split
+over the ranks of a torch.distributed world: every rank evaluates its rows
+and all-gathers the selection (`parallel.mesh.sharded_full_cycle`), so each
+rank's `step` returns the same full result.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.occlusion import PhantomThresholds
 from frenetix_tpu_torch.parallel.mesh import (
-    _pad_table, _poses_from, batched_full_cycle,
+    _pad_table, _poses_from, batched_full_cycle, sharded_full_cycle,
 )
 from frenetix_tpu_torch.planner.core import CycleContext
 
@@ -40,13 +42,10 @@ class BatchedAgentStepper:
     Agents must share the static configuration (dt, N, bucket); their
     reference paths and corridors are stacked to a common R on the agents'
     device.  Low-velocity and stopping-mode agents are handled by the host
-    path (their cycles use other static flags)."""
+    path (their cycles use other static flags).  With a `mesh` the agents
+    are split over its ranks; their number must divide over it."""
 
     def __init__(self, config, agents, device: torch.device, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: a device mesh for the "
-                "agent axis (slice 7)")
         self.config = config
         self.dt = config.planning.dt
         self.n_steps = config.planning.n_steps
@@ -84,7 +83,7 @@ class BatchedAgentStepper:
         ew = config.external_cost_weights
         w_um, w_ve = float(ew.get("occ_um", 0.0)), float(ew.get("occ_ve", 0.0))
         self.use_occ_geom = self.use_occlusion and (w_um != 0.0 or w_ve != 0.0)
-        self._cycle = batched_full_cycle(
+        kwargs = dict(
             dt=self.dt, n_steps=self.n_steps, low_vel_mode=False,
             resp_weight=self.resp_weight, occlusion=self.use_occlusion,
             thresholds=PhantomThresholds.from_config(config.occlusion),
@@ -92,6 +91,17 @@ class BatchedAgentStepper:
             occ_um_weight=w_um, occ_ve_weight=w_ve,
             compensated_sum=bool(config.planning.compensated_cost_sum),
         )
+        if mesh is not None:
+            # (out, poses_all), both gathered over the mesh
+            self._cycle = sharded_full_cycle(mesh, **kwargs)
+        else:
+            cycle = batched_full_cycle(**kwargs)
+
+            def one_device(*args):
+                out = cycle(*args)
+                return out, _poses_from(out)
+
+            self._cycle = one_device
 
     def _tensor(self, a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
@@ -141,6 +151,5 @@ class BatchedAgentStepper:
             desired_velocity=v_des,
             desired_avg_velocity=v_des,
         )
-        out = self._cycle(self._tensor(matrices),
-                          torch.as_tensor(masks, device=self.device), ctx, *extras)
-        return out, _poses_from(out)
+        return self._cycle(self._tensor(matrices),
+                           torch.as_tensor(masks, device=self.device), ctx, *extras)

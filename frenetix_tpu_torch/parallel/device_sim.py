@@ -81,8 +81,16 @@ constant-velocity and Wale-Net predictions with mode-faithful peers, the
 full sensor pipeline, progressive densification, low-velocity kinematics,
 the emergency ladder in both modes ("stopping", "min_risk"), the
 post-passes, the behavior planner (in the run and hybrid), fleets and
-chunks.  A device mesh (ROADMAP.md slice 7) and Wale-Net with the occlusion
-module (as in the JAX package) raise NotImplementedError here.
+chunks, and the torch.distributed mesh (`parallel.mesh.make_agent_mesh`):
+with `DeviceSimulation(sim, mesh=...)` every program of a cycle (both
+kinematics modes, every level, the stopping program) runs on the rank's
+agent rows and all-gathers the selection dict inside the body (one
+collective per program and cycle, captured into the CUDA graph with the rest
+of the body under NCCL), while the O(A) bookkeeping stays replicated on every
+rank; `run_fleet(sims, mesh=...)` gives rank r the members
+[r·S/W, (r+1)·S/W), runs them with no collective inside the run, and
+gathers the members' results once.  Wale-Net with the occlusion module (as
+in the JAX package) raises NotImplementedError here.
 The road-departure check of executed poses is skipped, as in the JAX
 package: selected plans are corridor-checked inside the cycle.
 """
@@ -95,6 +103,7 @@ from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from frenetix_tpu_torch.behavior.device_fsm import (
     build_fsm_tensors, fsm_carry0, make_fsm_step, pad_fsm_tensors,
@@ -107,7 +116,8 @@ from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, PredictionTensors
 from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
 from frenetix_tpu_torch.parallel.mesh import (
     _SEL_FIELDS, _pad_table, agent_plan_predictions, agent_pose_predictions,
-    concat_obstacles, post_pass_selection,
+    agent_rows, check_axis, concat_obstacles, gather_rows, mesh_rows,
+    post_pass_selection,
 )
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
 from frenetix_tpu_torch.planner.reactive import wants_stopping_mode
@@ -940,7 +950,18 @@ class _Runner:
     def _programs(self, matrix, mask, x_cl, v, ctx, post: dict, quintic: bool = False):
         """One sampling matrix for all agents, both kinematics modes merged
         per agent by the host's rule v < low_vel_mode_threshold; `post` holds
-        the cycle's inputs of the post-passes (empty without them)."""
+        the cycle's inputs of the post-passes (empty without them).  With a
+        mesh this rank evaluates its agent rows and all-gathers the
+        selection of every agent."""
+        mesh = self.p.mesh
+        if mesh is None:
+            return self._programs_on(matrix, mask, x_cl, v, ctx, post, quintic)
+        lo, hi = mesh_rows(mesh, x_cl.shape[0])
+        return gather_rows(mesh, self._programs_on(
+            matrix[lo:hi], mask[lo:hi], x_cl[lo:hi], v[lo:hi], agent_rows(ctx, lo, hi),
+            {k: agent_rows(x, lo, hi) for k, x in post.items()}, quintic))
+
+    def _programs_on(self, matrix, mask, x_cl, v, ctx, post: dict, quintic: bool):
         p = self.p
         d0 = x_cl[..., 3]
         outs = []
@@ -1464,6 +1485,12 @@ class DeviceSimulation:
     device.  `device` defaults to the simulation's own, which defaults to
     the CUDA device and raises where there is none.
 
+    With a `mesh` (`parallel.mesh.make_agent_mesh`, every rank of it
+    constructing the same run) the agents are split over its ranks: each
+    evaluates its rows of every program and all-gathers the selection, so
+    every rank drives the same run to the same result.  The agent count
+    must divide over the mesh.
+
     With the behavior planner, `fsm_in_scan` says whether the FSM runs in
     the run (else `fsm_reason` says why not, and `run` takes the hybrid
     path, which steps the host Simulation's agents and behavior modules as
@@ -1471,12 +1498,17 @@ class DeviceSimulation:
     DeviceSimulation).  A walenet run always takes the hybrid path, with the
     same rule."""
 
-    def __init__(self, sim, device=None, mesh=None):
+    def __init__(self, sim, device=None, mesh=None, axis_name: str = "agents"):
         config = sim.config
         if mesh is not None:
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: a device mesh for the "
-                "device-resident run (slice 7)")
+            if len(sim.agents) % mesh.size() != 0:
+                raise ValueError(
+                    f"agent count {len(sim.agents)} must divide evenly over the "
+                    f"{mesh.size()}-rank mesh")
+            check_axis(mesh, axis_name)
+            if mesh.get_coordinate() is None:
+                raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+        self.mesh = mesh
         pcfg, p = config.prediction, config.planning
         if pcfg.mode == "walenet" and config.occlusion.use_occlusion_module:
             raise NotImplementedError(
@@ -2199,8 +2231,8 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
             for i, s in enumerate(sims)]
 
 
-def run_fleet(sims: list, chunk: int = None, graph: bool = True,
-              sync_debug: bool = False) -> list:
+def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = None,
+              graph: bool = True, sync_debug: bool = False) -> list:
     """Run S device simulations as ONE run over a leading scenario axis with
     ONE fetch: the same body, on (S, A, ...) tensors, so every kernel of a
     cycle serves all scenarios and K1 runs on the (S·A·R, C) table.
@@ -2223,10 +2255,21 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
     through the SAME buffers (and, on a CUDA device, the same captured
     graph): all groups are padded to the maxima of the whole fleet, the last
     group is filled with repeats of its first member, and every group is one
-    fetch.  `graph` and `sync_debug` as in `DeviceSimulation.run`."""
+    fetch.  `graph` and `sync_debug` as in `DeviceSimulation.run`.
+
+    `mesh`: the scenario axis is split over its ranks (every rank of it
+    passing the same members): rank r runs members [r·S/W, (r+1)·S/W) as a
+    fleet of its own, with no collective inside the run (and chunks of
+    ceil(chunk / W)), and the members' results are gathered once, so every
+    rank returns all S results in order.  S must divide over the mesh, and
+    a member built with its own mesh raises."""
     t_start = time.perf_counter()
     base = sims[0]
     for s in sims:
+        if s.mesh is not None:
+            raise ValueError("run_fleet composes members without meshes (per-member "
+                             "meshes are not supported; pass mesh= to run_fleet to "
+                             "split the scenario axis)")
         if s.statics != base.statics:
             raise ValueError(
                 "fleet members must share planning statics (dt, horizon, "
@@ -2235,7 +2278,16 @@ def run_fleet(sims: list, chunk: int = None, graph: bool = True,
                 "weight, prediction mode and sensor settings, occlusion "
                 "settings, behavior settings)")
     use_fsm = base.hybrid_behavior and all(s.fsm_in_scan for s in sims)
-    if base.hybrid_pred:
+    if mesh is not None:
+        check_axis(mesh, axis_name)
+        lo, hi = mesh_rows(mesh, len(sims), "fleet size")
+        local_chunk = None if chunk is None else -(-int(chunk) // mesh.size())
+        mine = run_fleet(sims[lo:hi], chunk=local_chunk, graph=graph,
+                         sync_debug=sync_debug)
+        parts = [None] * mesh.size()
+        dist.all_gather_object(parts, mine, group=mesh.get_group())
+        results = [r for part in parts for r in part]
+    elif base.hybrid_pred:
         # the host builds every member's rows each cycle from that member's
         # executed states: the members run one after another
         results = [s.run(graph=graph) for s in sims]

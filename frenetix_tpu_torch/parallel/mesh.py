@@ -21,13 +21,19 @@ With `resp_weight` the batched cycle adds the reach-set responsibility term
 phantom safety gate and the soft occlusion costs, each over ONE pass of the
 risk stack for all agents, and then selects again per agent.
 
-The multi-device variant (`make_agent_mesh`, `sharded_full_cycle`) is not
-ported yet (ROADMAP.md slice 7).
+The multi-device variant splits the agent axis over the ranks of a
+torch.distributed world (`parallel.distributed`): `make_agent_mesh` is a 1-D
+`DeviceMesh` over the ranks, and `sharded_full_cycle` runs the batched cycle
+on each rank's rows of the full inputs and all-gathers the selection dict
+(one collective per call: NCCL on the card, gloo on the CPU), so every rank
+returns the same full result, as JAX's `shard_map` + `all_gather` does over
+the devices of one process.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.occlusion import (
@@ -42,9 +48,14 @@ from frenetix_tpu_torch.risk.reachable_set import (
 )
 
 __all__ = [
+    "make_agent_mesh",
     "stack_cycle_contexts",
     "stack_reach_grids",
     "batched_full_cycle",
+    "sharded_full_cycle",
+    "mesh_rows",
+    "agent_rows",
+    "gather_rows",
     "agent_pose_predictions",
     "agent_plan_predictions",
     "concat_obstacles",
@@ -270,6 +281,156 @@ def _poses_from(out):
         [out["x"][:, 1], out["y"][:, 1], out["theta"][:, 1], out["v"][:, 1]],
         dim=-1,
     )
+
+
+# ---------------------------------------------------------------------------
+# the agent axis over the ranks of a torch.distributed world
+# ---------------------------------------------------------------------------
+
+
+def make_agent_mesh(devices=None, axis_name: str = "agents"):
+    """1-D `DeviceMesh` over the ranks of the torch.distributed world, or
+    over the first `devices` ranks (an int) or the listed ranks; agents (or
+    scenarios) split along it.  Every rank of the world calls it, in the same
+    order (it makes a process group).  The device type follows the world's
+    backend: "cuda" under NCCL, "cpu" under gloo."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_agent_mesh needs a torch.distributed world "
+                           "(parallel.distributed.initialize)")
+    world = dist.get_world_size()
+    if devices is None:
+        ranks = list(range(world))
+    elif isinstance(devices, int):
+        ranks = list(range(devices))
+    else:
+        ranks = [int(r) for r in devices]
+    if not ranks or min(ranks) < 0 or max(ranks) >= world:
+        raise ValueError(f"mesh ranks {ranks} do not lie in the world of {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, ranks, mesh_dim_names=(axis_name,))
+
+
+def check_axis(mesh, axis_name: str) -> None:
+    """A mesh built with its own axis name must be used under that name."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names and axis_name not in names:
+        raise ValueError(f"axis {axis_name!r} is not an axis of the mesh {names}")
+
+
+def mesh_rows(mesh, n: int, what: str = "agent count"):
+    """(lo, hi): this rank's rows of an axis of `n` rows split evenly over
+    the mesh, rank r taking [r·n/W, (r+1)·n/W).  Raises ValueError where n
+    does not divide over the mesh (as `shard_map` refuses it) or this rank
+    is not in the mesh."""
+    size = mesh.size()
+    if n % size:
+        raise ValueError(f"{what} {n} must divide evenly over the {size}-rank mesh")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+    per = n // size
+    return coord[0] * per, (coord[0] + 1) * per
+
+
+def agent_rows(x, lo: int, hi: int):
+    """Rows lo:hi of the leading agent axis of a tensor, or of every tensor
+    in a (named) tuple such as a CycleContext, a ReachSetGrid or the occluder
+    geometry.  A CycleContext's `weights` are config-level and stay whole,
+    as do scalars (`veh`, `dt_rs`); None stays None."""
+    if isinstance(x, torch.Tensor):
+        return x[lo:hi]
+    if isinstance(x, CycleContext):
+        return x._replace(**{f: agent_rows(getattr(x, f), lo, hi)
+                             for f in x._fields if f != "weights"})
+    if isinstance(x, tuple):
+        rows = [agent_rows(v, lo, hi) for v in x]
+        return type(x)(*rows) if hasattr(x, "_fields") else tuple(rows)
+    return x
+
+
+def gather_rows(mesh, out: dict) -> dict:
+    """Every rank's rows of a dict of (n, ...) tensors, all-gathered into
+    (W·n, ...) in rank order, the same on every rank of the mesh.
+
+    ONE collective: the leaves are packed into one (n, L) buffer of the
+    dict's floating dtype (indices, counters and flags are integers below
+    2^24, exact in float32), gathered, and split again into their own shapes
+    and dtypes."""
+    keys = list(out)
+    dtype = next(v.dtype for v in out.values() if v.is_floating_point())
+    n = out[keys[0]].shape[0]
+    flat = torch.cat([out[k].to(dtype).reshape(n, -1) for k in keys], dim=1)
+    parts = [torch.empty_like(flat) for _ in range(mesh.size())]
+    dist.all_gather(parts, flat, group=mesh.get_group())
+    full = torch.cat(parts)
+    res, col = {}, 0
+    for k in keys:
+        v = out[k]
+        w = int(np.prod(v.shape[1:], dtype=np.int64))
+        res[k] = full[:, col:col + w].reshape((full.shape[0],) + tuple(v.shape[1:])) \
+            .to(v.dtype)
+        col += w
+    return res
+
+
+def sharded_full_cycle(mesh, *, dt, n_steps, low_vel_mode=False, table_window=768,
+                       axis_name="agents", resp_weight=0.0, occlusion=False,
+                       harm_threshold=0.1, risk_threshold=1.0, thresholds=None,
+                       occ_pm_weight=0.0, compensated_sum=False, occ_um_weight=0.0,
+                       occ_ve_weight=0.0):
+    """The full multi-agent cycle with the agent axis split over `mesh`.
+
+    fn(matrices (A, M, 13), masks (A, M), stacked_ctx, *extras) →
+    (out, poses_all): every rank takes the full inputs, runs
+    `batched_full_cycle` on its rows [r·A/W, (r+1)·A/W) (one K1 launch on
+    its (A/W·R, C) table) and all-gathers the selection dict, so `out` (the
+    per-agent dict of `batched_full_cycle`) and `poses_all` (A, 4: x, y, θ,
+    v) are the same full result on every rank.  Feed `poses_all` to
+    `agent_pose_predictions` to build the next cycle's obstacle tensors on
+    the device.
+
+    A must divide over the mesh (ValueError otherwise; pad with agents whose
+    masks are all-False: their `found` comes back False).  Extras, split
+    along the agent axis like the contexts, in order: an agent-stacked
+    ReachSetGrid iff `resp_weight` ≠ 0; the (A, O) phantom-row mask iff
+    `occlusion`; the occluder geometry ego, r_vis, pts, pts_valid iff occ_um
+    or occ_ve is weighted (see `batched_full_cycle`).  Without `thresholds`
+    the gate takes `harm_threshold` and `risk_threshold`.
+
+    Ranks of the world outside a smaller mesh run nothing and receive the
+    gathered result from the mesh's first rank, so that every rank of the
+    world ends the call with the same selection."""
+    check_axis(mesh, axis_name)
+    thresholds = thresholds or PhantomThresholds(harm=harm_threshold,
+                                                 risk=risk_threshold)
+    local = batched_full_cycle(
+        dt=dt, n_steps=n_steps, low_vel_mode=low_vel_mode, table_window=table_window,
+        resp_weight=resp_weight, occlusion=occlusion, thresholds=thresholds,
+        occ_pm_weight=occ_pm_weight, occ_um_weight=occ_um_weight,
+        occ_ve_weight=occ_ve_weight, compensated_sum=compensated_sum)
+    root = int(mesh.mesh.reshape(-1)[0])
+
+    def fn(matrices, masks, ctx, *extras):
+        a_n = matrices.shape[0]
+        if a_n % mesh.size():
+            raise ValueError(f"agent count {a_n} must divide evenly over the "
+                             f"{mesh.size()}-rank mesh")
+        inside = mesh.get_coordinate() is not None
+        out = None
+        if inside:
+            lo, hi = mesh_rows(mesh, a_n)
+            out = gather_rows(mesh, local(
+                matrices[lo:hi], masks[lo:hi], agent_rows(ctx, lo, hi),
+                *(agent_rows(e, lo, hi) for e in extras)))
+        if mesh.size() < dist.get_world_size():
+            box = [{k: v.cpu() for k, v in out.items()} if inside else None]
+            dist.broadcast_object_list(box, src=root)
+            out = {k: v.to(matrices.device) for k, v in box[0].items()}
+        return out, _poses_from(out)
+
+    return fn
 
 
 def _peer_rows(means, orientations, velocities, in_plan, cov_pos, length, width,

@@ -5,7 +5,7 @@ Usage:
         [--device cuda|cpu] [--config-dir DIR] [--set KEY=VALUE ...]
         [--multiagent] [--batched-agents] [--device-sim]
         [--device-fleet [--chunk N]] [--prediction MODE] [--evaluate]
-        [--logs DIR] [--no-logging] [--plot] [--gif]
+        [--logs DIR] [--no-logging] [--workers N] [--plot] [--gif]
 
 Each argument is a CommonRoad XML file, a directory of them, or the name of
 a synthetic scenario family of `frenetix_tpu_torch/io/scenario_factory.py`
@@ -16,6 +16,9 @@ agent; `--batched-agents` evaluates all agents' cycles in one device pass.
 (`parallel.device_sim.DeviceSimulation`); `--device-fleet` runs ALL scenarios
 as one device run over a scenario axis with one fetch
 (`parallel.device_sim.run_fleet`; `--chunk N` in groups of N).
+`--workers N` runs the scenarios in N spawned worker processes
+(`run_pipeline`, the JAX CLI's scenario pipeline), each on `--device`:
+several workers share one card.
 
 `--config-dir DIR` merges every DIR/<section>.yaml into the config (a
 behavior.yaml with `use_behavior_planner: true` turns the behavior planner
@@ -62,7 +65,7 @@ from frenetix_tpu_torch.utils.logging import make_msg_logger
 from frenetix_tpu_torch.utils.sim_logging import SimulationLogger
 
 __all__ = ["FAMILIES", "load_target", "resolve_device", "run_one", "run_scenarios",
-           "run_device_fleet", "main"]
+           "run_device_fleet", "run_pipeline", "main"]
 
 FAMILIES = tuple(sorted(name[len("make_"):] for name in dir(scenario_factory)
                         if name.startswith("make_")))
@@ -144,11 +147,16 @@ def run_one(target, config, msg_logger=None, log_dir=None, evaluate=False, *,
     return res
 
 
-def _report(scenario_id, res, device, out, logs=None, msg_logger=None):
-    """One status row per agent to `out`, to `msg_logger` and, with `logs`,
-    to logs/score_overview.csv."""
-    rows = [(scenario_id, aid, res.steps, status.name, res.agent_messages[aid],
+def _rows(scenario_id, res) -> list:
+    """One status row per agent: (scenario, agent, steps, status, message,
+    wall seconds)."""
+    return [(scenario_id, aid, res.steps, status.name, res.agent_messages[aid],
              round(res.wall_time, 3)) for aid, status in res.agent_status.items()]
+
+
+def _report(rows, device, out, logs=None, msg_logger=None):
+    """The status rows to `out`, to `msg_logger` and, with `logs`, to
+    logs/score_overview.csv."""
     for name, aid, steps, status, message, wall in rows:
         print(f"{name} agent={aid} status={status} steps={steps} wall_s={wall:.3f} "
               f"device={device} message={message!r}", file=out, flush=True)
@@ -167,14 +175,14 @@ def _report(scenario_id, res, device, out, logs=None, msg_logger=None):
             w.writerows(rows)
 
 
-def _record_failure(logs, name, exc, msg_logger=None):
-    """A scenario that raised: one row with its traceback in
-    logs/log_failures.csv."""
+def _record_failure(logs, name, error, trace, msg_logger=None):
+    """A scenario that raised: one row with the exception's repr and its
+    traceback in logs/log_failures.csv."""
     if msg_logger:
-        msg_logger.error(f"{name} FAILED: {exc}")
+        msg_logger.error(f"{name} FAILED: {error}")
     os.makedirs(logs, exist_ok=True)
     with open(os.path.join(logs, "log_failures.csv"), "a", newline="") as f:
-        csv.writer(f, delimiter=";").writerow([name, repr(exc), traceback.format_exc()])
+        csv.writer(f, delimiter=";").writerow([name, error, trace])
 
 
 def run_scenarios(targets, config, device: torch.device, out=None, logs=None, *,
@@ -198,10 +206,11 @@ def run_scenarios(targets, config, device: torch.device, out=None, logs=None, *,
         except Exception as e:
             if logs is None:
                 raise
-            _record_failure(logs, target_name(target), e, msg_logger)
+            _record_failure(logs, target_name(target), repr(e), traceback.format_exc(),
+                            msg_logger)
             results.append((target, None))
             continue
-        _report(res.scenario_id, res, device, out, logs, msg_logger)
+        _report(_rows(res.scenario_id, res), device, out, logs, msg_logger)
         results.append((target, res))
     return results
 
@@ -225,18 +234,73 @@ def run_device_fleet(targets, config, device: torch.device, out=None,
         except Exception as e:      # containment: dropped from the fleet
             if logs is None:
                 raise
-            _record_failure(logs, target_name(target), e, msg_logger)
+            _record_failure(logs, target_name(target), repr(e), traceback.format_exc(),
+                            msg_logger)
             results.append((target, None))
     if not members:
         return results
     sims = [ds for _, ds in members]
     for (target, ds), dres in zip(members, run_fleet(sims, chunk=chunk)):
         res = ds.to_simulation_result(dres)
-        _report(ds.sim.scenario.scenario_id, res, device, out, logs, msg_logger)
+        _report(_rows(ds.sim.scenario.scenario_id, res), device, out, logs, msg_logger)
         if evaluate:
             evaluate_simulation(ds.sim.scenario, res, config, None,
                                 msg_logger=msg_logger, check_solutions=False)
         results.append((target, res))
+    return results
+
+
+def _pipeline_init(device: str, workers: int) -> None:
+    """Worker start-up: CPU workers share the host's cores evenly (the
+    threads of workers that each take all cores spin against one another)."""
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+def _pipeline_worker(payload):
+    """One scenario end to end in a spawned worker process: (target, status
+    rows, None, K1 launches), or (target, None, (repr, traceback), K1
+    launches) when it raised."""
+    from frenetix_tpu_torch.ops import table_interp
+
+    target, config, device, logs, evaluate, no_logging = payload
+    log_dir = None if no_logging else os.path.join(logs, target_name(target))
+    before = table_interp.LAUNCHES
+    try:
+        res = run_one(target, config, None, log_dir=log_dir, evaluate=evaluate,
+                      device=device)
+    except Exception as e:      # containment: the pipeline goes on
+        return (target, None, (repr(e), traceback.format_exc()),
+                table_interp.LAUNCHES - before)
+    return target, _rows(res.scenario_id, res), None, table_interp.LAUNCHES - before
+
+
+def run_pipeline(targets, config, device: torch.device, workers: int, out=None,
+                 logs="logs", *, evaluate=False, no_logging=False, msg_logger=None):
+    """The scenario pipeline: every target through `run_one` in a pool of
+    `workers` spawned processes, each on `device` (the JAX CLI's
+    `--workers`).  Score rows, printed lines and log_failures.csv as the
+    sequential run writes them, in the order of the targets; returns one
+    (target, every agent at its goal or None when it raised, the K1 kernel
+    launches of its run) per scenario."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    out = out or sys.stdout
+    payloads = [(t, config, str(device), logs, evaluate, no_logging) for t in targets]
+    results = []
+    ctx = mp.get_context("spawn")
+    with cf.ProcessPoolExecutor(max_workers=workers, mp_context=ctx,
+                                initializer=_pipeline_init,
+                                initargs=(str(device), workers)) as ex:
+        for target, rows, err, launches in ex.map(_pipeline_worker, payloads):
+            if err is not None:
+                _record_failure(logs, target_name(target), *err, msg_logger)
+                results.append((target, None, launches))
+                continue
+            _report(rows, device, out, logs, msg_logger)
+            results.append((target, all(r[3] == "COMPLETED_SUCCESS" for r in rows),
+                            launches))
     return results
 
 
@@ -276,6 +340,9 @@ def main(argv=None) -> int:
                          "log_failures.csv and the per-scenario logs")
     ap.add_argument("--no-logging", action="store_true",
                     help="no per-scenario logs (simulation.db, trajectory logs)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="run the scenarios in this many spawned worker processes, "
+                         "each on --device")
     ap.add_argument("--plot", action="store_true", help="save per-step frames")
     ap.add_argument("--gif", action="store_true", help="assemble frames into a GIF")
     args = ap.parse_args(argv)
@@ -310,6 +377,11 @@ def main(argv=None) -> int:
         results = run_device_fleet(targets, config, device, chunk=args.chunk,
                                    logs=args.logs, evaluate=args.evaluate,
                                    msg_logger=msg_logger)
+    elif args.workers > 1:
+        return 0 if all(ok for _, ok, _ in run_pipeline(
+            targets, config, device, args.workers, logs=args.logs,
+            evaluate=args.evaluate, no_logging=args.no_logging,
+            msg_logger=msg_logger)) else 1
     else:
         results = run_scenarios(targets, config, device, logs=args.logs,
                                 evaluate=args.evaluate, no_logging=args.no_logging,

@@ -40,9 +40,17 @@ With `prediction.mode = "walenet"` the global prediction and the peers'
 rows come from `models.walenet` (the net on the simulation's device, fed the
 agents' executed histories through a `WorldView`).
 
-The sharded path and plotting (`visualization.save_plots`, `show_plots`) are
-not ported yet; a config that asks for them raises NotImplementedError
-naming the ROADMAP.md slice that brings them.
+With `simulation.sharded_device_agents` the batched pass splits the agents
+over the ranks of the torch.distributed world (`parallel.distributed`), as
+the JAX package splits them over its devices: the mesh takes the world size,
+halved until it divides the agent count; a mesh of one rank is the plain
+batched path, so one process with the flag on runs exactly that.  Every
+rank runs the same loop and ends each step with the same selection; with
+more than one rank only rank 0 writes logs.
+
+Plotting (`visualization.save_plots`, `show_plots`) is not ported yet; a
+config that asks for it raises NotImplementedError naming the ROADMAP.md
+slice that brings it.
 """
 from __future__ import annotations
 
@@ -59,7 +67,8 @@ from frenetix_tpu_torch.models.walenet import walenet_predictions
 from frenetix_tpu_torch.io.commonroad import GoalCondition, PlanningProblem, State
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER
-from frenetix_tpu_torch.parallel.mesh import stack_reach_grids
+from frenetix_tpu_torch.parallel.distributed import process_info
+from frenetix_tpu_torch.parallel.mesh import make_agent_mesh, stack_reach_grids
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, wants_stopping_mode
 from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
 from frenetix_tpu_torch.sim.agent import Agent, AgentStatus
@@ -95,10 +104,7 @@ def _obb_overlap_np(c1, th1, h1, c2, th2, h2) -> bool:
 
 
 def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
-    sim = config.simulation
     out = []
-    if sim.sharded_device_agents:
-        out.append("simulation.sharded_device_agents (multi-GPU: slice 7)")
     vis = config.visualization
     for name in ("save_plots", "show_plots"):
         if getattr(vis, name):
@@ -131,6 +137,9 @@ class Simulation:
         Simulation (there `msg_logger` is the third positional argument)."""
         self.scenario = scenario
         self.config = config or FrenetixConfig()
+        if self.config.simulation.sharded_device_agents and process_info()[0] != 0:
+            # every rank runs the same loop; rank 0 writes the logs
+            msg_logger = sim_logger = log_dir = None
         self.msg_logger = msg_logger
         self.sim_logger = sim_logger
         self.log_dir = log_dir
@@ -173,6 +182,17 @@ class Simulation:
             attach_world_views(self)
         self._peer_rows_cache = None
         self._batched_stepper = None
+        # the agents' mesh of the sharded path: the world size halved until
+        # it divides the agent count (the JAX rule over devices); one rank
+        # is the plain batched path.  Built here, as every rank constructs
+        # the same Simulation in the same order
+        self._batched_mesh = None
+        if self.config.simulation.sharded_device_agents:
+            n_use = process_info()[1]
+            while n_use > 1 and len(self.agents) % n_use != 0:
+                n_use //= 2
+            if n_use > 1:
+                self._batched_mesh = make_agent_mesh(n_use)
         self._batched_max_m = 0
         self._road_segments = None      # static wall segments, built at first use
         self._dummy_reach_grid = None
@@ -592,7 +612,7 @@ class Simulation:
             from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
 
             self._batched_stepper = BatchedAgentStepper(
-                self.config, self.agents, self.device)
+                self.config, self.agents, self.device, mesh=self._batched_mesh)
             self._batched_weights = torch.as_tensor(
                 np.array([self.config.cost_weights.get(k, 0.0)
                           for k in COST_TERM_ORDER]),

@@ -2,10 +2,16 @@
 
 `frenetix_tpu_torch` imports nothing of `frenetix_tpu`; it carries copies of
 `geometry/refpath.py`, `geometry/corridor.py`, `ops/sampling.py`,
-`io/commonroad.py`, `io/scenario_factory.py` and `models/onnx_lite.py`.  Each test feeds the same
+`io/commonroad.py`, `io/scenario_factory.py`, `models/onnx_lite.py` and
+`utils/timers.py`.  Each test feeds the same
 inputs, made from a seed with NumPy, to the original and to the copy and
 asks for equal arrays (exact: the copies run the same NumPy expressions), so
 a copy cannot drift unnoticed.
+
+`graft_entry.entry()` is the twin of `__graft_entry__.entry()`: both build
+the synthetic problem in float32; cast to float64, the two cycles select the
+same candidate, whose costs agree within 1e-12 relative, and mark the same
+candidates selectable and of finite cost.
 """
 import dataclasses
 import inspect
@@ -19,6 +25,7 @@ from frenetix_tpu.io import commonroad as jcr
 from frenetix_tpu.io import scenario_factory as jfactory
 from frenetix_tpu.models import onnx_lite as jonnx
 from frenetix_tpu.ops import sampling as jsampling
+from frenetix_tpu.utils import timers as jtimers
 from frenetix_tpu_torch.geometry import corridor as tcorridor
 from frenetix_tpu_torch.geometry import refpath as trefpath
 from frenetix_tpu_torch.io import commonroad as tcr
@@ -26,6 +33,7 @@ from frenetix_tpu_torch.io import commonroad_writer
 from frenetix_tpu_torch.io import scenario_factory as tfactory
 from frenetix_tpu_torch.models import onnx_lite as tonnx
 from frenetix_tpu_torch.ops import sampling as tsampling
+from frenetix_tpu_torch.utils import timers as ttimers
 from frenetix_tpu_torch.workloads import write_synthetic_walenet_onnx
 
 
@@ -185,3 +193,60 @@ def test_factory_copy_brings_every_family():
     from frenetix_tpu_torch.run_scenario import FAMILIES
 
     assert sorted("make_" + f for f in FAMILIES) == _FAMILIES
+
+
+def test_timers_copy_equals_original(monkeypatch, tmp_path):
+    """The same nested scopes on a clock that ticks by known steps give the
+    same timing dict and the same JSON dump."""
+    import json
+    import time
+
+    def drive(mod, enabled):
+        ticks = iter(np.cumsum(np.linspace(0.5, 3.0, 40)))
+        monkeypatch.setattr(time, "perf_counter", lambda: float(next(ticks)))
+        timer = mod.ExecTimer(timing_enabled=enabled)
+        for _ in range(2):
+            with timer.time_with_cm("cycle"):
+                with timer.time_with_cm("cycle/risk"):
+                    with timer.time_with_cm("cycle/risk/harm"):
+                        pass
+                with timer.time_with_cm("cycle/costs"):
+                    pass
+        path = tmp_path / f"{mod.__name__}_{enabled}.json"
+        timer.dump(str(path))
+        return timer.get_timing_dict(), json.loads(path.read_text())
+
+    for enabled in (True, False):
+        want, got = drive(jtimers, enabled), drive(ttimers, enabled)
+        assert got == want
+    assert drive(ttimers, True)[0]["cycle"]["risk"]["calls"] == 2
+    assert ttimers.__all__ == jtimers.__all__
+
+
+def test_entry_cycle_equals_the_jax_entry():
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import __graft_entry__ as jentry
+    from frenetix_tpu_torch import graft_entry
+
+    def f64(x):
+        if hasattr(x, "dtype") and jnp.issubdtype(x.dtype, jnp.floating):
+            return x.astype(jnp.float64)
+        return x
+
+    jfn, jargs = jentry.entry()
+    jres = jax.jit(jfn)(*jax.tree.map(f64, jargs))
+    tfn, targs = graft_entry.entry(torch.device("cpu"), torch.float64)
+    matrix, mask, ctx = targs
+    np.testing.assert_array_equal(matrix.numpy(), np.asarray(jargs[0], np.float64))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jargs[1]))
+    tres = tfn(*targs)
+    assert bool(tres.found) and bool(jres.found)
+    assert int(tres.best_idx) == int(jres.best_idx)
+    want, got = np.asarray(jres.cost), tres.cost.numpy()
+    best = int(jres.best_idx)
+    np.testing.assert_allclose(got[best], want[best], rtol=1e-12)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    np.testing.assert_array_equal(tres.selectable.numpy(), np.asarray(jres.selectable))

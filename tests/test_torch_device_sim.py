@@ -474,9 +474,17 @@ def test_post_pass_options_construct_in_the_device_run(field, value, flag):
 
 
 def test_a_mesh_raises_in_the_device_run():
-    sim = Simulation(tfactory.make_highway(n_steps=30), _tcfg(), CPU)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tds.DeviceSimulation(sim, mesh=object())
+    """A mesh that the agents do not divide over raises the JAX package's
+    ValueError, before any collective (a stand-in with `size()` suffices)."""
+    class ThreeRanks:
+        def size(self):
+            return 3
+
+    sim = Simulation(tfactory.make_highway(n_steps=30),
+                     _tcfg(simulation={"start_multiagent": True}), CPU)
+    assert len(sim.agents) == 2
+    with pytest.raises(ValueError, match="agent count 2 must divide evenly over the 3"):
+        tds.DeviceSimulation(sim, mesh=ThreeRanks())
 
 
 @pytest.mark.parametrize("section,name", [("prediction", "mode"),

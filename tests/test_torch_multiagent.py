@@ -245,16 +245,26 @@ def test_dummy_agents_are_not_found_and_touch_nobody(ragged_problem):
 
 
 def test_unported_batched_options_raise():
-    """The device mesh of the agent axis is the one batched option still to
-    come; the responsibility term and the occlusion gate construct."""
+    """Every batched option constructs now, the device mesh of the agent axis
+    included; a mesh that the agents do not divide over raises the JAX
+    package's ValueError at the step, before any collective (a stand-in mesh
+    of three ranks suffices: the worlds themselves are `test_torch_mesh.py`'s)."""
     from frenetix_tpu_torch.io.scenario_factory import make_highway
     from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
+
+    class ThreeRanks:
+        mesh = torch.arange(3)
+        mesh_dim_names = ("agents",)
+
+        def size(self):
+            return 3
 
     cfg = tconfig.FrenetixConfig(dtype="float64")
     cfg.simulation.start_multiagent = True
     sim = Simulation(make_highway(n_steps=80), cfg, CPU)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        BatchedAgentStepper(cfg, sim.agents, CPU, mesh=object())
+    stepper = BatchedAgentStepper(cfg, sim.agents, CPU, mesh=ThreeRanks())
+    with pytest.raises(ValueError, match="agent count 2 must divide evenly"):
+        stepper._cycle(torch.zeros(2, 4, 13), torch.zeros(2, 4, dtype=torch.bool), None)
     for kw in (dict(resp_weight=0.2), dict(occlusion=True),
                dict(occlusion=True, occ_um_weight=1.0)):
         assert callable(tmesh.batched_full_cycle(dt=DT, n_steps=N, **kw))

@@ -94,10 +94,10 @@ def test_run_scenario_cuda_without_cuda_raises():
 
 
 @pytest.mark.parametrize("override", [
-    {"simulation": {"sharded_device_agents": True}},
-    {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
-    {"simulation": {"device_resident_sim": True, "sharded_device_agents": True},
-     "behavior": {"use_behavior_planner": True}},
+    {"visualization": {"save_plots": True}},
+    {"visualization": {"show_plots": True}},
+    {"simulation": {"start_multiagent": True},
+     "visualization": {"save_plots": True, "show_plots": True}},
 ])
 def test_features_outside_the_slice_raise(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -127,6 +127,10 @@ def test_features_outside_the_slice_raise(override):
     {"behavior": {"use_behavior_planner": True}, "prediction": {"mode": "walenet"}},
     {"simulation": {"device_resident_sim": True}, "prediction": {"mode": "walenet"}},
     {"prediction": {"mode": "walenet"}},
+    {"simulation": {"sharded_device_agents": True}},
+    {"simulation": {"start_multiagent": True, "sharded_device_agents": True}},
+    {"simulation": {"device_resident_sim": True, "sharded_device_agents": True},
+     "behavior": {"use_behavior_planner": True}},
 ])
 def test_features_of_this_slice_construct(override):
     from frenetix_tpu_torch.io.scenario_factory import make_highway
@@ -195,7 +199,8 @@ def test_load_config_overrides_and_yaml_dir(tmp_path):
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "frenetix_tpu", "pandas", "yaml", "matplotlib")
+BLOCKED = ("jax", "jaxlib", "frenetix_tpu", "bench_scaling", "pandas", "yaml",
+           "matplotlib")
 for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 
@@ -220,7 +225,9 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "behavior.velocity_planner", "behavior.path_planner", "behavior.fsm",
                  "behavior.behavior_module", "behavior.device_fsm", "sim.world_view",
                  "sim.planner_interfaces", "run_scenario", "workloads", "models",
-                 "models.onnx_lite", "models.onnx_torch", "models.walenet"):
+                 "models.onnx_lite", "models.onnx_torch", "models.walenet",
+                 "parallel.distributed", "parallel.scenario_sharding", "graft_entry",
+                 "utils.timers"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 import os
