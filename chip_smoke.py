@@ -12,7 +12,12 @@ Phases, each printed on lines of its own:
    shapes (R = 868, C = 7, P = 1,079,296), at the simulations' P = 1024 x 31
    and at a ragged P, in float32 and float64: the outputs must be bitwise
    equal.  Times both with CUDA events, and an empty kernel launched the
-   same way: the floor of one launch, which bounds K1 at small P.
+   same way: the floor of one launch, which bounds K1 at small P.  At the
+   dense, sim-sized and stacked shapes also the nearest single PyTorch call,
+   `grid_sample` (bilinear, border, align_corners) on the table as a
+   (1, C, 1, R) image, timed as K1 is, with its max |Δ| against the plain
+   twin over all λ and where 0 <= λ < 1 (not the same function: it rounds
+   the coordinate and does not extend a segment beyond [0, 1)).
 4. dense cycle: the bench problem (34,816 candidates, 4 obstacles,
    corridor) through planner.core.evaluate_cycle on the card in float32;
    `found` must hold, the kernel must have launched, and best_idx must equal
@@ -141,7 +146,7 @@ Phases, each printed on lines of its own:
    (f) `highway --prediction walenet --evaluate` through the CLI;
    (g) a missing export raises FileNotFoundError.
 
-17. the torch.distributed mesh, last, in this process joined to a world of
+17. the torch.distributed mesh, in this process joined to a world of
    one rank under NCCL (`parallel.distributed.initialize` over a file store
    under build/; the group is destroyed at the end):
    (a) the backend, `process_info() == (0, 1)`, `default_device()` the
@@ -172,7 +177,25 @@ Phases, each printed on lines of its own:
    cannot share a card); its ranks run K1's plain twin on the CPU, so it
    counts no launch and is not a card path.
 
-Each path on the card (phases 4 to 17) is driven with K1's launch count set
+18. plots (`utils.visualization`, `risk.visualization`):
+   (a) whether matplotlib and PIL import here, with their versions;
+   (b) phase 8's risk cycle on the card in float32: the arrays that
+   plot_scenario_at_timestep, risk_dashboard and plot_scenario_risk draw,
+   fetched as they fetch them (one device-to-host copy per picture), against
+   the same cycle's CPU float64 arrays: best_idx equal or tied, selectable
+   equal outside a tie, positions within 1e-4 m, total risk within 1e-4; ms
+   per fetch;
+   (c) without matplotlib (the card's machine has none): `run_one` with a
+   log directory and save_plots, and `run_scenario.main` with `--device-sim
+   --plot`, `--plot --gif` and `--workers 2 --plot` on highway and overtake
+   each fail with ImportError naming matplotlib before any K1 launch (the
+   workers report 0), with their rows in log_failures.csv;
+   (d) with matplotlib: `highway --plot --gif` on the card writes the frame
+   names of phase 15's CPU float64 run, final.png and run.gif, and launches
+   K1 as its unplotted twin; render ms per frame and the plotted run's ms
+   per cycle beside phase 15's `--no-logging` run.
+
+Each path on the card (phases 4 to 18) is driven with K1's launch count set
 to 0 just before and read just after (spawned ranks and workers report
 their own counts); a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
@@ -183,6 +206,7 @@ no process that outlives it (nvcc and nvidia-smi run to completion).
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import logging
 import math
@@ -215,6 +239,7 @@ from frenetix_tpu_torch.run_scenario import run_scenarios
 from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
+from frenetix_tpu_torch.utils import visualization
 from frenetix_tpu_torch.utils.sim_logging import require_strict_tables
 from frenetix_tpu_torch.workloads import (
     dense_cycle_problem, device_fleet, stacked_cycle_problem, stacked_post_pass_extras,
@@ -353,6 +378,27 @@ class Launches:
         return self.by_path[path]
 
 
+def grid_sample_inputs(table, gidx, lam):
+    """K1's inputs as `torch.nn.functional.grid_sample` takes them: the table
+    as a (1, C, 1, R) image and the queries as a (1, 1, P, 2) grid with
+    x = 2·(i + λ)/(R − 1) − 1, y = 0.  The nearest single PyTorch call to
+    K1's function, not the same function: the coordinate is rounded on the
+    way in and out, and a λ outside [0, 1) reads the neighbouring segment
+    (or the border) instead of extending segment i."""
+    rows, cols = table.shape
+    image = table.T.contiguous().reshape(1, cols, 1, rows)
+    x = 2.0 * (gidx.to(table.dtype) + lam) / (rows - 1) - 1.0
+    grid = torch.stack([x, torch.zeros_like(x)], dim=-1).reshape(1, 1, -1, 2)
+    return image, grid
+
+
+def grid_sample_call(image, grid):
+    """One grid_sample call on `grid_sample_inputs`: the (C, P) result."""
+    out = torch.nn.functional.grid_sample(image, grid, mode="bilinear",
+                                          padding_mode="border", align_corners=True)
+    return out.reshape(image.shape[1], -1)
+
+
 def phase_k1(dev, smi):
     rng = np.random.default_rng(0)
     results = {}
@@ -367,6 +413,7 @@ def phase_k1(dev, smi):
     shapes = ((R_ROWS, C_COLS, P_DENSE), (R_ROWS, C_COLS, P_SIM),
               (A_BATCH * R_ROWS, C_COLS, A_BATCH * M_BATCH * 31),
               (R_ROWS, C_COLS, 1_000_003))
+    main_path = shapes[:3]
     for dtype in (torch.float32, torch.float64):
         for rows, cols, p in shapes:
             reps = 20 if p >= 1_000_000 else 50
@@ -396,6 +443,23 @@ def phase_k1(dev, smi):
                      f"{bound:.4f} ms by {by} ({n_bytes / 1e6:.2f} MB at 3.35 TB/s), "
                      f"max(bound, launch floor) {with_floor:.4f} ms = "
                      f"{with_floor / ms:.2f} of the kernel's time [{smi}]")
+            if (rows, cols, p) in main_path:
+                # the nearest library call, timed as K1 is; its grid is built
+                # outside the timed region
+                image, grid = grid_sample_inputs(table, gidx, lam)
+                lib = grid_sample_call(image, grid)
+                inside = (lam >= 0) & (lam < 1)
+                lib_err = float((lib - want).abs().max())
+                lib_err_inside = float((lib - want)[:, inside].abs().max())
+                lib_ms = cuda_ms(lambda: grid_sample_call(image, grid), reps, 3)
+                results[(dtype, rows, p)].update(
+                    library_ms=lib_ms, library_max_abs_err=lib_err,
+                    library_max_abs_err_lambda_in_0_1=lib_err_inside)
+                phase(3, f"  grid_sample (bilinear, border, align_corners) "
+                         f"{str(dtype).split('.')[-1]} R={rows} P={p}: {lib_ms:.4f} ms "
+                         f"= {lib_ms / ms:.2f} x K1; max |Δ| vs the plain twin "
+                         f"{lib_err:.3e} over all λ, {lib_err_inside:.3e} where "
+                         f"0 <= λ < 1 [{smi}]")
     return results, max_err
 
 
@@ -601,11 +665,12 @@ def phase_multiagent(dev, smi, launches):
     return runs
 
 
-def _risk_problem(device, dtype):
-    """A simulation-sized rollout problem for the risk stack: the stacked
-    problem's first agent (M = 1024, 4 obstacles), with the obstacles moved
-    onto the agent's path so that the risks are not all 0."""
-    matrices, _, _, ctxs, dt, n_steps = stacked_cycle_problem(
+def _risk_cycle_problem(device, dtype):
+    """A simulation-sized cycle with risk in it: the stacked problem's first
+    agent (M = 1024, 4 obstacles), with the obstacles moved onto the agent's
+    path so that the risks are not all 0.  Returns (matrix, mask, context
+    with the moved obstacles, dt, n_steps)."""
+    matrices, masks, _, ctxs, dt, n_steps = stacked_cycle_problem(
         1, device, dtype, m_bucket=M_BATCH, spread=12.0)
     ctx = ctxs[0]
     means = ctx.preds.means.clone()
@@ -613,11 +678,18 @@ def _risk_problem(device, dtype):
                                  device=device)[:, None]
     means[..., 1] = torch.tensor([9.0, 11.5, 14.0, 17.5], dtype=dtype,
                                  device=device)[:, None]
-    preds = ctx.preds._replace(means=means)
+    return matrices[0], masks[0], ctx._replace(preds=ctx.preds._replace(means=means)), \
+        dt, n_steps
+
+
+def _risk_problem(device, dtype):
+    """The rollout and the risk stack of `_risk_cycle_problem`."""
+    matrix, _, ctx, dt, n_steps = _risk_cycle_problem(device, dtype)
+    preds = ctx.preds
 
     def rollout():
         return rollout_candidates(
-            matrices[0], ctx.ref, ctx.veh, dt=dt, n_steps=n_steps, low_vel_mode=False,
+            matrix, ctx.ref, ctx.veh, dt=dt, n_steps=n_steps, low_vel_mode=False,
             x0_orientation=ctx.x0_orientation, table_window=768)
 
     def risks(ro):
@@ -1608,6 +1680,7 @@ def phase_cli(dev, smi, launches):
                   f"{on[0]:.3f} / {on[1]:.3f} ms, --no-logging {off[0]:.3f} / "
                   f"{off[1]:.3f} ms ({len(spy.runs[0][1].planning_times)} cycles each) "
                   f"[{smi}]")
+    return {"no_logging_ms": off, "cpu64_steps": res_64.steps}
 
 
 # ------------------------------------------------------------- phase 16: Wale-Net
@@ -2103,6 +2176,212 @@ def phase_mesh(dev, smi, launches, batched_p50, device_runs):
     _mesh_rehearsal(smi)
 
 
+# ---------------------------------------------------------------- phase 18: plots
+
+
+def _package_version(name):
+    """The package's version, or None where it does not import."""
+    try:
+        module = importlib.import_module(name)
+    except ImportError:
+        return None
+    return getattr(module, "__version__", "?")
+
+
+def _plot_inputs(dev, dtype):
+    """Phase 8's risk cycle on `dev`: (CycleResult, mask, TrajectoryRisks)."""
+    matrix, mask, ctx, dt, n_steps = _risk_cycle_problem(dev, dtype)
+    res = evaluate_cycle(matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False)
+    risks = trajectory_risks(res.rollout, ctx.preds, meta_from_footprint(
+        ctx.preds.lengths, ctx.preds.widths), ctx.veh.mass)
+    return res, mask, risks
+
+
+def _picture_fetches(res, mask, risks):
+    """Per picture, a call that fetches the arrays it draws as it fetches them
+    (one `visualization.fetch` each): plot_scenario_at_timestep's candidate
+    fan, risk_dashboard and plot_scenario_risk."""
+    total = risks.ego_risk + risks.obst_risk
+    ro = res.rollout
+    return {
+        "frame": lambda: visualization.fetch(ro.x, ro.y, res.cost, res.selectable,
+                                             mask, res.best_idx),
+        "risk_dashboard": lambda: visualization.fetch(res.cost, total, res.selectable,
+                                                      res.best_idx),
+        "scenario_risk": lambda: visualization.fetch(total, res.selectable, ro.x, ro.y,
+                                                     res.best_idx),
+    }
+
+
+def _plot_inputs_on_card(dev, smi, launches):
+    """(b): one cycle's plot inputs on the card, fetched in one copy per
+    picture, against the CPU float64 cycle's."""
+    launches.start()
+    res, mask, risks = _plot_inputs(dev, torch.float32)
+    launches.stop("plot inputs: risk cycle")
+    want = {k: fn() for k, fn in _picture_fetches(
+        *_plot_inputs(torch.device("cpu"), torch.float64)).items()}
+    got, copies, ms = {}, {}, {}
+    for name, fn in _picture_fetches(res, mask, risks).items():
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            before = visualization.FETCHES
+            t0 = time.perf_counter()
+            got[name] = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+            copies[name] = visualization.FETCHES - before
+        ms[name] = float(np.median(times))
+    check(all(n == 1 for n in copies.values()),
+          f"(b): device-to-host copies per picture {copies}")
+    x, y, cost, sel, m, best = got["frame"]
+    x64, y64, cost64, sel64, m64, best64 = want["frame"]
+    check(x.dtype == np.float32 and sel.dtype == bool and best.dtype == np.int32,
+          f"(b): fetched dtypes {x.dtype}, {sel.dtype}, {best.dtype}")
+    tie = _same_or_tie(int(best), int(best64), cost64, "(b) plot frame best_idx")
+    check(np.array_equal(m, m64), "(b): the mask differs from the cpu f64 mask")
+    n_sel_diff = int((sel != sel64).sum())
+    check(n_sel_diff == 0 or tie, f"(b): selectable differs at {n_sel_diff} candidates")
+    pos_gap = float(max(np.abs(x.astype(np.float64) - x64)[m].max(),
+                        np.abs(y.astype(np.float64) - y64)[m].max()))
+    check(pos_gap <= POS_TOL, f"(b): positions {pos_gap} m from cpu f64")
+    risk_gap = float(np.abs(got["risk_dashboard"][1].astype(np.float64)
+                            - want["risk_dashboard"][1]).max())
+    check(risk_gap <= 1e-4, f"(b): total risk {risk_gap} from cpu f64 (limit 1e-4)")
+    for name in ("risk_dashboard", "scenario_risk"):
+        check([a.shape for a in got[name]] == [b.shape for b in want[name]],
+              f"(b): {name}: shapes differ from the cpu f64 arrays")
+    phase(18, f"(b) plot inputs of one risk cycle (M={M_BATCH}, 4 obstacles) on the "
+              f"card f32 vs cpu f64: best_idx {int(best)} (cpu f64 {int(best64)}, "
+              f"tie {bool(tie)}), selectable differs at {n_sel_diff} candidates, "
+              f"positions within {pos_gap:.3e} m (limit {POS_TOL}), total risk within "
+              f"{risk_gap:.3e} (limit 1e-4); device-to-host copies per picture "
+              f"{copies}; ms per fetch "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{smi}]")
+
+
+def _failures(logs):
+    import csv
+
+    path = os.path.join(logs, "log_failures.csv")
+    if not os.path.exists(path):
+        return []
+    with open(path, newline="") as f:
+        return list(csv.reader(f, delimiter=";"))
+
+
+def _plots_fail_without(dev, smi, root):
+    """(c): every plotting entry path fails with ImportError naming
+    matplotlib before any K1 launch, and leaves its row in log_failures.csv."""
+    package = "matplotlib"
+    config = load_config()
+    config.visualization.save_plots = True
+    before = table_interp.LAUNCHES
+    try:
+        run_scenario.run_one("highway", config, log_dir=os.path.join(root, "one"),
+                             device=dev)
+    except ImportError as e:
+        check(package in str(e), f"(c) run_one: {e!r} does not name {package}")
+    else:
+        check(False, f"(c): run_one drew without {package}")
+    logs = os.path.join(root, "run_scenarios")
+    run_scenarios(["highway"], config, dev, out=open(os.devnull, "w"), logs=logs)
+    rows = {"run_one via run_scenarios": _failures(logs)}
+    seen = []
+    real = run_scenario.run_pipeline
+
+    def spy(*args, **kw):
+        seen.extend(real(*args, **kw))
+        return seen
+
+    run_scenario.run_pipeline = spy
+    try:
+        for i, flags in enumerate((["--device-sim", "--plot"], ["--plot", "--gif"],
+                                   ["--workers", "2", "--plot"])):
+            logs = os.path.join(root, f"cli{i}")
+            rc = run_scenario.main(["highway", "overtake", "--device", dev.type,
+                                    "--logs", logs, *flags])
+            check(rc == 1, f"(c) {flags}: exit {rc}")
+            rows[" ".join(flags)] = _failures(logs)
+    finally:
+        run_scenario.run_pipeline = real
+    check(table_interp.LAUNCHES == before,
+          f"(c): {table_interp.LAUNCHES - before} K1 launches without {package}")
+    check(len(seen) == 2 and all(k == 0 and ok is None for _, ok, k in seen),
+          f"(c): the workers report {seen}")
+    for what, r in rows.items():
+        n_expected = 1 if what.startswith("run_one") else 2
+        check(len(r) == n_expected and all(
+            row[1].startswith("ImportError") and package in row[1] for row in r),
+              f"(c) {what}: log_failures.csv rows {[row[:2] for row in r]}")
+    phase(18, f"(c) without {package}: run_one raised ImportError naming it; "
+              f"run_scenarios and main with "
+              + "; ".join(f"[{k}]" for k in rows if not k.startswith("run_one"))
+              + f" exited 1 with {sum(len(r) for r in rows.values())} ImportError rows "
+              f"in log_failures.csv; 0 K1 launches in this process, the workers "
+              f"report {[k for _, _, k in seen]} [{smi}]")
+
+
+def _plots_on_card(dev, smi, launches, root, cli):
+    """(d): the highway with --plot --gif on the card writes the frame names
+    of phase 15's cpu f64 run, final.png and run.gif, and launches K1 as its
+    unplotted twin."""
+    render_ms = []
+    real = visualization.plot_scenario_at_timestep
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    spy = _CliSpy()
+    plot_logs, twin_logs = os.path.join(root, "plot"), os.path.join(root, "twin")
+    visualization.plot_scenario_at_timestep = timed
+    try:
+        with spy.active():
+            launches.start()
+            _cli(["highway", "--plot", "--gif", "--logs", plot_logs], "(d) --plot --gif")
+            n_plot = launches.stop("cli highway --plot --gif")
+            launches.start()
+            _cli(["highway", "--logs", twin_logs], "(d) unplotted twin")
+            n_twin = launches.stop("cli highway, the unplotted twin")
+    finally:
+        visualization.plot_scenario_at_timestep = real
+    check(n_plot == n_twin, f"(d): K1 launches plotted {n_plot} vs unplotted {n_twin}")
+    run = os.path.join(plot_logs, "highway")
+    names = sorted(os.listdir(os.path.join(run, "frames")))
+    steps64 = cli["cpu64_steps"]
+    expected = [f"frame_{t:04d}.png" for t in range(5, steps64 + 1, 5)]
+    check(names == expected, f"(d): frames {names[:3]}... vs the cpu f64 run's "
+                             f"{expected[:3]}... ({steps64} steps)")
+    for name in ("final.png", "run.gif"):
+        check(os.path.getsize(os.path.join(run, name)) > 0, f"(d): {name} missing")
+    check(not os.path.exists(os.path.join(plot_logs, "log_failures.csv")),
+          "(d): log_failures.csv written")
+    res = spy.runs[0][1]
+    per_cycle = 1e3 * res.wall_time / len(res.planning_times)
+    phase(18, f"(d) highway --plot --gif on the card: {len(names)} frames named as the "
+              f"cpu f64 run's ({steps64} steps), final.png, run.gif; K1 launches "
+              f"{n_plot} = the unplotted twin's; render {float(np.median(render_ms)):.1f} "
+              f"ms per frame (median of {len(render_ms)}); plotted run "
+              f"{per_cycle:.3f} ms per cycle beside phase 15's --no-logging "
+              + " / ".join(f"{v:.3f}" for v in cli["no_logging_ms"]) + f" ms [{smi}]")
+
+
+def phase_plots(dev, smi, launches, cli):
+    versions = {name: _package_version(name) for name in ("matplotlib", "PIL")}
+    phase(18, "(a) " + ", ".join(
+        f"{k} {'imports, version ' + v if v else 'does not import'}"
+        for k, v in versions.items()) + " on this machine")
+    _plot_inputs_on_card(dev, smi, launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plots_") as root:
+        if versions["matplotlib"] is None:
+            _plots_fail_without(dev, smi, root)
+        else:
+            _plots_on_card(dev, smi, launches, root, cli)
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -2119,9 +2398,10 @@ def main() -> int:
     phase_fleet(dev, smi, launches)
     phase_behavior(dev, smi, launches)
     phase_device_post(dev, smi, launches, host_resp, host_occ)
-    phase_cli(dev, smi, launches)
+    cli = phase_cli(dev, smi, launches)
     phase_walenet(dev, smi, launches)
     phase_mesh(dev, smi, launches, batched_p50, device_runs)
+    phase_plots(dev, smi, launches, cli)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]
@@ -2132,7 +2412,13 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": dense["ms"], "plain_ms": dense["plain_ms"],
         "bound_ms": dense["bound_ms"], "bound_by": dense["bound_by"],
-        "library_ms": None,     # no one PyTorch call gathers two rows and lerps
+        # the nearest single call, grid_sample, which rounds the coordinate
+        # and does not extend a segment for λ outside [0, 1): not the same
+        # function
+        "library_ms": dense["library_ms"],
+        "library_call": "torch.nn.functional.grid_sample(bilinear, border, "
+                        "align_corners=True) on a (1, C, 1, R) image",
+        "library_max_abs_err": dense["library_max_abs_err"],
         "shape": f"R={R_ROWS} C={C_COLS} P={P_DENSE} float32",
         "launch_floor_ms": dense["launch_floor_ms"],
         "bound_with_floor_ms": dense["bound_with_floor_ms"],

@@ -20,6 +20,7 @@ import torch
 from frenetix_tpu_torch.risk.harm import (
     log_reg_harm, obstacle_mass, obstacle_protection, pedestrian_harm,
 )
+from frenetix_tpu_torch.utils.visualization import _draw_lanelets, _vehicle_patch
 
 __all__ = ["collision_report"]
 
@@ -109,29 +110,11 @@ def collision_report(agent, scenario, veh, log_dir=None, other_agents=None):
     return report
 
 
-def _vehicle_patch(ax, pos, theta, length, width, color, zorder=10):
-    from matplotlib.patches import Rectangle
-    from matplotlib.transforms import Affine2D
-
-    rect = Rectangle(
-        (-length / 2, -width / 2), length, width,
-        facecolor=color, edgecolor="black", lw=0.5, zorder=zorder,
-    )
-    rect.set_transform(
-        Affine2D().rotate(theta).translate(pos[0], pos[1]) + ax.transData
-    )
-    ax.add_patch(rect)
-
-
 def _plot_crash(agent, scenario, partner, t, veh, path):
     import matplotlib.pyplot as plt
 
     fig, ax = plt.subplots(figsize=(8, 7))
-    for ll in scenario.lanelets.values():
-        ax.fill(*ll.polygon.T, facecolor="#e8e8e8", edgecolor="none", zorder=0)
-    for ll in scenario.lanelets.values():
-        ax.plot(*ll.left_vertices.T, color="#555", lw=0.6, zorder=1)
-        ax.plot(*ll.right_vertices.T, color="#555", lw=0.6, zorder=1)
+    _draw_lanelets(ax, scenario)
     hist = np.array([s.position for s in agent.record.states])
     ax.plot(hist[:, 0], hist[:, 1], "b.-", ms=2)
     _vehicle_patch(ax, agent.state.position, agent.state.orientation,

@@ -92,6 +92,23 @@ class PlannedTrajectory:
     ego_risk: Optional[float] = None
     obst_risk: Optional[float] = None
 
+    @property
+    def steering_angle(self) -> np.ndarray:
+        """The steering angles set by `compute_steering`."""
+        return self._steering
+
+    def compute_steering(self, wheelbase: float):
+        """Kinematic steering angles arctan(wheelbase · κ); returns self."""
+        self._steering = np.arctan2(wheelbase * self.kappa, 1.0)
+        return self
+
+    def yaw_rate(self, dt: float, yaw_rate0: float = 0.0) -> np.ndarray:
+        """Yaw rates by central differences of θ over `dt`, the first one
+        set to `yaw_rate0`."""
+        yr = np.gradient(self.theta) / dt
+        yr[0] = yaw_rate0
+        return yr
+
 
 _STATE_ROWS = ("x", "y", "theta_gl", "v", "a", "kappa_gl",
                "s", "s_vel", "s_acc", "d", "d_vel", "d_acc")

@@ -35,8 +35,12 @@ scenario DIR/<name>/simulation.db and per agent DIR/<name>/<agent>/
 DIR/<name>/solution_<agent>.xml with its WX1 cost per successful agent;
 `evaluation.yaml` can ask for each part alone.  A device fleet writes only
 the score rows and evaluates in memory, as the JAX package's fleet does.
-`--plot` / `--gif` ask for plots, which are not ported yet (the run fails
-with the error naming the slice that brings them).
+`--plot` draws every fifth step's frame to DIR/<name>/frames/ (a device run
+draws them afterwards from its fetched histories), DIR/<name>/final.png and,
+with several agents, DIR/<name>/overview.png; `--gif` also assembles the
+frames into DIR/<name>/run.gif.  Plotting needs matplotlib (and PIL for the
+GIF): without it the scenario fails before it starts, with an ImportError
+naming the package in log_failures.csv.  A device fleet draws nothing.
 
 One status row per agent goes to stdout; the exit code is 0 when every agent
 of every scenario reached its goal and no scenario failed.  `--device cuda`
@@ -61,6 +65,7 @@ from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import (
     load_config, merge_overrides, parse_cli_overrides,
 )
+from frenetix_tpu_torch.utils import visualization
 from frenetix_tpu_torch.utils.logging import make_msg_logger
 from frenetix_tpu_torch.utils.sim_logging import SimulationLogger
 
@@ -97,8 +102,13 @@ def run_one(target, config, msg_logger=None, log_dir=None, evaluate=False, *,
     `log_dir` and `debug.activate_logging` a SimulationLogger (meta, per-step
     timing, results) and the agents' trajectory logs under `log_dir`; the run
     on the host, or on the device with `simulation.device_resident_sim`; then
-    `evaluate_simulation` as `evaluate` or `config.evaluation` asks.
-    `device` defaults to the CUDA device."""
+    `evaluate_simulation` as `evaluate` or `config.evaluation` asks.  With
+    `visualization.save_plots` and `log_dir` the run's frames (replayed from
+    the fetched histories for a device run), final.png and, with several
+    agents, overview.png under `log_dir`; without matplotlib (or PIL for
+    the GIF) that raises ImportError before the scenario loads.  `device`
+    defaults to the CUDA device."""
+    visualization.check_plot_packages(config, log_dir)
     scenario = load_target(target)
     # --evaluate forces both; evaluation.yaml toggles enable them one by one
     ev = config.evaluation
@@ -123,15 +133,16 @@ def run_one(target, config, msg_logger=None, log_dir=None, evaluate=False, *,
                 {"prediction_mode": config.prediction.mode},
                 {"cost_weights": config.cost_weights},
             )
-        if config.simulation.device_resident_sim:
-            # the whole run on the device, one fetch; the device run writes
-            # no per-step rows (as in the JAX package)
-            from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
-
-            ds = DeviceSimulation(sim)
-            res = ds.to_simulation_result(ds.run())
-        else:
-            res = sim.run()
+        # with simulation.device_resident_sim the whole run on the device,
+        # one fetch, no per-step rows (as in the JAX package); its frames
+        # are replayed from the fetched histories
+        res = sim.run()
+        if log_dir is not None and config.visualization.save_plots:
+            visualization.plot_final(scenario, res,
+                                     save_path=os.path.join(log_dir, "final.png"))
+            if len(res.histories) > 1:
+                visualization.plot_multiagent_overview(
+                    scenario, res, save_path=os.path.join(log_dir, "overview.png"))
         if do_metrics or do_solution_check:
             # a solution-check-only run skips the metric suite and must not
             # feed a logger whose scenario_evaluation table was never created

@@ -48,9 +48,13 @@ batched path, so one process with the flag on runs exactly that.  Every
 rank runs the same loop and ends each step with the same selection; with
 more than one rank only rank 0 writes logs.
 
-Plotting (`visualization.save_plots`, `show_plots`) is not ported yet; a
-config that asks for it raises NotImplementedError naming the ROADMAP.md
-slice that brings it.
+With `visualization.save_plots` and a `log_dir` every `plot_interval`-th
+step draws a frame to `log_dir/frames/frame_<t>.png` (`utils.visualization`;
+with `show_plots` into one live window), and with `save_gif` the frames
+become `log_dir/run.gif` after the run; a device-resident run draws the same
+frames afterwards from its fetched histories.  A simulation that will draw
+raises ImportError at construction when matplotlib (or PIL for the GIF)
+does not import, before any device work.
 """
 from __future__ import annotations
 
@@ -80,6 +84,7 @@ from frenetix_tpu_torch.sim.planner_interfaces import apply_behavior_output
 from frenetix_tpu_torch.sim.sensor_model import visible_obstacles
 from frenetix_tpu_torch.sim.visible_area import road_boundary_segments
 from frenetix_tpu_torch.sim.world_view import WorldView, attach_world_views
+from frenetix_tpu_torch.utils import visualization
 from frenetix_tpu_torch.utils.config import EXTERNAL_COST_KEYS, FrenetixConfig
 
 __all__ = ["Simulation", "SimulationResult"]
@@ -101,15 +106,6 @@ def _obb_overlap_np(c1, th1, h1, c2, th2, h2) -> bool:
         if abs(ax @ delta) > r1 + r2:
             return False
     return True
-
-
-def _unsupported(config: FrenetixConfig, scenario) -> list[str]:
-    out = []
-    vis = config.visualization
-    for name in ("save_plots", "show_plots"):
-        if getattr(vis, name):
-            out.append(f"visualization.{name} (plots: slice 8e)")
-    return out
 
 
 @dataclass
@@ -153,10 +149,7 @@ class Simulation:
         if self.config.prediction.mode not in ("ground_truth", "constant_velocity",
                                                "walenet"):
             raise ValueError(f"unknown prediction mode {self.config.prediction.mode!r}")
-        unsupported = _unsupported(self.config, scenario)
-        if unsupported:
-            raise NotImplementedError(
-                "not yet ported to frenetix_tpu_torch: " + "; ".join(unsupported))
+        visualization.check_plot_packages(self.config, log_dir)
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = torch.float64 if self.config.dtype == "float64" else torch.float32
         self.np_dtype = np.float64 if self.config.dtype == "float64" else np.float32
@@ -777,15 +770,39 @@ class Simulation:
         collision_report(agent, self.scenario, self.config.vehicle,
                          log_dir=self.log_dir)
 
+    def _plot_frame(self, t: int, pd_base):
+        """Step t's frame, every `plot_interval` steps, when the config asks
+        for plots (saved with a log_dir, or shown live)."""
+        vis = self.config.visualization
+        if not (((vis.save_plots and self.log_dir) or vis.show_plots)
+                and t % vis.plot_interval == 0):
+            return
+        visualization.plot_scenario_at_timestep(
+            self.scenario, self.agents, t,
+            predictions=pd_base if vis.draw_predictions else None,
+            save_path=(f"{self.log_dir}/frames/frame_{t:04d}.png"
+                       if vis.save_plots and self.log_dir else None),
+            show=vis.show_plots,
+            window=vis.window,
+            veh_length=self.config.vehicle.length,
+            veh_width=self.config.vehicle.width,
+            show_ref=vis.draw_reference_path,
+            show_labels=vis.show_labels,
+            draw_planning_problem=vis.draw_planning_problem,
+            draw_icons=vis.draw_icons,
+        )
+
     # -------------------------------------------------------------- main loop
     def run(self) -> SimulationResult:
         if self.config.simulation.device_resident_sim:
             # the whole run on the device, ONE fetch; the adapter gives the
-            # host result's shape
+            # host result's shape, and the frames are drawn from it afterwards
             from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
 
             ds = DeviceSimulation(self)
-            return ds.to_simulation_result(ds.run())
+            res = ds.to_simulation_result(ds.run())
+            visualization.replay_device_frames(self, res)
+            return res
         t_start = time.perf_counter()
         t = 0
         while t < self.max_steps:
@@ -810,6 +827,7 @@ class Simulation:
             t += 1
             self._check_collisions(t)
             self._check_road_departure()
+            self._plot_frame(t, pd_base)
             if self.sim_logger:
                 plan_t = sum(a.record.planning_times[-1] if a.record.planning_times
                              else 0.0 for a in running)
@@ -825,6 +843,9 @@ class Simulation:
             self.sim_logger.log_results(
                 self.scenario.scenario_id, self.agents,
                 set(self.scenario.planning_problems.keys()))
+        vis = self.config.visualization
+        if vis.save_plots and self.log_dir and vis.save_gif:
+            visualization.write_run_gif(self.log_dir)
 
         return SimulationResult(
             scenario_id=self.scenario.scenario_id,

@@ -210,8 +210,9 @@ class EvaluationConfig:
 
 @dataclass
 class VisualizationConfig:
-    """visualization.yaml.  Plotting is not ported yet: `save_plots` or
-    `show_plots` makes `Simulation` raise NotImplementedError."""
+    """visualization.yaml: per-step frames, the GIF and the final plots
+    (`utils.visualization`; drawn by `Simulation.run` and `run_scenario.
+    run_one`)."""
 
     save_plots: bool = False
     show_plots: bool = False    # live interactive rendering per plotted step

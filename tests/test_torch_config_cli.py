@@ -12,9 +12,10 @@
 - The planner-interface registry: the default interface, a registered
   custom one driving an agent's replans, and the JAX package's error for an
   unknown name.
-- `--plot` / `--gif` / `visualization.show_plots` fail with slice 8e's
-  NotImplementedError; through the CLI the failure goes to
-  log_failures.csv with its traceback and the exit code is 1.
+- Plots: `save_plots` with a log directory writes the frames,
+  `show_plots` draws every frame into one live figure, `save_gif` writes
+  run.gif; through the CLI `--plot` writes frames/ and final.png and
+  `--gif` also run.gif, with no log_failures.csv.
 - `--set` through `main`: strict keys, the vehicle database, the
   replanning frequency.
 """
@@ -246,26 +247,61 @@ def test_registered_interface_drives_the_agent():
 
 @pytest.mark.parametrize("vis", [{"save_plots": True}, {"show_plots": True},
                                  {"save_plots": True, "save_gif": True}])
-def test_plots_raise_slice_8e(vis):
+def test_plots_raise_slice_8e(tmp_path, vis):
+    """The three plot configs draw (the name is older than the plots): frames
+    under log_dir/frames, one live figure for every shown frame, the GIF."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     from frenetix_tpu_torch.io.scenario_factory import make_highway
     from frenetix_tpu_torch.sim.simulation import Simulation
+    from frenetix_tpu_torch.utils import visualization as tvis
 
     cfg = tconfig.load_config(overrides={"visualization": vis}, strict_overrides=True)
-    with pytest.raises(NotImplementedError, match="slice 8e"):
-        Simulation(make_highway(), cfg, CPU)
+    cfg.planning.sampling_min, cfg.planning.sampling_max = 1, 2
+    plt.close("all")
+    tvis._live_fig = None
+    sim = Simulation(make_highway(n_steps=40), cfg, CPU, log_dir=str(tmp_path))
+    sim.max_steps = 10
+    sim.run()
+    frames = tmp_path / "frames"
+    if vis.get("save_plots"):
+        assert sorted(p.name for p in frames.iterdir()) == ["frame_0005.png",
+                                                            "frame_0010.png"]
+    else:
+        assert not frames.exists()
+        assert tvis._live_fig is not None and plt.get_fignums() == [tvis._live_fig.number]
+    assert (tmp_path / "run.gif").exists() == bool(vis.get("save_gif"))
+    plt.close("all")
+    tvis._live_fig = None
 
 
 @pytest.mark.parametrize("flag", ["--plot", "--gif"])
 def test_cli_plot_fails_with_slice_8e(tmp_path, capsys, flag):
+    """`--plot` and `--gif` write their files (the name is older than the
+    plots): frames/, final.png and with `--gif` run.gif, as many GIF frames
+    as frame files; no log_failures.csv."""
+    from PIL import Image
+
     logs = tmp_path / "logs"
-    rc = run_scenario.main(["highway", "--device", "cpu", flag, "--logs", str(logs)])
-    assert rc == 1
-    rows = list(csv.reader(open(logs / "log_failures.csv"), delimiter=";"))
-    assert len(rows) == 1 and rows[0][0] == "highway"
-    assert "NotImplementedError" in rows[0][1] and "slice 8e" in rows[0][1]
-    assert "Traceback" in rows[0][2]
-    assert "status=" not in capsys.readouterr().out
-    assert not (logs / "score_overview.csv").exists()
+    rc = run_scenario.main(["highway", "--device", "cpu", flag, "--logs", str(logs),
+                            "--set", "planning.sampling_min=1",
+                            "--set", "planning.sampling_max=2",
+                            "--set", "visualization.plot_interval=25"])
+    assert rc == 0
+    assert not (logs / "log_failures.csv").exists()
+    assert "status=COMPLETED_SUCCESS" in capsys.readouterr().out
+    run = logs / "highway"
+    frames = sorted(p.name for p in (run / "frames").iterdir())
+    assert frames and frames[0] == "frame_0025.png"
+    assert (run / "final.png").stat().st_size > 0
+    assert not (run / "overview.png").exists()
+    if flag == "--gif":
+        assert Image.open(run / "run.gif").n_frames == len(frames)
+    else:
+        assert not (run / "run.gif").exists()
 
 
 # --------------------------------------------------------- --set via main

@@ -399,3 +399,68 @@ def test_obb_overlap_matches_jax():
     got = to_np(tcoll.obb_overlap(*map(t64, (ca, ta, ha, cb, tb, hb))))
     assert want.any() and (~want).any()
     np.testing.assert_array_equal(got, want)
+
+
+def _strip_quads(half_width=2.6, step=12):
+    """The per-segment quads of a strip of `half_width` around the curved
+    reference path, every `step`-th vertex; alternate windings."""
+    ref = curved_ref_np()
+    xy, th = np.asarray(ref.xy)[::step], np.asarray(ref.theta)[::step]
+    nrm = np.stack([-np.sin(th), np.cos(th)], axis=1) * half_width
+    left, right = xy + nrm, xy - nrm
+    quads = np.stack([left[:-1], left[1:], right[1:], right[:-1]], axis=1)
+    quads[::2] = quads[::2, ::-1]
+    return quads
+
+
+def test_points_in_quads_matches_jax():
+    rng = np.random.default_rng(12)
+    quads = _strip_quads()
+    ref = curved_ref_np()
+    pts = (np.asarray(ref.xy)[rng.integers(0, len(ref.xy), (3, 80))]
+           + rng.normal(0.0, 2.5, (3, 80, 2)))
+    pts[0, :4] = quads[5, :4]             # the corners themselves lie on edges
+    want = np.asarray(jcoll.points_in_quads(jnp.asarray(pts), jnp.asarray(quads)))
+    got = to_np(tcoll.points_in_quads(t64(pts), t64(quads)))
+    assert got.shape == (3, 80) and want.any() and (~want).any() and want[0, :4].all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_quads", [0, None], ids=["no_quads", "strip"])
+def test_road_boundary_departure_matches_jax(cost_pair, n_quads):
+    jro, tro, *_ = cost_pair
+    quads = _strip_quads() if n_quads is None else np.zeros((0, 4, 2))
+    fj, vj = jcoll.road_boundary_departure(jro, jkin.VehicleParams(), jnp.asarray(quads))
+    ft, vt = tcoll.road_boundary_departure(tro, tkin.VehicleParams(), t64(quads))
+    fj, vj = np.asarray(fj), np.asarray(vj)
+    assert ft.dtype == torch.int32 and vt.dtype == torch.float64
+    if n_quads is None:
+        assert (fj >= 0).any() and (fj < 0).any()
+    else:
+        assert (fj == -1).all() and (vj == 0.0).all()
+    np.testing.assert_array_equal(to_np(ft), fj)
+    np.testing.assert_allclose(to_np(vt), vj, rtol=0.0, atol=1e-12)
+    # leading agent axes: two agents stacked give each its own answer
+    stacked = type(tro)(*(torch.stack([f, f]) if isinstance(f, torch.Tensor) else f
+                          for f in tro))
+    fs, vs = tcoll.road_boundary_departure(stacked, tkin.VehicleParams(), t64(quads))
+    assert fs.shape == (2,) + fj.shape
+    np.testing.assert_array_equal(to_np(fs[1]), fj)
+    np.testing.assert_allclose(to_np(vs[0]), vj, rtol=0.0, atol=1e-12)
+
+
+def test_planned_trajectory_helpers_match_jax():
+    from frenetix_tpu.planner.reactive import PlannedTrajectory as JPlanned
+    from frenetix_tpu_torch.planner.reactive import PlannedTrajectory as TPlanned
+
+    rng = np.random.default_rng(13)
+    fields = {f: rng.normal(size=N + 1) for f in (
+        "x", "y", "theta", "v", "a", "kappa", "s", "s_dot", "s_ddot", "d", "d_dot",
+        "d_ddot")}
+    fields.update(cost=1.5, sampling_parameters=rng.normal(size=13))
+    j, t = JPlanned(**fields), TPlanned(**fields)
+    assert t.compute_steering(2.97) is t
+    j.compute_steering(2.97)
+    np.testing.assert_array_equal(t.steering_angle, j.steering_angle)
+    for yr0 in (0.0, 0.31):
+        np.testing.assert_array_equal(t.yaw_rate(DT, yr0), j.yaw_rate(DT, yr0))

@@ -8,9 +8,13 @@
 - Import closure: every module of the port, its run_scenario and chip_smoke
   import with a `sys.meta_path` finder that raises on `jax`, `jaxlib`,
   `frenetix_tpu` (the exact name; `frenetix_tpu_torch` still imports),
-  `pandas`, `yaml` and `matplotlib` (the machine with the card has none of
-  them), and the CLI path (`run_scenario.main` with `--evaluate` and the
-  logs) runs to its end under the same finder.
+  `pandas`, `yaml`, `matplotlib` and `PIL` (the machine with the card has
+  none of them), and the CLI path (`run_scenario.main` with `--evaluate` and
+  the logs) runs to its end under the same finder, while a `--plot` run
+  fails with ImportError naming matplotlib, before any K1 call, and writes
+  no frame.
+- Plot configs raise ImportError naming matplotlib at construction when it
+  does not import.
 - Default device: `Simulation(scenario, config)` without a device uses the
   CUDA device and raises where there is none.
 - K1 on the card (marker `cuda`; they skip without a CUDA device).  This file
@@ -99,12 +103,25 @@ def test_run_scenario_cuda_without_cuda_raises():
     {"simulation": {"start_multiagent": True},
      "visualization": {"save_plots": True, "show_plots": True}},
 ])
-def test_features_outside_the_slice_raise(override):
+def test_features_outside_the_slice_raise(override, tmp_path, monkeypatch):
+    """The plot configs raise ImportError naming matplotlib at construction
+    when it does not import, before any K1 call (the name is older than the
+    plots).  A config that only saves draws with a log directory."""
+    from frenetix_tpu_torch.geometry import frenet
     from frenetix_tpu_torch.io.scenario_factory import make_highway
 
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    calls = []
+    monkeypatch.setattr(frenet, "interp_rows", lambda *a, **k: calls.append(1))
     cfg = tconfig.load_config(overrides=override, strict_overrides=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        Simulation(make_highway(), cfg, torch.device("cpu"))
+    before = table_interp.LAUNCHES
+    with pytest.raises(ImportError, match="matplotlib") as err:
+        Simulation(make_highway(), cfg, torch.device("cpu"), log_dir=str(tmp_path))
+    assert err.value.name == "matplotlib"
+    assert table_interp.LAUNCHES == before and not calls
+    assert not (tmp_path / "frames").exists()
 
 
 @pytest.mark.parametrize("override", [
@@ -200,7 +217,7 @@ def test_load_config_overrides_and_yaml_dir(tmp_path):
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "frenetix_tpu", "bench_scaling", "pandas", "yaml",
-           "matplotlib")
+           "matplotlib", "PIL")
 for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 
@@ -211,6 +228,8 @@ class BlockReference:
         return None
 
 sys.meta_path.insert(0, BlockReference())
+import torch
+torch.set_num_threads(1)     # beside the suite's busy workers: no OMP spin
 import frenetix_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(frenetix_tpu_torch.__path__,
                                                "frenetix_tpu_torch.")]
@@ -227,7 +246,7 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "sim.planner_interfaces", "run_scenario", "workloads", "models",
                  "models.onnx_lite", "models.onnx_torch", "models.walenet",
                  "parallel.distributed", "parallel.scenario_sharding", "graft_entry",
-                 "utils.timers"):
+                 "utils.timers", "utils.visualization", "risk.visualization"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 import os
@@ -250,6 +269,14 @@ for rel in ("messages.log", "score_overview.csv", "highway/simulation.db",
             "highway/60000/trajectories.db", "highway/60000/logs.csv",
             "highway/solution_60000.xml"):
     assert os.path.exists(os.path.join(logs, rel)), rel
+import csv
+from frenetix_tpu_torch.geometry import frenet
+frenet.interp_rows = lambda *a, **k: sys.exit("a --plot run without matplotlib planned")
+rc = main(["highway", "--device", "cpu", "--plot", "--logs", os.path.join(logs, "plot")])
+assert rc == 1, rc
+(row,) = csv.reader(open(os.path.join(logs, "plot", "log_failures.csv")), delimiter=";")
+assert row[1].startswith("ImportError") and "needs matplotlib" in row[1], row
+assert not os.path.exists(os.path.join(logs, "plot", "highway", "frames"))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 try:
@@ -360,3 +387,23 @@ def test_batched_cycle_on_card_is_one_launch_and_equals_sequential(cuda_device, 
         assert int(out["best"][a]) == int(seq.best_idx)
         assert torch.equal(res.cost[a], seq.cost)
     assert table_interp.LAUNCHES == 2 + n_agents
+
+
+@pytest.mark.cuda
+def test_plot_fetch_on_card_is_one_copy(cuda_device):
+    """A frame's candidate fan comes over in ONE device-to-host copy, split
+    back exactly into its dtypes."""
+    from frenetix_tpu_torch.planner.core import evaluate_cycle
+    from frenetix_tpu_torch.utils import visualization
+    from frenetix_tpu_torch.workloads import dense_cycle_problem
+
+    m, k, c, dt, n, _ = dense_cycle_problem(cuda_device, torch.float32, density=3,
+                                            bucket=256)
+    res = evaluate_cycle(m, k, c, dt=dt, n_steps=n, low_vel_mode=False)
+    fields = (res.rollout.x, res.rollout.y, res.cost, res.selectable, k, res.best_idx)
+    before = visualization.FETCHES
+    got = visualization.fetch(*fields)
+    assert visualization.FETCHES == before + 1
+    for g, f in zip(got, fields):
+        want = f.cpu().numpy()
+        assert g.dtype == want.dtype and np.array_equal(g, want)
