@@ -34,7 +34,9 @@ Phases, each printed on lines of its own:
 7. multi-agent simulation: convoy (7 vehicles + ego, A = 8) and highway with
    start_multiagent, batched on the card in float32: every agent must reach
    its goal through the kernel; compared with the sequential multi-agent run
-   on the card (equal statuses and step counts) and the CPU float64 run.
+   on the card (equal statuses and step counts) and with the port's CPU
+   float32 batched run (equal statuses and steps, end positions within
+   F32_CPU_TOL).
 8. risk: risk.costs.trajectory_risks on a simulation-sized rollout with 4
    obstacles on the card in float32 against the CPU float64 result
    (1e-4 absolute), and a scenario with emergency_mode = "min_risk" whose
@@ -71,10 +73,14 @@ Phases, each printed on lines of its own:
    positions within 1e-4 m), then timed at S = 1, 8, 32: wall, scenarios per
    second, peak device memory.
 
-13. behavior planner (float64 for the hard checks, float32 reported beside):
+13. behavior planner:
    (a) the host path, one agent: traffic_light, stop_sign and lane_change in
    float32 and float64 on the card; the float64 run must equal the CPU
-   float64 run of the port (statuses, steps, positions within 1e-6 m);
+   float64 run of the port (statuses, steps, positions within 1e-6 m); the
+   float32 run is held against the port's CPU float32 run, both traced
+   (`utils.parting`): equal statuses, positions within F32_CPU_TOL up to the
+   first cycle whose selection differs, and that cycle a float32 cost tie or
+   threshold flip (`classify_parting`), else equal steps;
    (b) the convoy with behavior, host batched against host sequential on the
    card: equal statuses, positions within 1e-4 m up to the first retirement;
    (c) the device-resident run with the FSM in the run on traffic_light,
@@ -195,7 +201,22 @@ Phases, each printed on lines of its own:
    K1 as its unplotted twin; render ms per frame and the plotted run's ms
    per cycle beside phase 15's `--no-logging` run.
 
-Each path on the card (phases 4 to 18) is driven with K1's launch count set
+19. the JAX package's surface on the port:
+   (a) every name the JAX subpackages re-export imports from the port's
+   subpackages (and neither JAX nor the JAX package is loaded);
+   (b) `planner.initial_state.compute_initial_state` for 8 agents in float32
+   and float64: one K1 launch per call on the stacked (8·R, 3) table, held
+   against the port's CPU float64 result (float64 within 1e-10, float32
+   within INIT_F32_RTOL per column) and `compute_initial_state_np`;
+   (c) the s_curve (no behavior), double_lane_change and double_crossing
+   (behavior) families at their default size: float64 on the card equal to
+   the CPU float64 run (statuses, steps, the steps of the reference-path
+   rebuilds, positions within 1e-6 m), float32 held against the CPU float32
+   run as in 13 (a);
+   (d) `run_scenario highway --cpu` in a process of its own: exit 0, no K1
+   launch and no CUDA context.
+
+Each path on the card (phases 4 to 19) is driven with K1's launch count set
 to 0 just before and read just after (spawned ranks and workers report
 their own counts); a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
@@ -207,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
 import json
 import logging
 import math
@@ -220,6 +242,7 @@ import time
 import numpy as np
 import torch
 
+from frenetix_tpu_torch.behavior import behavior_module
 from frenetix_tpu_torch.io import scenario_factory
 from frenetix_tpu_torch.io.commonroad import Obstacle, State
 from frenetix_tpu_torch.models import onnx_torch, walenet
@@ -240,10 +263,13 @@ from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.utils import visualization
+from frenetix_tpu_torch.utils.parting import (
+    CycleTrace, classify_parting, first_parting, stopping_flips,
+)
 from frenetix_tpu_torch.utils.sim_logging import require_strict_tables
 from frenetix_tpu_torch.workloads import (
-    dense_cycle_problem, device_fleet, stacked_cycle_problem, stacked_post_pass_extras,
-    write_synthetic_walenet_onnx,
+    dense_cycle_problem, device_fleet, initial_state_problem, stacked_cycle_problem,
+    stacked_post_pass_extras, write_synthetic_walenet_onnx,
 )
 
 KERNEL_SOURCE = "frenetix_tpu_torch/csrc/table_interp.cu"
@@ -255,6 +281,10 @@ O_SLOTS = 16           # obstacle slots of the simulations' prediction tensors
 ULPS = 4
 POS_TOL = 1e-4         # metres: device-resident run against the host run, float32
 BEH_POS_TOL = 1e-6     # metres: behavior runs against each other, float64
+# metres: a float32 run on the card against the port's float32 run on the CPU
+# before they part (the multi-agent runs of phase 7 ended bitwise equal in
+# the chip run that set it, NVIDIA H100 80GB HBM3, 700.00 W)
+F32_CPU_TOL = 1e-6
 FLEET_SIZES = (1, 8, 32)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # float32 outside the tensor cores
@@ -652,15 +682,23 @@ def phase_multiagent(dev, smi, launches):
         check(seq.agent_status == res.agent_status and seq.steps == res.steps,
               f"{family}: sequential on the card {seq.agent_status} steps {seq.steps} "
               f"vs batched {res.agent_status} steps {res.steps}")
-        _, ref = _multiagent_run(family, torch.device("cpu"), "float64", batched=True)
+        # the port's float32 on the CPU: the same planner in the same
+        # precision (its float64 gap is held against JAX's float64 by the
+        # CPU tests), so the card must take its steps
+        _, ref = _multiagent_run(family, torch.device("cpu"), "float32", batched=True)
         end, end_seq, end_ref = (_end_positions(r) for r in (res, seq, ref))
         dev_seq = max(float(np.abs(end[a] - end_seq[a]).max()) for a in end)
         dev_ref = max(float(np.abs(end[a] - end_ref[a]).max()) for a in end)
+        check(_statuses(ref) == _statuses(res) and ref.steps == res.steps,
+              f"{family}: cpu f32 batched {ref.agent_status} steps {ref.steps} vs the "
+              f"card's {res.agent_status} steps {res.steps}")
+        check(dev_ref <= F32_CPU_TOL, f"{family}: card f32 end positions {dev_ref} m from "
+                                      f"cpu f32 (limit {F32_CPU_TOL})")
         phase(7, f"{family}: sequential on the card: equal statuses and steps "
                  f"({seq.steps}), K1 launches {seq_launches}, wall "
                  f"{seq.wall_time:.3f} s, max end-position deviation {dev_seq:.3e} m; "
-                 f"cpu f64 batched: steps {ref.steps}, success {ref.success}, max "
-                 f"end-position deviation {dev_ref:.3e} m [{smi}]")
+                 f"cpu f32 batched: equal statuses and steps ({ref.steps}), max "
+                 f"end-position deviation {dev_ref:.3e} m (limit {F32_CPU_TOL}) [{smi}]")
         runs[family] = (res, seq)
     return runs
 
@@ -1161,28 +1199,84 @@ def _dres_gap(a, b):
                         - b.trajectories[:n, :, :2]).max())
 
 
+def _f32_against_cpu(make_sim, dev, what, launches):
+    """`make_sim(device, "float32")` run on the card (its K1 launches
+    counted as path `what`) and on the CPU, both traced
+    (`utils.parting.CycleTrace`).  Until the first cycle whose selection
+    differs the two must agree within F32_CPU_TOL; that cycle must be a
+    float32 tie or threshold flip (`classify_parting`).  Without one, equal
+    steps and statuses.  Returns (card result, cpu result, parting or None,
+    position gap before the parting, `stopping_flips` of the card's and the
+    CPU's run)."""
+    config = load_config()
+
+    def traced(device, counted):
+        with CycleTrace(reactive, behavior_module) as trace:
+            if counted:
+                launches.start()
+            res = make_sim(device, "float32").run()
+            if counted:
+                launches.stop(what)
+        return res, trace
+
+    (card, card_trace), (cpu, cpu_trace) = traced(dev, True), traced(torch.device("cpu"),
+                                                                      False)
+    check(_statuses(card) == _statuses(cpu),
+          f"{what}: card f32 {card.agent_status} vs cpu f32 {cpu.agent_status}")
+    level = first_parting(card_trace, cpu_trace)
+    if level is None:
+        check(card.steps == cpu.steps, f"{what}: card f32 steps {card.steps} vs cpu f32 "
+                                       f"{cpu.steps} without a parting cycle")
+        parting, gap = None, _history_gap(card, cpu)
+    else:
+        parting = classify_parting(card_trace, cpu_trace, level, dt=config.planning.dt,
+                                   n_steps=config.planning.n_steps)
+        check(parting.kind in ("tie", "threshold"),
+              f"{what}: card f32 parts from cpu f32 at plan {parting.plan}: "
+              f"{parting.detail}")
+        # one plan call every replanning_frequency steps until the parting
+        gap = _history_gap(card, cpu, steps=config.planning.replanning_frequency
+                           * parting.plan + 1)
+    check(gap <= F32_CPU_TOL, f"{what}: card f32 {gap} m from cpu f32 before they part")
+    flips = [stopping_flips(t, dt=config.planning.dt, n_steps=config.planning.n_steps)
+             for t in (card_trace, cpu_trace)]
+    return card, cpu, parting, gap, flips
+
+
+def _parting_text(parting, gap, card, cpu, flips):
+    (card_flagged, card_n), (cpu_flagged, cpu_n) = flips
+    share = (f"; stopping candidates with an exact end velocity of 0 flagged as "
+             f"reversing: card {card_flagged} of {card_n}, cpu {cpu_flagged} of {cpu_n}"
+             if card_n or cpu_n else "")
+    if parting is None:
+        return (f"card f32 = cpu f32 (steps {card.steps}, equal statuses, positions "
+                f"within {gap:.3e} m){share}")
+    return (f"card f32 {card.steps} steps, cpu f32 {cpu.steps}, equal statuses; they "
+            f"part at plan {parting.plan} ({parting.kind}: {parting.detail}), positions "
+            f"within {gap:.3e} m before it{share}")
+
+
 def phase_behavior(dev, smi, launches):
     cpu = torch.device("cpu")
     # (a) the host path, one agent
     for family in ("traffic_light", "stop_sign", "lane_change"):
-        runs = {}
-        for dtype in ("float32", "float64"):
-            launches.start()
-            runs[dtype] = _behavior_sim(family, dev, dtype).run()
-            launches.stop(f"behavior host {family}, {dtype}")
+        launches.start()
+        r64 = _behavior_sim(family, dev, "float64").run()
+        launches.stop(f"behavior host {family}, float64")
         ref = _behavior_sim(family, cpu, "float64").run()
-        r64, r32 = runs["float64"], runs["float32"]
         check(r64.success and _statuses(r64) == _statuses(ref) and r64.steps == ref.steps,
               f"behavior {family}: card f64 {r64.agent_status} steps {r64.steps} vs cpu "
               f"f64 {ref.agent_status} steps {ref.steps}")
         gap64 = _history_gap(r64, ref)
         check(gap64 <= BEH_POS_TOL, f"behavior {family}: card f64 {gap64} m from cpu f64")
+        r32, c32, parting, gap, flips = _f32_against_cpu(
+            lambda d, dtype: _behavior_sim(family, d, dtype), dev,
+            f"behavior host {family}, float32", launches)
         gap32 = _history_gap(r32, ref)
         phase(13, f"(a) behavior host {family}: card f64 = cpu f64 (steps {r64.steps}, "
                   f"success, positions within {gap64:.3e} m), wall {r64.wall_time:.3f} s; "
-                  f"card f32: {[s.name for s in r32.agent_status.values()]} steps "
-                  f"{r32.steps}, wall {r32.wall_time:.3f} s, gap to f64 over the common "
-                  f"steps {gap32:.3e} m [{smi}]")
+                  f"{_parting_text(parting, gap, r32, c32, flips)}; "
+                  f"card f32 gap to cpu f64 over the common steps {gap32:.3e} m [{smi}]")
 
     # (b) host batched against host sequential, many agents
     host = {}
@@ -2382,6 +2476,161 @@ def phase_plots(dev, smi, launches, cli):
             _plots_on_card(dev, smi, launches, root, cli)
 
 
+# ---------------------------------------------------------------- phase 19
+
+# the JAX package's subpackage re-exports, which the port offers under the
+# same names
+REEXPORTS = {
+    "sim": ("Simulation", "SimulationResult"),
+    "io": ("Scenario", "load_scenario"),
+    "geometry": ("RefPathTable", "prepare_reference_path"),
+    "planner": ("CycleContext", "CycleResult", "evaluate_cycle"),
+    "risk": ("DEFAULT_HARM_COEFFS", "ObstacleMeta", "obstacle_mass",
+             "obstacle_protection", "DEFAULT_RISK_MODES", "trajectory_risks"),
+    "parallel": ("agent_pose_predictions", "batched_full_cycle", "concat_obstacles",
+                 "make_agent_mesh", "sharded_full_cycle", "stack_cycle_contexts",
+                 "distributed_initialize", "shard_scenarios", "DeviceSimResult",
+                 "DeviceSimulation", "run_fleet"),
+}
+SURFACE_FAMILIES = (("s_curve", False), ("double_lane_change", True),
+                    ("double_crossing", True))
+INIT_AGENTS = 8
+# the float32 initial state against the CPU float64 one, per output column
+# relative to max(1, the column's largest |value|): float32 may project onto
+# the other of two segments meeting at a vertex of the path (a few mm of s
+# on the inside of a bend), which moves θ and so ḋ (2.1e-4 on the CPU)
+INIT_F32_RTOL = 1e-3
+
+
+def _family_sim(family, behavior):
+    def make(device, dtype):
+        config = load_config()
+        config.dtype = dtype
+        config.behavior.use_behavior_planner = behavior
+        return Simulation(getattr(scenario_factory, f"make_{family}")(), config, device)
+    return make
+
+
+def _swaps(sim):
+    """The steps at which the ego's behavior module rebuilt the reference
+    path, filled while `sim` runs."""
+    swaps = []
+    agent = sim.agents[0]
+    execute = agent.behavior.execute
+
+    def recording(preds, state, t):
+        out = execute(preds, state, t)
+        if out.reference_path is not None:
+            swaps.append(t)
+        return out
+
+    agent.behavior.execute = recording
+    return swaps
+
+
+def phase_surface(dev, smi, launches):
+    from frenetix_tpu_torch.planner.initial_state import (
+        compute_initial_state, compute_initial_state_np,
+    )
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    # (a) the JAX package's names, re-exported by the port's subpackages
+    for package, names in REEXPORTS.items():
+        mod = importlib.import_module(f"frenetix_tpu_torch.{package}")
+        missing = [n for n in names if not hasattr(mod, n)]
+        check(not missing, f"frenetix_tpu_torch.{package} lacks {missing}")
+    present = [m for m in ("jax", "yaml", "pandas", "matplotlib")
+               if importlib.util.find_spec(m) is not None]
+    check(not any(m in sys.modules for m in ("jax", "frenetix_tpu")),
+          "jax or the JAX package was imported")
+    phase(19, f"(a) {sum(map(len, REEXPORTS.values()))} re-exported names import from "
+              f"frenetix_tpu_torch.{{{','.join(REEXPORTS)}}}; importable on this machine "
+              f"of jax, yaml, pandas, matplotlib: {present or 'none'}")
+
+    # (b) the tensor initial state of 8 agents: one K1 launch per call
+    wheelbase = load_config().vehicle.wheelbase
+    ref64, st64, refs, rows = initial_state_problem(INIT_AGENTS, cpu, torch.float64)
+    want = [t.numpy() for t in compute_initial_state(ref64, st64, wheelbase, False)]
+    want_np = [np.stack(c) for c in zip(*(compute_initial_state_np(r, s, wheelbase, False)
+                                          for r, s in zip(refs, rows)))]
+    for dtype in (torch.float32, torch.float64):
+        ref, state, _, _ = initial_state_problem(INIT_AGENTS, dev, dtype)
+        name = str(dtype).split(".")[-1]
+        launches.start()
+        got = compute_initial_state(ref, state, wheelbase, False)
+        torch.cuda.synchronize()
+        n = launches.stop(f"compute_initial_state A={INIT_AGENTS}, {name}")
+        check(n == 1, f"compute_initial_state {name}: {n} K1 launches, not one")
+        got = [t.double().cpu().numpy() for t in got]
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        err_np = max(float(np.abs(g - w).max()) for g, w in zip(got, want_np))
+        rel = max(float((np.abs(g - w).max(0) / np.maximum(1.0, np.abs(w).max(0))).max())
+                  for g, w in zip(got, want))
+        bound = 1e-10 if dtype == torch.float64 else INIT_F32_RTOL
+        check((err if dtype == torch.float64 else rel) <= bound,
+              f"compute_initial_state {name}: {err} from cpu f64 (relative {rel})")
+        p50 = timed_calls(lambda: compute_initial_state(ref, state, wheelbase, False))[0]
+        phase(19, f"(b) compute_initial_state A={INIT_AGENTS} on the card in {name}: 1 K1 "
+                  f"launch on the ({INIT_AGENTS}*{int(ref.s.shape[-1])}, 3) table, max |Δ| "
+                  f"to cpu f64 {err:.3e} (per column relative to its scale {rel:.3e}, limit {bound}), to "
+                  f"compute_initial_state_np {err_np:.3e}; p50 {p50:.3f} ms per call [{smi}]")
+
+    # (c) the three families the JAX tests drive, float64 and float32
+    for family, behavior in SURFACE_FAMILIES:
+        make = _family_sim(family, behavior)
+
+        def run64(device, counted):
+            sim = make(device, "float64")
+            swaps = _swaps(sim) if behavior else []
+            if counted:
+                launches.start()
+            res = sim.run()
+            if counted:
+                launches.stop(f"{family}, float64")
+            return res, swaps
+
+        (r64, sw64), (ref, sw_ref) = run64(dev, True), run64(cpu, False)
+        check(r64.success and _statuses(r64) == _statuses(ref) and r64.steps == ref.steps
+              and sw64 == sw_ref,
+              f"{family}: card f64 {r64.agent_status} steps {r64.steps} swaps {sw64} vs "
+              f"cpu f64 {ref.agent_status} steps {ref.steps} swaps {sw_ref}")
+        gap64 = _history_gap(r64, ref)
+        check(gap64 <= BEH_POS_TOL, f"{family}: card f64 {gap64} m from cpu f64")
+        r32, c32, parting, gap, flips = _f32_against_cpu(make, dev, f"{family}, float32",
+                                                         launches)
+        phase(19, f"(c) {family}{' with behavior' if behavior else ''}: card f64 = cpu "
+                  f"f64 (steps {r64.steps}, success, reference path rebuilt at {sw64}, "
+                  f"positions within {gap64:.3e} m), wall {r64.wall_time:.3f} s; "
+                  f"{_parting_text(parting, gap, r32, c32, flips)}; card f32 gap to cpu f64 "
+                  f"{_history_gap(r32, ref):.3e} m [{smi}]")
+
+    # (d) the JAX CLI's --cpu in a process of its own: no card work at all
+    code = ("import sys, torch\n"
+            "from frenetix_tpu_torch import run_scenario\n"
+            "from frenetix_tpu_torch.ops import table_interp\n"
+            "rc = run_scenario.main(['highway', '--cpu', '--logs', sys.argv[1]])\n"
+            "print('K1', table_interp.LAUNCHES, torch.cuda.is_initialized())\n"
+            "sys.exit(rc)\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as logs:
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, logs], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t1
+    check(proc.returncode == 0, f"highway --cpu exited {proc.returncode}: {proc.stderr[-2000:]}")
+    report = [line for line in proc.stdout.splitlines() if line.startswith("K1 ")]
+    check(report == ["K1 0 False"], f"highway --cpu: {report} (want no K1 launch and no "
+                                    f"CUDA context)")
+    status = [line for line in proc.stdout.splitlines() if "status=" in line]
+    phase(19, f"(d) run_scenario highway --cpu in a process of its own: exit 0, "
+              f"{status[0].split(' message')[0] if status else ''}, 0 K1 launches, no CUDA "
+              f"context; {wall:.1f} s")
+    phase(19, f"phase 19 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     dev, name, smi = phase_device()
     phase_build()
@@ -2402,6 +2651,7 @@ def main() -> int:
     phase_walenet(dev, smi, launches)
     phase_mesh(dev, smi, launches, batched_p50, device_runs)
     phase_plots(dev, smi, launches, cli)
+    phase_surface(dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

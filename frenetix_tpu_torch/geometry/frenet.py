@@ -23,6 +23,7 @@ __all__ = [
     "interp_table",
     "interp_angle_table",
     "interp_ref_tables",
+    "interp_columns",
     "wrap_valid_orientation",
     "frenet_to_cartesian",
     "cartesian_to_frenet",
@@ -74,7 +75,6 @@ def interp_ref_tables(ref, s, extra_tables=None, window_rows=None,
     to end as one (A·R, C) table, A = ∏B, and agent a's rows get a·R added,
     so the whole batch is ONE kernel launch.  A per-agent row index lies in
     [0, R-2], so row+1 never reaches the next agent's table."""
-    batch_shape = s.shape
     idx, lam, in_dom = segment_index(ref.s, s)
     cols = [ref.theta, ref.kappa, ref.kappa_d, ref.xy[..., 0], ref.xy[..., 1]]
     tables = torch.stack(cols, dim=-1)                     # (B..., R, C)
@@ -96,16 +96,7 @@ def interp_ref_tables(ref, s, extra_tables=None, window_rows=None,
     else:
         gidx = idx
 
-    lead_shape = ref.s.shape[:-1]
-    if lead_shape:
-        n_agents = lead_shape.numel()
-        base = torch.arange(n_agents, dtype=torch.int32, device=s.device) * r
-        gidx = gidx + _lead(base.reshape(lead_shape), s)
-    n_cols = tables.shape[-1]
-    vals_t = interp_rows(tables.reshape(-1, n_cols).contiguous(),
-                         gidx.reshape(-1).contiguous(),
-                         lam.reshape(-1).contiguous())     # (C, P)
-    field = [vals_t[i].reshape(batch_shape) for i in range(n_cols)]
+    field = interp_columns(tables, gidx, lam)
     return {
         "alpha": wrap_valid_orientation(field[0]),
         "theta_lerp": field[0],
@@ -118,6 +109,24 @@ def interp_ref_tables(ref, s, extra_tables=None, window_rows=None,
         "lam": lam,
         "in_domain": in_dom,
     }
+
+
+def interp_columns(tables, rows, lam):
+    """The C columns of `tables` (B..., R, C) interpolated at rows `rows`
+    (int32, each in [0, R-2], shape (B..., Q...)) with factors `lam`, as a
+    list of C tensors shaped like `rows`: ONE K1 launch on the (A·R, C)
+    table that lays the A = ∏B agents' tables end to end, agent a's rows
+    offset by a·R."""
+    r, n_cols = tables.shape[-2], tables.shape[-1]
+    lead_shape = tables.shape[:-2]
+    gidx = rows
+    if lead_shape:
+        base = torch.arange(lead_shape.numel(), dtype=torch.int32, device=rows.device) * r
+        gidx = gidx + _lead(base.reshape(lead_shape), rows)
+    vals_t = interp_rows(tables.reshape(-1, n_cols).contiguous(),
+                         gidx.reshape(-1).contiguous(),
+                         lam.reshape(-1).contiguous())     # (C, P)
+    return [vals_t[i].reshape(rows.shape) for i in range(n_cols)]
 
 
 def interp_table(table, idx, lam):
@@ -147,13 +156,17 @@ def frenet_to_cartesian(ref, s, d):
 
 def cartesian_to_frenet(ref, x, y):
     """(x, y) → (s, d) by closest-point projection onto the polyline;
-    d > 0 left of the path."""
+    d > 0 left of the path.  With leading agent axes B on the tables
+    (`ref.xy` (B..., R, 2)) the queries start with the same B, and each
+    agent's points project onto its own path."""
     p = torch.stack(torch.broadcast_tensors(torch.as_tensor(x), torch.as_tensor(y)),
                     dim=-1)
     batch_shape = p.shape[:-1]
-    pf = p.reshape(-1, 1, 2)
-    a = ref.xy[None, :-1, :]
-    b = ref.xy[None, 1:, :]
+    xy = ref.xy.reshape((-1,) + tuple(ref.xy.shape[-2:]))    # (A, R, 2)
+    ref_s = ref.s.reshape(xy.shape[0], -1)                    # (A, R)
+    pf = p.reshape(xy.shape[0], -1, 1, 2)                     # (A, P, 1, 2)
+    a = xy[:, None, :-1, :]
+    b = xy[:, None, 1:, :]
     ab = b - a
     ap = pf - a
     seg_len2 = torch.sum(ab * ab, dim=-1)
@@ -161,14 +174,18 @@ def cartesian_to_frenet(ref, x, y):
                     0.0, 1.0)
     closest = a + t[..., None] * ab
     diff = pf - closest
-    dist2 = torch.sum(diff * diff, dim=-1)          # (P, R-1)
-    best = torch.argmin(dist2, dim=-1)              # (P,)
-    rows = torch.arange(pf.shape[0], device=pf.device)
-    t_best = t[rows, best]
-    seg_s = ref.s[best] + t_best * (ref.s[best + 1] - ref.s[best])
-    ab_best = ab[0, best]
-    ap_best = pf[:, 0, :] - a[0, best]
-    cross = ab_best[:, 0] * ap_best[:, 1] - ab_best[:, 1] * ap_best[:, 0]
-    dist = torch.sqrt(dist2[rows, best])
+    dist2 = torch.sum(diff * diff, dim=-1)          # (A, P, R-1)
+    best = torch.argmin(dist2, dim=-1)              # (A, P)
+
+    def pick(v):
+        return torch.gather(v, -1, best[..., None])[..., 0]
+
+    t_best = pick(t)
+    s_lo = torch.gather(ref_s, 1, best)
+    seg_s = s_lo + t_best * (torch.gather(ref_s, 1, best + 1) - s_lo)
+    ab_best = torch.gather(ab[:, 0], 1, best[..., None].expand(-1, -1, 2))
+    ap_best = pf[:, :, 0, :] - torch.gather(a[:, 0], 1, best[..., None].expand(-1, -1, 2))
+    cross = ab_best[..., 0] * ap_best[..., 1] - ab_best[..., 1] * ap_best[..., 0]
+    dist = torch.sqrt(pick(dist2))
     d = torch.where(cross >= 0.0, dist, -dist)
     return seg_s.reshape(batch_shape), d.reshape(batch_shape)

@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch.risk.costs import sum_obstacles
-from frenetix_tpu_torch.sim.visible_area import obstacle_obb_segments, polar_visibility
 
 __all__ = ["PHANTOM_TYPES", "PhantomSpec", "OcclusionModule", "PhantomThresholds",
            "phantom_safety_mask", "external_occlusion_costs"]
@@ -407,6 +406,10 @@ class OcclusionModule:
         key = (int(time_step), n_rays)
         if self._polar_cache_key == key:
             return self._polar_cache
+        # imported here: `frenetix_tpu_torch.sim` re-exports the simulation,
+        # which imports this module through the agent
+        from frenetix_tpu_torch.sim.visible_area import obstacle_obb_segments, polar_visibility
+
         ego = np.asarray(ego_state.position, dtype=np.float64)
         segs = []
         for ob in self.scenario.obstacles.values():

@@ -81,6 +81,12 @@ class Rollout(NamedTuple):
     valid: torch.Tensor       # (M,) bool
     inf_slots: torch.Tensor   # (M, 11) bool — violated slots per candidate
 
+    @property
+    def histogram(self) -> torch.Tensor:
+        """(…, 11) infeasibility histogram, the sum of `inf_slots` over the
+        candidate axis (slot 0 = total count); leading agent axes stay."""
+        return torch.sum(self.inf_slots, dim=-2)
+
 
 def _carry_forward_theta(active, theta_active, theta_init):
     """θ_gl for standstill steps: the value at the last active step so far,

@@ -224,9 +224,9 @@ def post_pass_selection(res, ctx, risks, *, dt, resp_weight=0.0, grid=None,
 
 
 def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
-                       resp_weight=0.0, occlusion=False, thresholds=None,
-                       occ_pm_weight=0.0, occ_um_weight=0.0, occ_ve_weight=0.0,
-                       compensated_sum=False):
+                       resp_weight=0.0, occlusion=False, harm_threshold=0.1,
+                       risk_threshold=1.0, thresholds=None, occ_pm_weight=0.0,
+                       occ_um_weight=0.0, occ_ve_weight=0.0, compensated_sum=False):
     """The full multi-agent cycle on one device.
 
     Returns fn(matrices (A, M, 13), masks (A, M), stacked_ctx, *extras) →
@@ -237,8 +237,9 @@ def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
     (`stack_reach_grids`; the selection includes the responsibility term);
     with `occlusion=True` an (A, O) bool mask of the phantom prediction rows
     (the selection applies the occlusion safety gate: candidates whose
-    phantom metrics break `thresholds`, a PhantomThresholds, by default the
-    default gate, leave `selectable`); with occ_um or
+    phantom metrics break `thresholds`, a PhantomThresholds, leave
+    `selectable`; without `thresholds` the gate takes `harm_threshold` and
+    `risk_threshold`); with occ_um or
     occ_ve weighted, the per-agent occluder geometry ego (A, 2), r_vis
     (A, K), pts (A, Q, 2), pts_valid (A, Q).
 
@@ -247,6 +248,8 @@ def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
     back False for that agent and `best` stays the cycle's own."""
     use_resp = resp_weight != 0.0
     use_geom = occlusion and (occ_um_weight != 0.0 or occ_ve_weight != 0.0)
+    thresholds = thresholds or PhantomThresholds(harm=harm_threshold,
+                                                 risk=risk_threshold)
 
     def fn(matrices, masks, ctx, *extras):
         extras = list(extras)
@@ -403,11 +406,10 @@ def sharded_full_cycle(mesh, *, dt, n_steps, low_vel_mode=False, table_window=76
     gathered result from the mesh's first rank, so that every rank of the
     world ends the call with the same selection."""
     check_axis(mesh, axis_name)
-    thresholds = thresholds or PhantomThresholds(harm=harm_threshold,
-                                                 risk=risk_threshold)
     local = batched_full_cycle(
         dt=dt, n_steps=n_steps, low_vel_mode=low_vel_mode, table_window=table_window,
-        resp_weight=resp_weight, occlusion=occlusion, thresholds=thresholds,
+        resp_weight=resp_weight, occlusion=occlusion, harm_threshold=harm_threshold,
+        risk_threshold=risk_threshold, thresholds=thresholds,
         occ_pm_weight=occ_pm_weight, occ_um_weight=occ_um_weight,
         occ_ve_weight=occ_ve_weight, compensated_sum=compensated_sum)
     root = int(mesh.mesh.reshape(-1)[0])

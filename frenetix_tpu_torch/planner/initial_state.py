@@ -1,20 +1,31 @@
-"""Curvilinear initial-state computation (Werling Eqs. A.3 / A.5), on the host.
+"""Curvilinear initial-state computation (Werling Eqs. A.3 / A.5).
 
-A copy of `frenetix_tpu/planner/initial_state.py::compute_initial_state_np`
-and `CartesianState`: the JAX module sits behind `frenetix_tpu.planner`,
-whose package import loads JAX.  Pure NumPy; one state per call.
+PyTorch port of `frenetix_tpu/planner/initial_state.py`:
+
+- `compute_initial_state`, the tensor form, for a batch of agents at once
+  (the JAX package vmaps its function over agents; here the states and the
+  reference tables carry leading agent axes).  The θ, κ and κ' reads at
+  (idx, λ) go through K1 (`geometry.frenet.interp_columns`): one launch on
+  the stacked (A·R, 3) table for all agents.
+- `compute_initial_state_np`, the host NumPy form for one state per cycle,
+  a copy of the JAX function (the host planner uses it: a device round trip
+  would cost more than the math).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
-__all__ = ["CartesianState", "compute_initial_state_np"]
+from frenetix_tpu_torch.geometry import frenet as fr
+
+__all__ = ["CartesianState", "compute_initial_state", "compute_initial_state_np"]
 
 
 class CartesianState(NamedTuple):
-    """Planner state at the rear axle."""
+    """Planner state at the rear axle: floats for `compute_initial_state_np`,
+    or tensors of one batch shape (B...) for `compute_initial_state`."""
 
     x: float
     y: float
@@ -23,6 +34,56 @@ class CartesianState(NamedTuple):
     acceleration: float
     steering_angle: float
     yaw_rate: float
+
+
+def compute_initial_state(ref, state: CartesianState, wheelbase, low_vel_mode: bool):
+    """Cartesian states → curvilinear (x0_lon, x0_lat) triples, as tensors.
+
+    `ref` is a RefPathTable of tensors, (R,) fields or with leading agent
+    axes (B..., R); the fields of `state` are tensors of shape (B...) (or
+    numbers for one agent).  Returns ((B..., 3) (s, ṡ, s̈), (B..., 3)
+    (d, ḋ, d̈)); in low-velocity mode the lateral derivatives are with
+    respect to arclength.  Unlike the NumPy form it does not raise on a
+    negative curvilinear velocity (the JAX tensor form does not either)."""
+    def tensor(v):
+        return torch.as_tensor(v, dtype=ref.s.dtype, device=ref.s.device)
+
+    x, y, orientation, velocity, acceleration, steering = (
+        tensor(v) for v in (state.x, state.y, state.orientation, state.velocity,
+                             state.acceleration, state.steering_angle))
+    s, d = fr.cartesian_to_frenet(ref, x, y)
+    idx, lam, _ = fr.segment_index(ref.s, s)
+    tables = torch.stack([ref.theta, ref.kappa, ref.kappa_d], dim=-1)   # (B..., R, 3)
+    theta_r, kr, kr_d = fr.interp_columns(tables, idx, lam)
+
+    theta_cl = orientation - fr.wrap_valid_orientation(theta_r)
+    kappa_0 = torch.tan(steering) / wheelbase
+
+    cos_t = torch.cos(theta_cl)
+    tan_t = torch.tan(theta_cl)
+    one_krd = 1.0 - kr * d
+
+    d_p = one_krd * tan_t
+    d_pp = -(kr_d * d + kr * d_p) * tan_t + (one_krd / (cos_t * cos_t)) * (
+        kappa_0 * one_krd / cos_t - kr
+    )
+
+    s_velocity = velocity * cos_t / one_krd
+    s_acceleration = acceleration - (s_velocity**2 / cos_t) * (
+        one_krd * tan_t * (kappa_0 * one_krd / cos_t - kr) - (kr_d * d + kr * d_p)
+    )
+    s_acceleration = s_acceleration / (one_krd / cos_t)
+
+    if low_vel_mode:
+        d_velocity = d_p
+        d_acceleration = d_pp
+    else:
+        d_velocity = velocity * torch.sin(theta_cl)
+        d_acceleration = s_acceleration * d_p + s_velocity**2 * d_pp
+
+    x0_lon = torch.stack([s, s_velocity, s_acceleration], dim=-1)
+    x0_lat = torch.stack([d, d_velocity, d_acceleration], dim=-1)
+    return x0_lon, x0_lat
 
 
 def compute_initial_state_np(ref_np, state, wheelbase: float, low_vel_mode: bool):

@@ -47,6 +47,7 @@ from frenetix_tpu_torch.occlusion import external_occlusion_costs, phantom_safet
 from frenetix_tpu_torch.ops import sampling as smp
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, empty_predictions
 from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+from frenetix_tpu_torch.planner.initial_state import compute_initial_state_np
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.risk.reachable_set import responsibility_reach_grid
@@ -205,7 +206,7 @@ def _occlusion_pack(res, preds, meta, phantom_mask, ego, r_vis, pts, pts_valid, 
 
 
 class ReactivePlanner:
-    def __init__(self, config: FrenetixConfig, device: torch.device):
+    def __init__(self, config: FrenetixConfig, device: torch.device, msg_logger=None):
         if config.planning.emergency_mode not in ("stopping", "min_risk"):
             raise ValueError(
                 f"planning.emergency_mode={config.planning.emergency_mode!r}: "
@@ -217,6 +218,7 @@ class ReactivePlanner:
                 "— the max bound is exclusive"
             )
         self.config = config
+        self.msg_logger = msg_logger
         self.device = torch.device(device)
         self.dtype = torch.float64 if config.dtype == "float64" else torch.float32
         self.np_dtype = np.float64 if config.dtype == "float64" else np.float32
@@ -316,6 +318,13 @@ class ReactivePlanner:
         self._occ_time_step = time_step
 
     # ---------------------------------------------------------------- planning
+    def compute_initial_state(self, x0):
+        """Cartesian rear-axle state → curvilinear ((s, ṡ, s̈), (d, ḋ, d̈)),
+        on the host in NumPy (`compute_initial_state_np`), with the lateral
+        derivatives over arclength below `planning.low_vel_mode_threshold`."""
+        low_vel = float(x0.velocity) < self.config.planning.low_vel_mode_threshold
+        return compute_initial_state_np(self.ref_np, x0, self.veh.wheelbase, low_vel)
+
     def _sampling_ranges(self, level: int, x_cl):
         p = self.config.planning
         x0_lon, x0_lat = x_cl

@@ -2,7 +2,7 @@
 
 Usage:
     python -m frenetix_tpu_torch.run_scenario PATH_OR_FAMILY [...]
-        [--device cuda|cpu] [--config-dir DIR] [--set KEY=VALUE ...]
+        [--device cuda|cpu | --cpu] [--config-dir DIR] [--set KEY=VALUE ...]
         [--multiagent] [--batched-agents] [--device-sim]
         [--device-fleet [--chunk N]] [--prediction MODE] [--evaluate]
         [--logs DIR] [--no-logging] [--workers N] [--plot] [--gif]
@@ -96,7 +96,7 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def run_one(target, config, msg_logger=None, log_dir=None, evaluate=False, *,
+def run_one(path, config, msg_logger=None, log_dir=None, evaluate=False, *,
             device=None):
     """One scenario end to end, as the JAX package's `run_one`: with
     `log_dir` and `debug.activate_logging` a SimulationLogger (meta, per-step
@@ -107,9 +107,10 @@ def run_one(target, config, msg_logger=None, log_dir=None, evaluate=False, *,
     the fetched histories for a device run), final.png and, with several
     agents, overview.png under `log_dir`; without matplotlib (or PIL for
     the GIF) that raises ImportError before the scenario loads.  `device`
-    defaults to the CUDA device."""
+    defaults to the CUDA device.  `path` is a CommonRoad XML file or a
+    family name (`load_target`)."""
     visualization.check_plot_packages(config, log_dir)
-    scenario = load_target(target)
+    scenario = load_target(path)
     # --evaluate forces both; evaluation.yaml toggles enable them one by one
     ev = config.evaluation
     do_metrics = evaluate or ev.evaluate_simulation
@@ -320,7 +321,10 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("scenarios", nargs="+",
                     help="CommonRoad XML files, directories of them, or family names")
-    ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device, e.g. cuda (the default) or cpu")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU, as --device cpu (the JAX CLI's flag)")
     ap.add_argument("--config-dir", default=None,
                     help="directory of YAML config files, one per config section "
                          "(e.g. behavior.yaml); PyYAML, or the port's own reader")
@@ -357,8 +361,10 @@ def main(argv=None) -> int:
     ap.add_argument("--plot", action="store_true", help="save per-step frames")
     ap.add_argument("--gif", action="store_true", help="assemble frames into a GIF")
     args = ap.parse_args(argv)
+    if args.cpu and args.device not in (None, "cpu"):
+        ap.error(f"--cpu conflicts with --device {args.device}")
 
-    device = resolve_device(args.device)
+    device = resolve_device("cpu" if args.cpu else args.device or "cuda")
     config = load_config(args.config_dir)
     merge_overrides(config, parse_cli_overrides(args.set))
     # the flags only switch their option on (a --set of the same key is not

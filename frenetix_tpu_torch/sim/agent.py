@@ -28,7 +28,7 @@ import torch
 from frenetix_tpu_torch.behavior import BehaviorModule
 from frenetix_tpu_torch.io.commonroad import _point_in_ring
 from frenetix_tpu_torch.occlusion import OcclusionModule, PhantomThresholds
-from frenetix_tpu_torch.planner.initial_state import CartesianState, compute_initial_state_np
+from frenetix_tpu_torch.planner.initial_state import CartesianState
 from frenetix_tpu_torch.planner.reactive import PlannedTrajectory, ReactivePlanner
 from frenetix_tpu_torch.planner.route import reference_path_for_problem
 from frenetix_tpu_torch.risk.reachable_set import build_reach_set_grids
@@ -68,6 +68,7 @@ class AgentRecord:
     planning_times: list = field(default_factory=list)
     # (wall time of the batched pass, agents in it) per batched replan
     batch_planning_times: list = field(default_factory=list)
+    messages: list = field(default_factory=list)
 
 
 class Agent:
@@ -81,7 +82,7 @@ class Agent:
         self.message = "initialized"
         self.record = AgentRecord()
 
-        self.planner = ReactivePlanner(config, device)
+        self.planner = ReactivePlanner(config, device, msg_logger)
         self.veh = config.vehicle
         self.interface = get_planner_interface(
             config.simulation.used_planner_interface)(self)
@@ -251,11 +252,7 @@ class Agent:
 
     def ensure_x_cl(self):
         if self.x_cl is None:
-            ra = self._rear_axle_state()
-            self.x_cl = compute_initial_state_np(
-                self.planner.ref_np, ra, self.veh.wheelbase,
-                ra.velocity < self.config.planning.low_vel_mode_threshold,
-            )
+            self.x_cl = self.planner.compute_initial_state(self._rear_axle_state())
         return self.x_cl
 
     def apply_external_plan(self, plan) -> None:

@@ -40,11 +40,13 @@ def ground_truth_predictions(
     *,
     cov_pos: float = 0.5,
     max_obstacles: int = 16,
+    safety_margin_length: float = 0.5,
+    safety_margin_width: float = 0.2,
     dtype=np.float32,
 ):
     """The scenario's future obstacle trajectories as means, with a fixed
     covariance; rows beyond the recorded trajectory are padded with the last
-    pose and masked."""
+    pose and masked.  Each footprint grows by the safety margins."""
     o = max_obstacles
     means = np.zeros((o, horizon, 2), dtype)
     orientations = np.zeros((o, horizon), dtype)
@@ -76,8 +78,8 @@ def ground_truth_predictions(
         fb = st0.orientation if st0 is not None else (
             last_state.orientation if last_state else 0.0)
         orientations[k] = _enrich_orientation(means[k], fb)
-        lengths[k] = ob.length + 0.5
-        widths[k] = ob.width + 0.2
+        lengths[k] = ob.length + safety_margin_length
+        widths[k] = ob.width + safety_margin_width
 
     inv = np.linalg.inv(covs.astype(np.float64)).astype(dtype)
     return dict(
@@ -94,11 +96,11 @@ def extrapolate_constant_velocity(position, orientation, velocity, horizon, dt):
 
 
 def constant_velocity_predictions(
-    scenario, obstacle_ids, current_step, horizon, *, dt, max_obstacles=16,
-    dtype=np.float32,
+    scenario, obstacle_ids, current_step, horizon, *, dt,
+    cov_pos=0.5, cov_growth=0.05, max_obstacles=16, dtype=np.float32,
 ):
-    """Constant-velocity extrapolation; the position variance grows from 0.5
-    by 0.05 per second."""
+    """Constant-velocity extrapolation; the position variance grows from
+    `cov_pos` by `cov_growth` per second."""
     o = max_obstacles
     means = np.zeros((o, horizon, 2), dtype)
     orientations = np.zeros((o, horizon), dtype)
@@ -119,7 +121,7 @@ def constant_velocity_predictions(
         )
         orientations[k] = st.orientation
         velocities[k] = st.velocity
-        var = 0.5 + 0.05 * steps * dt
+        var = cov_pos + cov_growth * steps * dt
         covs[k, :, 0, 0] = var
         covs[k, :, 1, 1] = var
         valid[k] = True

@@ -18,6 +18,10 @@ stands next to the candidates' end points, so that the risk stack has risk
 to price; `stacked_post_pass_extras` makes the reach grids, phantom masks and
 occluder geometry that the batched cycle's post-passes take.
 
+`initial_state_problem` puts A agents on rotated copies of one S-bend, each
+a few metres beside its path with a heading, speed and steering drawn from a
+seed: the inputs of `planner.initial_state.compute_initial_state`.
+
 `device_fleet` builds S device-resident simulations for
 `parallel.device_sim.run_fleet`: members cycle through the highway, the
 overtake with its lead as a second agent, the curve and the convoy of eight
@@ -47,7 +51,8 @@ from frenetix_tpu_torch.planner.core import context_from_numpy
 from frenetix_tpu_torch.risk.reachable_set import ReachSetGrid
 
 __all__ = ["dense_cycle_problem", "stacked_cycle_problem",
-           "stacked_post_pass_extras", "device_fleet", "write_synthetic_walenet_onnx"]
+           "stacked_post_pass_extras", "initial_state_problem", "device_fleet",
+           "write_synthetic_walenet_onnx"]
 
 N_STEPS = 30
 DT = 0.1
@@ -235,6 +240,38 @@ def stacked_post_pass_extras(ctx, seed: int = 0, grid_n: int = 64, n_rays: int =
     pts_valid[:, :2] = True
     ego = xy[:, 1] - torch.tensor([25.0, 3.0], dtype=dtype, device=device)
     return grid, first.clone(), (ego, r_vis, xy[:, :1] + offsets, pts_valid)
+
+
+def initial_state_problem(n_agents: int, device: torch.device, dtype=torch.float64,
+                          seed: int = 19):
+    """(stacked reference tables (A, R), CartesianState of (A,) tensors, the
+    per-agent NumPy tables, the per-agent CartesianStates of floats) for
+    `planner.initial_state.compute_initial_state` and its NumPy form."""
+    from frenetix_tpu_torch.geometry.refpath import RefPathTable
+    from frenetix_tpu_torch.planner.initial_state import CartesianState
+
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 120.0, 400)
+    base = np.stack([x, 6.0 * np.sin(x / 25.0)], axis=1)
+    refs, rows = [], []
+    for a in range(n_agents):
+        ang = 0.3 * a
+        rot = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+        ref = prepare_reference_path(base @ rot.T + [5.0 * a, 0.0], dtype=np.float64)
+        i, d = int(rng.uniform(60, 360)), rng.uniform(-2.0, 2.0)
+        th = ref.theta[i]
+        rows.append(CartesianState(
+            x=ref.xy[i, 0] - d * np.sin(th), y=ref.xy[i, 1] + d * np.cos(th),
+            orientation=th + rng.uniform(-0.2, 0.2), velocity=rng.uniform(3.0, 15.0),
+            acceleration=rng.uniform(-1.0, 1.0), steering_angle=rng.uniform(-0.1, 0.1),
+            yaw_rate=0.0))
+        refs.append(ref)
+    ref = RefPathTable(*(torch.as_tensor(np.stack([np.asarray(getattr(r, f)) for r in refs]),
+                                         dtype=dtype, device=device)
+                         for f in RefPathTable._fields))
+    state = CartesianState(*(torch.as_tensor(np.array(col, dtype=np.float64), dtype=dtype,
+                                             device=device) for col in zip(*rows)))
+    return ref, state, refs, rows
 
 
 def device_fleet(n_members: int, device=None, dtype: str = "float32", seed: int = 0,

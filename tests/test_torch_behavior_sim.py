@@ -22,7 +22,7 @@ from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.sim.world_view import WorldView
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 
-from torch_parity import agent_states, coarse_sampling
+from torch_parity import agent_states, behavior_recorder, coarse_sampling
 
 torch.set_num_threads(1)
 
@@ -43,16 +43,7 @@ def test_behavior_simulation_matches_jax(family):
 
     tsim = Simulation(getattr(tfactory, f"make_{family}")(),
                       _behavior(FrenetixConfig(dtype="float64")), CPU)
-    swaps = []
-    execute = tsim.agents[0].behavior.execute
-
-    def recording(preds, state, t):
-        out = execute(preds, state, t)
-        if out.reference_path is not None:
-            swaps.append(t)
-        return out
-
-    tsim.agents[0].behavior.execute = recording
+    swaps = behavior_recorder(tsim)
     tres = tsim.run()
     jsim = JSimulation(getattr(jfactory, f"make_{family}")(),
                        _behavior(JConfig(dtype="float64")))

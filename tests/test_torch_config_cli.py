@@ -18,6 +18,9 @@
   `--gif` also run.gif, with no log_failures.csv.
 - `--set` through `main`: strict keys, the vehicle database, the
   replanning frequency.
+- `--cpu` (the JAX CLI's flag) runs as `--device cpu`, conflicts with
+  `--device cuda`, and runs the highway to its goal at the default config;
+  `run_one(path=...)` takes the JAX package's parameter name.
 """
 import csv
 import dataclasses
@@ -367,3 +370,41 @@ def test_cli_replanning_frequency_changes_the_cycle_count(tmp_path, capsys):
     steps = int(scenario_factory.make_highway().max_time_step * 0.15)
     assert counts == {3: -(-steps // 3), 1: steps}
     capsys.readouterr()
+
+
+# ----------------------------------------------------- the JAX CLI's --cpu flag
+
+
+@pytest.mark.parametrize("argv", [["--cpu"], ["--cpu", "--device", "cpu"],
+                                  ["--device", "cpu"]], ids=["cpu", "both", "device"])
+def test_cli_cpu_flag_runs_on_the_cpu(tmp_path, monkeypatch, argv):
+    seen = _captured_config(monkeypatch, ["highway", "--logs", str(tmp_path), *argv])
+    assert seen["device"] == CPU
+
+
+def test_cli_cpu_flag_conflicts_with_a_cuda_device(tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        run_scenario.main(["highway", "--cpu", "--device", "cuda", "--logs", str(tmp_path)])
+    assert exc.value.code == 2
+    assert "--cpu conflicts with --device cuda" in capsys.readouterr().err
+
+
+def test_cli_cpu_runs_the_highway_to_its_goal(tmp_path, capsys):
+    """`python -m frenetix_tpu_torch.run_scenario highway --cpu --logs DIR`,
+    the JAX CLI's command line, at the default config."""
+    rc = run_scenario.main(["highway", "--cpu", "--logs", str(tmp_path)])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "status=COMPLETED_SUCCESS" in out and "device=cpu" in out
+    assert (tmp_path / "score_overview.csv").exists()
+
+
+def test_run_one_takes_the_scenario_as_path():
+    """`run_one(path=...)`, the JAX package's parameter name."""
+    from frenetix_tpu_torch.io import scenario_factory
+
+    cfg = tconfig.FrenetixConfig(dtype="float64")
+    cfg.planning.sampling_min, cfg.planning.sampling_max = 1, 2
+    cfg.simulation.max_steps_factor = 0.1
+    res = run_scenario.run_one(path="highway", config=cfg, device=CPU)
+    assert res.steps == int(scenario_factory.make_highway().max_time_step * 0.1)

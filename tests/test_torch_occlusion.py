@@ -16,7 +16,9 @@ the CPU.
   weighted selects the JAX planner's candidate at its cost.
 - `batched_full_cycle(occlusion=True, ...)` with geometry against the JAX one
   on the stacked problem (A = 4); the gate rejects every candidate of one
-  agent, whose `found` comes back False.
+  agent, whose `found` comes back False.  The JAX keywords `harm_threshold`
+  and `risk_threshold` against the JAX cycle; their defaults give the
+  default gate bitwise.
 - The blind-spot scenario (a parked truck beside the lane) with the module
   on and `calc_occlusions`: sequential against JAX, batched against
   sequential, positions within 1e-9 m, visible ids per step equal to JAX.
@@ -643,6 +645,65 @@ def test_batched_full_cycle_with_occlusion_matches_jax():
                                    atol=1e-10, err_msg=key)
     # the soft terms are in the selection cost
     assert (to_np(tout["cost"])[keep] > to_np(plain["cost"])[keep]).all()
+
+
+def _on_path_phantom_problem():
+    """The JAX tests' stacked problem (every 12th candidate) with obstacle 0
+    of every agent turned into a phantom standing 0.5 m beside its path
+    15–24 m ahead: every selectable candidate carries a phantom risk
+    (harm × collision probability) of 5e-6 to 7e-4."""
+    import bench_scaling
+
+    matrices, masks, jctx = bench_scaling.build_stacked_problem(
+        A, dtype=np.float64, n_steps=N, spread=12.0)
+    matrices, masks = matrices[:, ::12], masks[:, ::12]
+    means = np.asarray(jctx.preds.means).copy()
+    for i in range(A):
+        s, xy, th = (np.asarray(getattr(jctx.ref, f))[i] for f in ("s", "xy", "theta"))
+        k = int(np.argmin(np.abs(s - (45.0 + 3 * i))))
+        means[i, 0] = xy[k] + 0.5 * np.array([-np.sin(th[k]), np.cos(th[k])])
+    jctx = jctx._replace(preds=jctx.preds._replace(means=jnp_array(means)),
+                         obstacle_xy=jnp_array(means[:, :, 0]))
+    pm = np.zeros((A, means.shape[1]), bool)
+    pm[:, 0] = True
+    leaves = {f: getattr(jctx, f) for f in jctx._fields}
+    leaves["ref"] = type(jctx.ref)(*(np.asarray(x) for x in jctx.ref))
+    leaves["preds"] = {k: np.asarray(v) for k, v in jctx.preds._asdict().items()}
+    tctx = context_from_numpy(**leaves, device=CPU, dtype=torch.float64)
+    return matrices, masks, jctx, (t64(matrices), torch.as_tensor(np.array(masks)), tctx,
+                                   torch.as_tensor(pm)), pm
+
+
+@pytest.mark.parametrize("keyword", ["harm_threshold", "risk_threshold"])
+def test_batched_full_cycle_threshold_keywords_match_jax(keyword):
+    """`batched_full_cycle(harm_threshold=, risk_threshold=)`, the JAX
+    keywords: a gate stricter than the default on one of them rejects every
+    candidate of agent 0, as in the JAX cycle."""
+    from frenetix_tpu.parallel.mesh import batched_full_cycle as jbatched
+
+    matrices, masks, jctx, targs, pm = _on_path_phantom_problem()
+    kw = {"dt": DT, "n_steps": N, "occlusion": True, keyword: 1e-5}
+    jout = {k: np.asarray(v) for k, v in
+            jbatched(**kw)(matrices, masks, jctx, jnp_array(pm)).items()}
+    tout = tmesh.batched_full_cycle(**kw)(*targs)
+    assert jout["found"].tolist() == [False, True, True, True]
+    np.testing.assert_array_equal(to_np(tout["found"]), jout["found"])
+    np.testing.assert_array_equal(to_np(tout["best"]), jout["best"])
+    for key in ("x", "y", "cost"):
+        np.testing.assert_allclose(to_np(tout[key])[1:], jout[key][1:], rtol=1e-9,
+                                   atol=1e-10, err_msg=key)
+
+
+def test_batched_full_cycle_default_thresholds_are_the_default_gate():
+    """The keyword defaults (harm 0.1, risk 1.0) give bitwise what the
+    default PhantomThresholds gave, and let every agent through here."""
+    targs = _on_path_phantom_problem()[3]
+    got = tmesh.batched_full_cycle(dt=DT, n_steps=N, occlusion=True)(*targs)
+    want = tmesh.batched_full_cycle(dt=DT, n_steps=N, occlusion=True,
+                                    thresholds=tocc.PhantomThresholds())(*targs)
+    assert bool(got["found"].all())
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_batched_stepper_needs_masks_and_geometry():

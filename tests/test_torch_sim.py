@@ -17,7 +17,14 @@
   does not import.
 - Default device: `Simulation(scenario, config)` without a device uses the
   CUDA device and raises where there is none.
-- K1 on the card (marker `cuda`; they skip without a CUDA device).  This file
+- The JAX package's surface: every name its subpackages re-export is the
+  port subpackage's same object (`from frenetix_tpu_torch.sim import
+  Simulation` runs a simulation); `AgentRecord.messages`; the keyword
+  parameters of `ground_truth_predictions` (safety margins) and
+  `constant_velocity_predictions` (covariance) whose defaults give the
+  former constants bitwise and whose other values equal JAX's.
+- K1 on the card (marker `cuda`; they skip without a CUDA device), and the
+  tensor initial state of 8 agents on the card in one K1 launch.  This file
   imports JAX only inside the parity tests, so on a machine without JAX the
   card tests run with
   `python -m pytest tests/test_torch_sim.py -m cuda --noconftest`.
@@ -32,6 +39,7 @@ import pytest
 import torch
 
 from frenetix_tpu_torch.ops import _kernels, table_interp
+from frenetix_tpu_torch.planner.initial_state import compute_initial_state
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import config as tconfig
 
@@ -246,7 +254,8 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "sim.planner_interfaces", "run_scenario", "workloads", "models",
                  "models.onnx_lite", "models.onnx_torch", "models.walenet",
                  "parallel.distributed", "parallel.scenario_sharding", "graft_entry",
-                 "utils.timers", "utils.visualization", "risk.visualization"):
+                 "utils.timers", "utils.visualization", "risk.visualization",
+                 "utils.parting"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 import os
@@ -407,3 +416,125 @@ def test_plot_fetch_on_card_is_one_copy(cuda_device):
     for g, f in zip(got, fields):
         want = f.cpu().numpy()
         assert g.dtype == want.dtype and np.array_equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_compute_initial_state_on_card_is_one_launch(cuda_device, dtype):
+    """The tensor initial state of 8 agents reads θ, κ, κ' with ONE K1 launch
+    on the stacked (8·R, 3) table, and equals the CPU float64 result."""
+    from frenetix_tpu_torch.workloads import initial_state_problem
+
+    cpu64 = initial_state_problem(8, torch.device("cpu"), torch.float64)[:2]
+    card = initial_state_problem(8, cuda_device, dtype)[:2]
+    want = compute_initial_state(*cpu64, 2.578, False)
+    before = table_interp.LAUNCHES
+    got = compute_initial_state(*card, 2.578, False)
+    torch.cuda.synchronize()
+    assert table_interp.LAUNCHES == before + 1
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.double().cpu().numpy(), w.numpy(), rtol=tol, atol=tol)
+
+
+# --------------------------------------------- the JAX package's surface, on the port
+
+
+# the JAX package's subpackage re-exports: name → the module that defines it
+REEXPORTS = {
+    "sim": {"Simulation": "sim.simulation", "SimulationResult": "sim.simulation"},
+    "io": {"Scenario": "io.commonroad", "load_scenario": "io.commonroad"},
+    "geometry": {"RefPathTable": "geometry.refpath",
+                 "prepare_reference_path": "geometry.refpath"},
+    "planner": {"CycleContext": "planner.core", "CycleResult": "planner.core",
+                "evaluate_cycle": "planner.core"},
+    "risk": {"DEFAULT_HARM_COEFFS": "risk.harm", "ObstacleMeta": "risk.harm",
+             "obstacle_mass": "risk.harm", "obstacle_protection": "risk.harm",
+             "DEFAULT_RISK_MODES": "risk.costs", "trajectory_risks": "risk.costs"},
+    "parallel": {"agent_pose_predictions": "parallel.mesh",
+                 "batched_full_cycle": "parallel.mesh",
+                 "concat_obstacles": "parallel.mesh", "make_agent_mesh": "parallel.mesh",
+                 "sharded_full_cycle": "parallel.mesh",
+                 "stack_cycle_contexts": "parallel.mesh",
+                 "distributed_initialize": "parallel.distributed:initialize",
+                 "shard_scenarios": "parallel.distributed",
+                 "DeviceSimResult": "parallel.device_sim",
+                 "DeviceSimulation": "parallel.device_sim",
+                 "run_fleet": "parallel.device_sim"},
+}
+
+
+@pytest.mark.parametrize("package", sorted(REEXPORTS))
+def test_subpackage_reexports_the_jax_names(package):
+    import importlib
+
+    pkg = importlib.import_module(f"frenetix_tpu_torch.{package}")
+    for name, home in REEXPORTS[package].items():
+        module, _, original = home.partition(":")
+        src = importlib.import_module(f"frenetix_tpu_torch.{module}")
+        assert getattr(pkg, name) is getattr(src, original or name), (package, name)
+
+
+def test_jax_import_idiom_runs_a_simulation():
+    """`from <pkg>.sim import Simulation` and `from <pkg>.io import
+    load_scenario`, as bench.py and the JAX tests write them."""
+    from frenetix_tpu_torch.io import scenario_factory
+    from frenetix_tpu_torch.sim import Simulation as Reexported
+
+    cfg = tconfig.FrenetixConfig(dtype="float64")
+    cfg.planning.sampling_min, cfg.planning.sampling_max = 1, 2
+    sim = Reexported(scenario_factory.make_highway(n_steps=20), cfg, torch.device("cpu"))
+    assert isinstance(sim, Simulation)
+    assert sim.run().steps > 0
+
+
+def test_agent_record_messages_default_to_a_fresh_list():
+    from frenetix_tpu.sim.agent import AgentRecord as JRecord
+    from frenetix_tpu_torch.sim.agent import AgentRecord
+
+    a, b = AgentRecord(), AgentRecord()
+    assert a.messages == [] == JRecord().messages
+    a.messages.append("x")
+    assert b.messages == []
+
+
+def _prediction_call(module_name, kind, scenario, kw):
+    import importlib
+
+    pred = importlib.import_module(f"{module_name}.sim.prediction")
+    ids = list(scenario.obstacles)
+    if kind == "ground_truth":
+        return pred.ground_truth_predictions(scenario, ids, 5, 30, dtype=np.float64, **kw)
+    return pred.constant_velocity_predictions(scenario, ids, 5, 30, dt=0.1,
+                                              dtype=np.float64, **kw)
+
+
+PREDICTION_KEYWORDS = {
+    "ground_truth": dict(safety_margin_length=1.1, safety_margin_width=0.45),
+    "constant_velocity": dict(cov_pos=0.8, cov_growth=0.2),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PREDICTION_KEYWORDS))
+def test_prediction_keywords_default_and_match_jax(kind):
+    """The keyword parameters the JAX functions take: the defaults give the
+    numbers of the constants the port had before, bitwise; other values
+    equal JAX's."""
+    from frenetix_tpu.io import scenario_factory as jfactory
+    from frenetix_tpu_torch.io import scenario_factory as tfactory
+
+    defaults = {k: v for k, v in dict(safety_margin_length=0.5, safety_margin_width=0.2,
+                                      cov_pos=0.5, cov_growth=0.05).items()
+                if k in PREDICTION_KEYWORDS[kind]}
+    tsc, jsc = tfactory.make_convoy(), jfactory.make_convoy()
+    plain = _prediction_call("frenetix_tpu_torch", kind, tsc, {})
+    explicit = _prediction_call("frenetix_tpu_torch", kind, tsc, defaults)
+    for key in plain:
+        assert np.array_equal(plain[key], explicit[key]), key
+    kw = PREDICTION_KEYWORDS[kind]
+    got = _prediction_call("frenetix_tpu_torch", kind, tsc, kw)
+    want = _prediction_call("frenetix_tpu", kind, jsc, kw)
+    assert not np.array_equal(got["lengths"] + got["covs"].sum(),
+                              plain["lengths"] + plain["covs"].sum())
+    for key in want:
+        np.testing.assert_array_equal(got[key], np.asarray(want[key]), err_msg=key)

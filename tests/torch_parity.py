@@ -5,6 +5,8 @@ come back as numpy arrays and are compared field by field.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -222,3 +224,97 @@ def assert_equal_runs(a, b, what, atol=1e-9):
     assert a.steps == b.steps, what
     np.testing.assert_allclose(a.trajectories[:a.steps], b.trajectories[:b.steps],
                                rtol=0, atol=atol, err_msg=what)
+
+
+# ------------------------------------------------- whole runs of both packages
+
+
+def behavior_recorder(sim):
+    """The time steps at which the first agent's behavior module rebuilt the
+    reference path (a list filled while `sim` runs)."""
+    swaps = []
+    agent = sim.agents[0]
+    execute = agent.behavior.execute
+
+    def recording(preds, state, t):
+        out = execute(preds, state, t)
+        if out.reference_path is not None:
+            swaps.append(t)
+        return out
+
+    agent.behavior.execute = recording
+    return swaps
+
+
+def paired_runs(family, dtype, *, behavior=False, multiagent=False, trace=False):
+    """The JAX package's and the port's run of the default-size `family`
+    (`make_<family>()`) at `dtype` on the CPU.  Returns one dict per package
+    with the result, the executed (x, y, v) rows per agent, the reference-path
+    rebuild steps (with `behavior`) and, with `trace`, the run's
+    `utils.parting.CycleTrace`.  With `multiagent` every obstacle is an agent
+    and the agents' cycles run batched."""
+    from frenetix_tpu.behavior import behavior_module as jbehavior
+    from frenetix_tpu.io import scenario_factory as jfactory
+    from frenetix_tpu.planner import reactive as jreactive
+    from frenetix_tpu.sim.simulation import Simulation as JSimulation
+    from frenetix_tpu.utils.config import FrenetixConfig as JConfig
+    from frenetix_tpu_torch.behavior import behavior_module as tbehavior
+    from frenetix_tpu_torch.io import scenario_factory as tfactory
+    from frenetix_tpu_torch.planner import reactive as treactive
+    from frenetix_tpu_torch.sim.simulation import Simulation as TSimulation
+    from frenetix_tpu_torch.utils.config import FrenetixConfig as TConfig
+    from frenetix_tpu_torch.utils.parting import CycleTrace
+
+    def config(cls):
+        cfg = cls(dtype=dtype)
+        cfg.behavior.use_behavior_planner = behavior
+        cfg.simulation.start_multiagent = multiagent
+        cfg.simulation.batched_device_agents = multiagent
+        return cfg
+
+    runs = {}
+    for side, sim, reactive, bmod in (
+            ("jax", lambda: JSimulation(getattr(jfactory, f"make_{family}")(),
+                                        config(JConfig)), jreactive, jbehavior),
+            ("port", lambda: TSimulation(getattr(tfactory, f"make_{family}")(),
+                                         config(TConfig), CPU), treactive, tbehavior)):
+        s = sim()
+        with CycleTrace(reactive, bmod) if trace else contextlib.nullcontext() as tr:
+            swaps = behavior_recorder(s) if behavior else None
+            res = s.run()
+        runs[side] = {"result": res, "states": agent_states(s), "swaps": swaps,
+                      "trace": tr}
+    return runs["jax"], runs["port"]
+
+
+def statuses(res):
+    return {int(k): int(v) for k, v in res.agent_status.items()}
+
+
+def assert_classified_parting(jax_run, port_run, *, plan, replanning_frequency=3,
+                              pos_tol=1e-4, dt=0.1, n_steps=30):
+    """The two float32 behavior runs select alike up to the cycle of the
+    `plan`-th plan call and part there by a float32 threshold flip
+    (`utils.parting`): positions within `pos_tol` up to that cycle's step,
+    the FSM's outputs equal there, and the flipped test's margin asserted.
+    Returns the Parting."""
+    from frenetix_tpu_torch.utils.parting import classify_parting, first_parting
+
+    jt, tt = jax_run["trace"], port_run["trace"]
+    level = first_parting(jt, tt)
+    assert level is not None, "the float32 runs never part"
+    parting = classify_parting(jt, tt, level, dt=dt, n_steps=n_steps)
+    assert parting.plan == plan, parting
+    assert parting.kind == "threshold", parting.detail
+    step = replanning_frequency * plan
+    for aid, want in jax_run["states"].items():
+        np.testing.assert_allclose(port_run["states"][aid][:step + 1, :2],
+                                   want[:step + 1, :2], rtol=0, atol=pos_tol)
+    assert jt.plans[plan]["fsm_state"] == tt.plans[plan]["fsm_state"] is not None
+    for cand, m in parting.margins.items():
+        # the stopping candidate's exact end velocity is 0 ...
+        assert abs(m["s_vel_f64"]) <= 1e-9, (cand, m)
+        # ... and float32 rounding put it beyond the -1e-5 test on one side
+        assert m["s_vel_f32"] < -1e-5, (cand, m)
+        assert m["rounding_units"] <= 32, (cand, m)
+    return parting
