@@ -87,13 +87,26 @@ Phases, each printed on lines of its own:
    stop_sign, yield_sign, crosswalk and convoy: float32 eager and replayed
    (bitwise equal, one fetch, sync debug mode "error"), then float64 equal
    to the hybrid run and the host sequential run (statuses, steps, positions
-   within 1e-6 m); ms per cycle eager and replayed, capture time;
+   within 1e-6 m); ms per cycle eager and replayed, capture time; then
+   float32 against float32: the replayed run against the port's CPU float32
+   device run of the family, both eager runs traced (`utils.parting.
+   RunTrace`; the card's traced run equals its replayed run bitwise): equal
+   statuses, positions within F32_CPU_TOL up to the first cycle whose
+   selection differs, that cycle and agent named and a float32 cost tie or
+   threshold flip (`classify_run_parting`), else equal steps; the replayed
+   run with `emit_margins` (a graph of its own) equal to the plain replayed
+   run bitwise with one fetch, at a tie the margin within 4 float32 ulps;
+   per family the smallest positive live margin in float32 ulps, the live
+   selections under 4 ulps, and the stopping-flip share (flagged / on
+   target) of the card's run and the CPU's;
    (d) hybrid: lane_change falls back at construction, behavior_overtake
    bails at run time; both equal the forced "hybrid" run (float64); ms per
    cycle, fetches and captures per run;
    (e) a behavior fleet of traffic_light, stop_sign and convoy (float32,
    FSM in the run) against the members' solo runs; scenarios per second and
-   peak memory.
+   peak memory; the fleet with `emit_margins` (one fetch) equal to the plain
+   fleet bitwise, each member's margins within F32_MARGIN_ULPS float32 ulps
+   of its solo run's wherever the member selects as its solo run does.
 
 14. post-passes in the device-resident run (float32 unless said):
    (a) the highway with start_multiagent and responsibility 0.2, and (b) the
@@ -264,7 +277,8 @@ from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.utils import visualization
 from frenetix_tpu_torch.utils.parting import (
-    CycleTrace, classify_parting, first_parting, stopping_flips,
+    CycleTrace, RunTrace, classify_parting, classify_run_parting, first_parting,
+    first_run_parting, stopping_flips,
 )
 from frenetix_tpu_torch.utils.sim_logging import require_strict_tables
 from frenetix_tpu_torch.workloads import (
@@ -285,6 +299,9 @@ BEH_POS_TOL = 1e-6     # metres: behavior runs against each other, float64
 # before they part (the multi-agent runs of phase 7 ended bitwise equal in
 # the chip run that set it, NVIDIA H100 80GB HBM3, 700.00 W)
 F32_CPU_TOL = 1e-6
+# float32 ulps of the best cost: a fleet member's selection margins against
+# its solo run's (the padded fleet sums the cost terms in another order)
+F32_MARGIN_ULPS = 64
 FLEET_SIZES = (1, 8, 32)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # float32 outside the tensor cores
@@ -1256,6 +1273,142 @@ def _parting_text(parting, gap, card, cpu, flips):
             f"within {gap:.3e} m before it{share}")
 
 
+def _live_margins_ulps(dres, k):
+    """The run's selection margins in float32 ulps of the best cost, over the
+    (cycle, agent) pairs in which the agent ran (a RUNNING status at one of
+    the cycle's `k` sub-steps, as `tools/tie_margins.py` filters) and had two
+    selectable candidates or more."""
+    gap, rel = dres.extras["margin_gap"], dres.extras["margin_rel"]
+    c_n, a_n = gap.shape
+    sps = np.zeros((c_n * k, a_n), np.int32)
+    sps[:len(dres.status_per_step)] = dres.status_per_step
+    live = (sps.reshape(c_n, k, a_n) == 1).any(axis=1) & np.isfinite(gap)
+    return gap[live] / _ulp_of_best(gap, rel)[live]
+
+
+def _ulp_of_best(gap, rel):
+    """One float32 ulp of the best cost (gap / margin_rel where the gap is
+    positive, else of 1)."""
+    pos = np.isfinite(gap) & (rel > 0)
+    best = np.where(pos, gap / np.where(pos, rel, 1.0), 1.0)
+    return np.spacing(np.abs(best).astype(np.float32)).astype(np.float64)
+
+
+def _device_f32_against_cpu(family, ds, replayed, launches, programs):
+    """Phase 13 (c), float32: the card's replayed run (`replayed`, equal to
+    its eager run bitwise) against the port's CPU float32 device run of the
+    same family, both eager runs traced (`utils.parting.RunTrace`): equal
+    statuses, positions within F32_CPU_TOL up to the first cycle whose
+    selection differs, that cycle a tie or threshold flip
+    (`classify_run_parting`), else equal steps.  Then the replayed run with
+    `emit_margins`: bitwise the plain replayed run, one fetch, and at a tie
+    the margin within ULPS float32 ulps.  Returns the line's text."""
+    config = load_config()
+    dt, n_steps, k = config.planning.dt, config.planning.n_steps, ds.k_replan
+    what = f"behavior device run {family}"
+    cpu_ds = device_sim.DeviceSimulation(_behavior_sim(family, torch.device("cpu"),
+                                                       "float32"))
+    with RunTrace(device_sim) as cpu_trace:
+        cpu = cpu_ds.run(graph=False)
+    launches.start()
+    with RunTrace(device_sim) as card_trace:
+        traced = ds.run(graph=False)
+    launches.stop(f"{what}, eager traced")
+    for name in ("status", "trajectories", "selections", "found"):
+        check(np.array_equal(getattr(traced, name), getattr(replayed, name)),
+              f"{what}: the traced eager run's {name} differ from the replayed run")
+    check(_dres_statuses(replayed) == _dres_statuses(cpu),
+          f"{what}: card f32 {_dres_statuses(replayed)} vs cpu f32 {_dres_statuses(cpu)}")
+    hit = first_run_parting(card_trace, cpu_trace)
+    parting = None
+    if hit is None:
+        check(replayed.steps == cpu.steps, f"{what}: card f32 steps {replayed.steps} vs "
+                                           f"cpu f32 {cpu.steps} without a parting cycle")
+        gap = _dres_gap(replayed, cpu)
+        text = f"card f32 = cpu f32 device run (steps {cpu.steps}, no parting)"
+    else:
+        parting = classify_run_parting(card_trace, cpu_trace, *hit, dt=dt, n_steps=n_steps)
+        check(parting.kind in ("tie", "threshold"),
+              f"{what}: card f32 parts from the cpu f32 device run at cycle {hit[0]}, "
+              f"agent {hit[1]}: {parting.detail}")
+        upto = k * hit[0]
+        gap = float(np.abs(replayed.trajectories[:upto, :, :2].astype(np.float64)
+                           - cpu.trajectories[:upto, :, :2]).max()) if upto else 0.0
+        text = (f"card f32 {replayed.steps} steps, cpu f32 device run {cpu.steps}; they "
+                f"part at cycle {hit[0]} (step {upto}), agent {hit[1]}: {parting.kind} "
+                f"({parting.detail})")
+    check(gap <= F32_CPU_TOL, f"{what}: card f32 {gap} m from the cpu f32 device run "
+                              f"before they part")
+    # the same replayed run with the selection margins: a body of its own
+    fetches = device_sim.FETCHES
+    launches.start()
+    marg = ds.run(graph=True, sync_debug=True, emit_margins=True)
+    launches.stop(f"{what}, replayed with margins", replayed=marg.extras["k1_launches"])
+    check(device_sim.FETCHES == fetches + 1, f"{what}: the margins run fetches once")
+    check(marg.extras["k1_launches"] == programs * ds.n_cycles,
+          f"{what} with margins: {marg.extras['k1_launches']} K1 launches")
+    check(marg.steps == replayed.steps, f"{what}: margins run steps {marg.steps}")
+    for name in ("status", "trajectories", "status_per_step", "selections", "found"):
+        check(np.array_equal(getattr(marg, name), getattr(replayed, name)),
+              f"{what}: {name} of the margins run differ from the plain replayed run")
+    if parting is not None and parting.kind == "tie":
+        col = marg.agent_ids.index(hit[1])
+        gaps, rels = marg.extras["margin_gap"], marg.extras["margin_rel"]
+        g, ulp = gaps[hit[0], col], _ulp_of_best(gaps, rels)[hit[0], col]
+        check(g <= ULPS * ulp, f"{what}: a tie at cycle {hit[0]} with a margin of "
+                               f"{g / ulp:.1f} float32 ulps")
+    ulps = _live_margins_ulps(marg, k)
+    pos = ulps[ulps > 0]
+    smallest = f"{pos.min():.1f} float32 ulps" if len(pos) else "none"
+    flips = [stopping_flips(t, dt=dt, n_steps=n_steps) for t in (card_trace, cpu_trace)]
+    share = [f"{f} of {n} ({f / n:.3f})" if n else "none" for f, n in flips]
+    return (f"{text}; positions within {gap:.3e} m before it; margins run = replayed "
+            f"bitwise, 1 fetch: {len(ulps)} live selections, smallest positive margin "
+            f"{smallest}, {int((ulps < ULPS).sum())} under {ULPS} ulps "
+            f"({int((ulps == 0).sum())} exact duplicates, gap 0); stopping candidates "
+            f"with an exact end velocity of 0 flagged as reversing: card {share[0]}, "
+            f"cpu {share[1]}")
+
+
+def _fleet_margins(sims, families, results, launches):
+    """Phase 13 (e) with `emit_margins`: the fleet carries every member's
+    margins.  The fleet's selections must equal the plain fleet's bitwise;
+    a member's margins must equal its solo margins run's (the same inf
+    pattern, within F32_MARGIN_ULPS float32 ulps of the best cost) at every
+    cycle where the member selects as its solo run does."""
+    fetches = device_sim.FETCHES
+    launches.start()
+    marg = device_sim.run_fleet(sims, sync_debug=True, emit_margins=True)
+    launches.stop("behavior fleet S=3 with margins", replayed=marg[0].extras["k1_launches"])
+    check(device_sim.FETCHES == fetches + 1, "a behavior fleet with margins fetches once")
+    compared = total = 0
+    worst = 0.0
+    for f, member, plain, sim in zip(families, marg, results, sims):
+        for name in ("status", "trajectories", "selections", "found"):
+            check(np.array_equal(getattr(member, name), getattr(plain, name)),
+                  f"behavior fleet with margins, member {f}: {name} differ from the "
+                  f"plain fleet")
+        solo = sim.run(emit_margins=True)
+        same = (np.all(member.selections == solo.selections, axis=-1)
+                & (member.found == solo.found))
+        gap, sgap = member.extras["margin_gap"], solo.extras["margin_gap"]
+        check(np.array_equal(np.isinf(gap[same]), np.isinf(sgap[same])),
+              f"behavior fleet member {f}: margins' inf pattern differs from its solo run")
+        fin = same & np.isfinite(sgap)
+        ulp = np.maximum(_ulp_of_best(gap, member.extras["margin_rel"]),
+                         _ulp_of_best(sgap, solo.extras["margin_rel"]))
+        diff = np.abs(gap[fin] - sgap[fin]) / ulp[fin]
+        check(np.all(diff <= F32_MARGIN_ULPS),
+              f"behavior fleet member {f}: margins {diff.max():.1f} float32 ulps from its "
+              f"solo run")
+        worst = max(worst, float(diff.max()) if len(diff) else 0.0)
+        compared += int(same.sum())
+        total += same.size
+    return (f"with emit_margins the fleet (1 fetch) = the plain fleet bitwise, members' "
+            f"margins within {worst:.1f} float32 ulps of their solo runs' at the "
+            f"{compared} of {total} (cycle, agent) selections equal to the solo run's")
+
+
 def phase_behavior(dev, smi, launches):
     cpu = torch.device("cpu")
     # (a) the host path, one agent
@@ -1329,6 +1482,7 @@ def phase_behavior(dev, smi, launches):
         check(max(gap_h, gap_s) <= BEH_POS_TOL,
               f"behavior {family} f64: in-run {gap_h} m from hybrid, {gap_s} m from host")
         gap32 = _dres_gap(replayed, d64)
+        f32_text = _device_f32_against_cpu(family, ds, replayed, launches, programs)
         c_n = ds.n_cycles
         phase(13, f"(c) behavior device run {family}, {len(ds.agents)} agents, FSM in the "
                   f"run, {c_n} cycles of {programs} programs, 1 fetch: f32 eager "
@@ -1341,7 +1495,8 @@ def phase_behavior(dev, smi, launches):
                   f"{sorted(set(_dres_statuses(replayed).values()))} steps "
                   f"{replayed.steps}, gap to f64 {gap32:.3e} m; f64 replayed "
                   f"{1e3 * d64.wall_time / c_n:.3f} ms per cycle, hybrid "
-                  f"{1e3 * hyb.wall_time / c_n:.3f} ms per cycle [{smi}]")
+                  f"{1e3 * hyb.wall_time / c_n:.3f} ms per cycle; f32 against f32: "
+                  f"{f32_text} [{smi}]")
 
     # (d) hybrid: a fallback at construction and a bail at run time
     for family in ("lane_change", "behavior_overtake"):
@@ -1395,12 +1550,14 @@ def phase_behavior(dev, smi, launches):
               f"solo {solo.status} steps {solo.steps}")
         gap = max(gap, _dres_gap(fleet_res, solo))
     check(gap <= POS_TOL, f"behavior fleet members {gap} m from their solo runs")
+    margin_text = _fleet_margins(sims, families, results, launches)
     c_max = max(s.n_cycles for s in sims)
     phase(13, f"(e) behavior fleet S=3 ({', '.join(families)}), FSM in the run, replayed, "
               f"1 fetch: wall {wall:.3f} s with warm-up and capture "
               f"({results[0].extras['capture_s']:.3f} s), {3 / wall:.3f} scenarios/s, "
               f"{1e3 * wall / c_max:.3f} ms per cycle, peak memory {peak:.3f} GiB; every "
-              f"member equals its solo run, positions within {gap:.3e} m [{smi}]")
+              f"member equals its solo run, positions within {gap:.3e} m; {margin_text} "
+              f"[{smi}]")
 
 
 def phase_device_post(dev, smi, launches, host_resp, host_occ):

@@ -143,6 +143,9 @@ _RUNNING, _SUCCESS, _TIMELIMIT, _COLLISION, _ERROR = 1, 2, 3, 4, 5
 # a hybrid run adds one per cycle)
 FETCHES = 0
 
+# the selection margins of a run with `emit_margins` (`select_with_fallback`)
+MARGINS = ("margin_gap", "margin_rel")
+
 
 @dataclass
 class SimTensors:
@@ -568,13 +571,20 @@ def _gather_rows(x, idx):
     return torch.gather(x, -2, idx[..., None, None].expand(idx.shape + (1, w)))[..., 0, :]
 
 
-def select_with_fallback(res, matrix, mask, d0, emergency: str, risks=None):
+def select_with_fallback(res, matrix, mask, d0, emergency: str, risks=None,
+                         emit_margins: bool = False):
     """The cycle's selection, or the emergency ladder's when no candidate is
     selectable (`ReactivePlanner.plan`): with "stopping" the first feasible
     candidate in the order of `stopping_rank_key`, with "min_risk" the
     feasible candidate of lowest ego + obstacle risk; first index on ties.
     Returns the selected candidate's state rows (..., N+1), `found`, `fb_ok`
-    (the ladder had a feasible candidate), `best` and `sel` (t1, ṡ1, d1)."""
+    (the ladder had a feasible candidate), `best` and `sel` (t1, ṡ1, d1).
+
+    With `emit_margins` also the selection's knife edge, from the program's
+    own masked cost vector: `margin_gap` (second best − best, inf with fewer
+    than two selectable candidates) and `margin_rel` (the gap over
+    max(|best|, 1e-12); NaN where nothing is selectable), as the JAX
+    package's `_build_run(emit_margins=True)`."""
     ro = res.rollout
     feas = ro.feasible & ro.valid & mask
     if emergency == "min_risk":
@@ -590,6 +600,13 @@ def select_with_fallback(res, matrix, mask, d0, emergency: str, risks=None):
     out.update(found=res.found, fb_ok=torch.any(feas, dim=-1), best=idx,
                sel=torch.stack([params[..., 1], params[..., 5], params[..., 10]],
                                dim=-1))
+    if emit_margins:
+        inf = torch.full_like(res.cost, torch.inf)
+        top2 = -torch.topk(-torch.where(res.selectable, res.cost, inf), 2, dim=-1).values
+        best, second = top2[..., 0], top2[..., 1]
+        gap = torch.where(torch.isfinite(second), second - best, inf[..., 0])
+        out["margin_gap"] = gap
+        out["margin_rel"] = gap / torch.clamp(torch.abs(best), min=1e-12)
     return out
 
 
@@ -826,13 +843,16 @@ class _Runner:
     body carries along.  With `g_host.fsm` the body runs the in-run behavior
     FSM and the stopping program; with `hybrid` it takes the behavior's
     velocities and stopping matrices from the input buffers `b_in` instead;
-    with `hybrid_pred` its prediction rows from the input buffers `p_in`.
-    `load` copies another input set of the same shapes into the input
-    buffers (a fleet's next chunk, restacked tables), `run` resets the carry,
-    drives `n_cycles` cycles and fetches once."""
+    with `hybrid_pred` its prediction rows from the input buffers `p_in`;
+    with `emit_margins` it also writes every cycle's selection margins
+    (`select_with_fallback`) into (C, ..., A) output buffers that the one
+    fetch brings back.  `load` copies another input set of the same shapes
+    into the input buffers (a fleet's next chunk, restacked tables), `run`
+    resets the carry, drives `n_cycles` cycles and fetches once."""
 
     def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int,
-                 hybrid: bool = False, hybrid_pred: bool = False, keep=None):
+                 hybrid: bool = False, hybrid_pred: bool = False, keep=None,
+                 emit_margins: bool = False):
         self.p = proto
         self.device = proto.device
         self.dtype = proto.dtype
@@ -893,6 +913,10 @@ class _Runner:
             found=buf((c_n,) + lead + (a_n,), torch.bool),
             x_cl=buf((c_n,) + lead + (a_n, 6)),
         )
+        self.emit_margins = bool(emit_margins)
+        if self.emit_margins:
+            for name in MARGINS:
+                self.out[name] = buf((c_n,) + lead + (a_n,))
         veh = proto.veh
         self.h_agent = torch.as_tensor([veh.length / 2.0, veh.width / 2.0],
                                        dtype=dtype, device=dev)
@@ -988,7 +1012,8 @@ class _Runner:
                 res = res._replace(cost=cost, best_idx=best, found=found,
                                    selectable=selectable)
             outs.append(select_with_fallback(res, matrix, mask, d0,
-                                             p.emergency_mode, risks))
+                                             p.emergency_mode, risks,
+                                             emit_margins=self.emit_margins))
         return _merge(v < p.config.planning.low_vel_mode_threshold, outs[0], outs[1])
 
     def _cycle_all_agents(self, level: int, x_cl, v, ctx, post: dict):
@@ -1189,6 +1214,8 @@ class _Runner:
         o["sel"].index_copy_(0, c, out["sel"][None])
         o["found"].index_copy_(0, c, found[None])
         o["x_cl"].index_copy_(0, c, x_cl_replan[None])
+        for name in MARGINS if self.emit_margins else ():
+            o[name].index_copy_(0, c, out[name][None])
         new = dict(x_cl=x_cl, center=center, theta=theta, v=v, acc=acc, status=status,
                    bank=bank, bank_len=bank_len, last_exec=last_exec, kap=kap,
                    th_prev=th_prev)
@@ -1390,10 +1417,12 @@ class _Runner:
     def fetch_outputs(self) -> dict:
         """THE one fetch of a run: statuses, per-step trajectories and
         statuses, selections, found flags, replan states (and the FSM's bail
-        flag), packed into one tensor."""
+        flag, the selection margins), packed into one tensor."""
         global FETCHES
+        margins = MARGINS if self.emit_margins else ()
         parts = [self.state["status"], *(self.out[n] for n in (
             "traj", "status_steps", "sel", "found", "x_cl"))]
+        parts += [self.out[n] for n in margins]
         if self.use_fsm:
             parts.append(self.fsm_state.bail)
         # statuses and flags are small integers: exact in float32
@@ -1408,7 +1437,8 @@ class _Runner:
         out = dict(final_status=status.astype(np.int32), trajectories=traj,
                    status_per_step=status_steps.astype(np.int32), selections=sel,
                    found=found != 0, x_cl_cycles=x_cl)
-        out["bail"] = (arrays[6] != 0) if self.use_fsm else np.zeros(self.lead, bool)
+        out.update(zip(margins, arrays[6:6 + len(margins)]))
+        out["bail"] = (arrays[-1] != 0) if self.use_fsm else np.zeros(self.lead, bool)
         return out
 
     def run(self, graph: bool = True, sync_debug: bool = False) -> dict:
@@ -1471,6 +1501,7 @@ def _member_arrays(out: dict, member=None) -> dict:
         selections=pick(out["selections"], 1),
         found=pick(out["found"], 1),
         x_cl_cycles=pick(out["x_cl_cycles"], 1),
+        **{name: pick(out[name], 1) for name in MARGINS if name in out},
     )
 
 
@@ -1741,9 +1772,11 @@ class DeviceSimulation:
             self.resp_weight, self.use_vis_occl, occ_statics,
         )
         self._runner = None
+        self._margin_runner = None
 
     # ------------------------------------------------------------------- run
-    def run(self, graph: bool = True, sync_debug: bool = False) -> DeviceSimResult:
+    def run(self, graph: bool = True, sync_debug: bool = False,
+            emit_margins: bool = False) -> DeviceSimResult:
         """The whole run on the device and one fetch.
 
         On a CUDA device the body is captured into a CUDA graph at the first
@@ -1753,17 +1786,32 @@ class DeviceSimulation:
         the host wait for the device.  A walenet run, a behavior run outside
         the FSM's scope, or one whose FSM bailed, takes the hybrid path
         instead (`_drive_hybrid`: one fetch per cycle, `sync_debug` does not
-        apply)."""
+        apply).
+
+        `emit_margins` is a diagnostic: a body of its own (its own graph)
+        also writes every cycle's selection margins, which the same one fetch
+        brings back as `extras["margin_gap"]` and `extras["margin_rel"]`,
+        (C, A) (`select_with_fallback`).  The hybrid path carries none and
+        raises ValueError."""
         t_start = time.perf_counter()
         if self.hybrid_pred or (self.hybrid_behavior and not self.fsm_in_scan):
+            _no_hybrid_margins(emit_margins, self.fsm_reason)
             res = _drive_hybrid([self], graph=graph)[0]
         else:
-            if self._runner is None:
-                self._runner = _Runner(self, self.tensors, self.n_cycles)
-            out = self._runner.run(graph=graph, sync_debug=sync_debug)
+            if emit_margins:
+                if self._margin_runner is None:
+                    self._margin_runner = _Runner(self, self.tensors, self.n_cycles,
+                                                  emit_margins=True)
+                runner = self._margin_runner
+            else:
+                if self._runner is None:
+                    self._runner = _Runner(self, self.tensors, self.n_cycles)
+                runner = self._runner
+            out = runner.run(graph=graph, sync_debug=sync_debug)
             if out["bail"]:
                 # the in-run FSM wanted to overtake, which only the host FSM
                 # carries: the whole run again on the hybrid path
+                _no_hybrid_margins(emit_margins, "the in-run FSM bailed")
                 res = _drive_hybrid([self], graph=graph)[0]
                 res.extras["bailed"] = True
             else:
@@ -1790,6 +1838,7 @@ class DeviceSimulation:
             selections=arrays["selections"][:c_n, :a_n],
             found=arrays["found"][:c_n, :a_n],
             extras={"x_cl_cycles": arrays["x_cl_cycles"][:c_n, :a_n],
+                    **{k: arrays[k][:c_n, :a_n] for k in MARGINS if k in arrays},
                     **{k: facts[k] for k in ("k1_launches", "graph", "capture_s",
                                              "fetches", "captures") if k in facts}},
         )
@@ -2137,6 +2186,12 @@ def _fleet_stack(sims, dims=None, use_fsm: bool = False) -> SimTensors:
                                                    for s in sims))
 
 
+def _no_hybrid_margins(emit_margins: bool, why: str) -> None:
+    if emit_margins:
+        raise ValueError(f"emit_margins: the hybrid path carries no selection margins "
+                         f"({why})")
+
+
 def _drive_hybrid(sims: list, graph: bool = True) -> list:
     """The hybrid path of one simulation, or of a behavior fleet (more than
     one member: stacked along a leading scenario axis).
@@ -2232,7 +2287,8 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
 
 
 def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = None,
-              graph: bool = True, sync_debug: bool = False) -> list:
+              graph: bool = True, sync_debug: bool = False,
+              emit_margins: bool = False) -> list:
     """Run S device simulations as ONE run over a leading scenario axis with
     ONE fetch: the same body, on (S, A, ...) tensors, so every kernel of a
     cycle serves all scenarios and K1 runs on the (S·A·R, C) table.
@@ -2262,7 +2318,12 @@ def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = 
     fleet of its own, with no collective inside the run (and chunks of
     ceil(chunk / W)), and the members' results are gathered once, so every
     rank returns all S results in order.  S must divide over the mesh, and
-    a member built with its own mesh raises."""
+    a member built with its own mesh raises.
+
+    `emit_margins` as in `DeviceSimulation.run`: every member's result
+    carries its own (C, A) margins, equal to its solo run's; a fleet on the
+    hybrid path (walenet, behavior outside the FSM's scope) or a member
+    whose FSM bailed raises ValueError."""
     t_start = time.perf_counter()
     base = sims[0]
     for s in sims:
@@ -2283,15 +2344,17 @@ def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = 
         lo, hi = mesh_rows(mesh, len(sims), "fleet size")
         local_chunk = None if chunk is None else -(-int(chunk) // mesh.size())
         mine = run_fleet(sims[lo:hi], chunk=local_chunk, graph=graph,
-                         sync_debug=sync_debug)
+                         sync_debug=sync_debug, emit_margins=emit_margins)
         parts = [None] * mesh.size()
         dist.all_gather_object(parts, mine, group=mesh.get_group())
         results = [r for part in parts for r in part]
     elif base.hybrid_pred:
         # the host builds every member's rows each cycle from that member's
         # executed states: the members run one after another
+        _no_hybrid_margins(emit_margins, "walenet predictions")
         results = [s.run(graph=graph) for s in sims]
     elif base.hybrid_behavior and not use_fsm:
+        _no_hybrid_margins(emit_margins, "a member's behavior is outside the FSM's scope")
         results = _drive_hybrid(list(sims), graph=graph) if len(sims) > 1 \
             else [sims[0].run(graph=graph)]
     else:
@@ -2305,13 +2368,15 @@ def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = 
             filled = members + [members[0]] * (group - len(members))
             stacked = _fleet_stack(filled, dims, use_fsm)
             if runner is None:
-                runner = _Runner(base, stacked, dims["c"], keep=keep)
+                runner = _Runner(base, stacked, dims["c"], keep=keep,
+                                 emit_margins=emit_margins)
             else:
                 runner.load(stacked)
             out = runner.run(graph=graph, sync_debug=sync_debug)
             for i, s in enumerate(members):
                 if out["bail"][i]:
                     # this member's FSM wanted to overtake: alone, hybrid
+                    _no_hybrid_margins(emit_margins, "a member's in-run FSM bailed")
                     res = _drive_hybrid([s], graph=graph)[0]
                     res.extras["bailed"] = True
                 else:

@@ -84,6 +84,24 @@ def test_sharded_fleet_equals_the_unsharded_fleet(ranks):
             _assert_device_equal(got, want, f"rank {rank} member {i}")
 
 
+def test_sharded_runs_carry_the_solo_margins(ranks):
+    """With `emit_margins` the agent mesh gathers every agent's margins with
+    its selection, and the fleet mesh gathers every member's."""
+    solo = [worker.device_result(DeviceSimulation(Simulation(
+        make_overtake(n_steps=worker.OVERTAKE_STEPS), worker.sim_config(), CPU)).run(
+            emit_margins=True))]
+    plain = [worker.device_result(d) for d in run_fleet(worker.fleet_members(2),
+                                                         emit_margins=True)]
+    for rank, res in enumerate(ranks):
+        for got, want in zip([res["overtake_margins"]] + res["fleet_margins"], solo + plain):
+            _assert_device_equal(got, want, f"rank {rank}")
+            for g, w in zip(got["margins"], want["margins"]):
+                assert g is not None and g.shape == want["found"].shape
+                np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
+                ok = np.isfinite(w)
+                np.testing.assert_allclose(g[ok], w[ok], rtol=0, atol=1e-9)
+
+
 def test_fleet_not_dividing_the_mesh_raises(ranks):
     for res in ranks:
         assert "must divide evenly" in res["fleet_of_three"]

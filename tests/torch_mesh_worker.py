@@ -175,13 +175,15 @@ def host_result(res):
 def device_result(dres):
     return dict(status=np.asarray(dres.status), steps=dres.steps,
                 trajectories=dres.trajectories, selections=dres.selections,
-                found=dres.found, k1_launches=dres.extras.get("k1_launches"))
+                found=dres.found, k1_launches=dres.extras.get("k1_launches"),
+                margins=[dres.extras.get(k) for k in ("margin_gap", "margin_rel")])
 
 
 def sim_cases(rank, world, log_dir):
     """The sharded host run of the highway, the overtake through
     DeviceSimulation(mesh=world), a fleet of two highways split over the
-    world, and a fleet of three that does not divide over it."""
+    world (both also with `emit_margins`), and a fleet of three that does
+    not divide over it."""
     from frenetix_tpu_torch.io.scenario_factory import make_highway, make_overtake
     from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation, run_fleet
     from frenetix_tpu_torch.parallel.mesh import make_agent_mesh
@@ -197,9 +199,12 @@ def sim_cases(rank, world, log_dir):
     ds = DeviceSimulation(Simulation(make_overtake(n_steps=OVERTAKE_STEPS),
                                      sim_config(), CPU), mesh=make_agent_mesh())
     res["overtake"] = device_result(ds.run())
+    res["overtake_margins"] = device_result(ds.run(emit_margins=True))
 
     fleet_mesh = make_agent_mesh(axis_name="scenarios")
     res["fleet"] = [device_result(d) for d in run_fleet(fleet_members(2), mesh=fleet_mesh)]
+    res["fleet_margins"] = [device_result(d) for d in run_fleet(
+        fleet_members(2), mesh=fleet_mesh, emit_margins=True)]
     try:
         run_fleet(fleet_members(3), mesh=fleet_mesh)
         res["fleet_of_three"] = None
