@@ -229,7 +229,23 @@ Phases, each printed on lines of its own:
    (d) `run_scenario highway --cpu` in a process of its own: exit 0, no K1
    launch and no CUDA context.
 
-Each path on the card (phases 4 to 19) is driven with K1's launch count set
+20. compiled host paths (`utils.compiled`: every program the JAX package
+   jits on its host paths is a CUDA graph captured once per signature and
+   replayed; phases 4 to 19 already run them so).  Each path runs eager
+   (`disable_compiled()`), then compiled twice (the first run captures, the
+   second replays only), at capped steps in float32: (a) the dense cycle;
+   (b) the highway; (c) the batched convoy A = 8; (d) the min_risk run with
+   `log_risk`; (e) the highway with responsibility 0.2, sequential; (f) the
+   gated blind spot, sequential; (g) the walenet highway on the synthetic
+   export; (h) `sharded_full_cycle` at W = 1 under NCCL.  Each compiled
+   result must equal its eager twin bitwise (for (g), where the net's
+   predictions under capture differ, the max |Δ| is printed and they must
+   lie within 1e-6 relative, with equal statuses, steps and selections),
+   with equal K1 launches; printed: captures and capture seconds, ms per
+   cycle compiled (the replaying run) against eager.  (i) A compiled body
+   that calls `.item()` must raise at its capture.
+
+Each path on the card (phases 4 to 20) is driven with K1's launch count set
 to 0 just before and read just after (spawned ranks and workers report
 their own counts); a path that launched no kernel fails the run.
 Then the kernels' JSON line, and as the last line
@@ -275,7 +291,7 @@ from frenetix_tpu_torch.run_scenario import run_scenarios
 from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
-from frenetix_tpu_torch.utils import visualization
+from frenetix_tpu_torch.utils import compiled, visualization
 from frenetix_tpu_torch.utils.parting import (
     CycleTrace, RunTrace, classify_parting, classify_run_parting, first_parting,
     first_run_parting, stopping_flips,
@@ -860,8 +876,8 @@ def phase_responsibility(dev, smi, launches, plain_p50):
     end, end_seq = _end_positions(res), _end_positions(seq)
     dev_seq = max(float(np.abs(end[a] - end_seq[a]).max()) for a in end)
     # the CPU float64 run costs seconds per cycle (the risk stack at 16
-    # obstacle slots): its first steps only
-    ref_steps = 12
+    # obstacle slots): its first two cycles only
+    ref_steps = 6
     _, ref = _responsibility_run(torch.device("cpu"), "float64", batched=True,
                                  max_steps=ref_steps)
     dev_ref = max(float(np.abs(np.asarray(res.histories[a][ref_steps].position)
@@ -2788,27 +2804,275 @@ def phase_surface(dev, smi, launches):
     phase(19, f"phase 19 wall {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------- phase 20: compiled host paths
+
+COMPILED_STEPS = 60        # steps of each simulation in phase 20
+WALENET_NET_RTOL = 1e-6    # the net's predictions under capture, where not bitwise
+
+
+def _capture_totals():
+    """(graphs captured, capture seconds) over all compiled callables."""
+    rows = compiled.stats().values()
+    return sum(k for _, k, _ in rows), sum(s for _, _, s in rows)
+
+
+def _run_states(sim, res):
+    """Per agent the executed (x, y, θ, v, a) rows of a host run."""
+    return {aid: np.array([[*st.position, st.orientation, st.velocity,
+                            st.acceleration] for st in h])
+            for aid, h in res.histories.items()}
+
+
+def _compiled_against_eager(what, make_sim, launches, smi, rtol=None):
+    """`make_sim()`'s run eager, compiled (capturing) and compiled again
+    (replaying): equal statuses, steps and executed states (bitwise, or
+    within `rtol` relative where given), equal K1 launches.  Returns
+    (eager ms, replayed ms per cycle, captures, capture s)."""
+    compiled.clear_all()      # the compiled run captures this path's programs
+    runs = {}
+    for how in ("eager", "compiled", "replayed"):
+        guard = compiled.disable_compiled() if how == "eager" else contextlib.nullcontext()
+        sim = make_sim()
+        caps0, cap_s0 = _capture_totals()
+        with guard:
+            launches.start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = launches.stop(f"20 {what}, {how}")
+        caps, cap_s = _capture_totals()
+        cycles = max(1, math.ceil(res.steps / sim.config.planning.replanning_frequency))
+        runs[how] = dict(res=res, states=_run_states(sim, res), k1=n,
+                         ms=1e3 * wall / cycles, captures=caps - caps0,
+                         capture_s=cap_s - cap_s0)
+    eager = runs["eager"]
+    check(runs["eager"]["captures"] == 0, f"{what}: the eager twin captured a graph")
+    check(runs["compiled"]["captures"] > 0, f"{what}: the compiled run captured nothing")
+    check(runs["replayed"]["captures"] == 0, f"{what}: the second compiled run captured "
+                                             f"{runs['replayed']['captures']} graphs")
+    gap = 0.0
+    for how in ("compiled", "replayed"):
+        run = runs[how]
+        check(run["res"].agent_status == eager["res"].agent_status
+              and run["res"].steps == eager["res"].steps,
+              f"{what} {how}: {run['res'].agent_status} in {run['res'].steps} steps vs "
+              f"eager {eager['res'].agent_status} in {eager['res'].steps}")
+        check(run["k1"] == eager["k1"], f"{what} {how}: K1 launches {run['k1']} vs "
+                                        f"eager {eager['k1']}")
+        for aid, rows in eager["states"].items():
+            got = run["states"][aid]
+            check(got.shape == rows.shape, f"{what} {how}: agent {aid} rows")
+            if rtol is None:
+                check(np.array_equal(got, rows), f"{what} {how}: agent {aid}'s states "
+                                                 "differ from the eager twin's")
+            else:
+                gap = max(gap, float(np.abs(got - rows).max()))
+    return runs, gap
+
+
+def _phase20_sim(dev, family="highway", **setup):
+    config = load_config()
+    config.dtype = "float32"
+    for key, value in setup.items():
+        section, _, name = key.partition("__")
+        if section == "cost_weights":
+            config.cost_weights[name] = value
+        elif section == "external_cost_weights":
+            config.external_cost_weights[name] = value
+        else:
+            setattr(getattr(config, section), name, value)
+    if family == "blind_spot":
+        scenario = _blind_spot()
+    elif family == "standing_lead":
+        scenario = scenario_factory.make_highway(lead_v=0.0, lead_gap=14.0)
+    else:
+        scenario = getattr(scenario_factory, f"make_{family}")()
+    sim = Simulation(scenario, config, dev)
+    sim.max_steps = COMPILED_STEPS
+    return sim
+
+
+def _compiled_sharded(dev, smi, launches):
+    """(h): the sharded cycle compiled against its eager twin at W = 1."""
+    from frenetix_tpu_torch.parallel import distributed
+    from frenetix_tpu_torch.parallel.mesh import make_agent_mesh, sharded_full_cycle
+
+    os.makedirs(os.path.dirname(MESH_STORE), exist_ok=True)
+    store = os.path.abspath(MESH_STORE + "_20")
+    if os.path.exists(store):
+        os.remove(store)
+    check(distributed.initialize(init_method=f"file://{store}", num_processes=1,
+                                 process_id=0, device="cuda"), "initialize() joined nothing")
+    try:
+        check(torch.distributed.get_backend() == "nccl", "phase 20 (h): not NCCL")
+        mesh = make_agent_mesh()
+        matrices, masks, ctx, _, dt, n_steps = stacked_cycle_problem(
+            A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+        sharded = sharded_full_cycle(mesh, dt=dt, n_steps=n_steps)   # a new program
+        with compiled.disable_compiled():
+            launches.start()
+            want, want_poses = sharded(matrices, masks, ctx)
+            k1_eager = launches.stop("20 sharded cycle W=1, eager")
+            eager_p50 = timed_calls(lambda: sharded(matrices, masks, ctx))[0]
+        caps0, cap_s0 = _capture_totals()
+        launches.start()
+        got, poses = sharded(matrices, masks, ctx)
+        k1 = launches.stop("20 sharded cycle W=1, compiled")
+        caps, cap_s = _capture_totals()
+        check(k1 == k1_eager, f"sharded: K1 {k1} vs eager {k1_eager}")
+        check(_same_selection(got, want) and torch.equal(poses, want_poses),
+              "sharded cycle: compiled differs from eager")
+        p50 = timed_calls(lambda: sharded(matrices, masks, ctx))[0]
+    finally:
+        torch.distributed.destroy_process_group()
+    phase(20, f"(h) sharded_full_cycle W=1 A={A_BATCH} under NCCL: compiled = eager "
+              f"bitwise (selection, poses_all), K1 {k1} = {k1_eager}; {caps - caps0} "
+              f"captures in {cap_s - cap_s0:.3f} s; p50 compiled {p50:.3f} ms vs eager "
+              f"{eager_p50:.3f} ms per call [{smi}]")
+
+
+def phase_compiled(dev, smi, launches):
+    # (a) the dense cycle
+    matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, torch.float32)
+
+    def dense():
+        return evaluate_cycle(matrix, mask, ctx, dt=dt, n_steps=n_steps,
+                              low_vel_mode=False, check_boundary=True)
+
+    with compiled.disable_compiled():
+        launches.start()
+        want = dense()
+        k1_eager = launches.stop("20 dense cycle, eager")
+        eager_p50 = timed_calls(dense)[0]
+    compiled.clear_all()
+    caps0, cap_s0 = _capture_totals()
+    launches.start()
+    got = dense()
+    k1 = launches.stop("20 dense cycle, compiled")
+    caps, cap_s = _capture_totals()
+    check(k1 == k1_eager, f"dense cycle: K1 {k1} vs eager {k1_eager}")
+    for a, b in zip(_leaves(got), _leaves(want)):
+        check(torch.equal(a, b), "dense cycle: compiled differs from eager")
+    p50 = timed_calls(dense)[0]
+    phase(20, f"(a) dense cycle M={matrix.shape[0]}: compiled = eager bitwise (every "
+              f"CycleResult field), K1 {k1} = {k1_eager}; {caps - caps0} captures in "
+              f"{cap_s - cap_s0:.3f} s; p50 compiled {p50:.3f} ms vs eager "
+              f"{eager_p50:.3f} ms per call [{smi}]")
+
+    # (b)-(f) host runs
+    cases = (
+        ("(b) highway", lambda: _phase20_sim(dev)),
+        ("(c) batched convoy A=8", lambda: _phase20_sim(
+            dev, "convoy", simulation__start_multiagent=True,
+            simulation__batched_device_agents=True)),
+        ("(d) min_risk, standing lead", lambda: _phase20_sim(
+            dev, "standing_lead", planning__emergency_mode="min_risk",
+            debug__log_risk=True)),
+        ("(e) highway with responsibility 0.2", lambda: _phase20_sim(
+            dev, simulation__start_multiagent=True, cost_weights__responsibility=0.2)),
+        ("(f) gated blind spot", lambda: _phase20_sim(
+            dev, "blind_spot", simulation__start_multiagent=True,
+            occlusion__use_occlusion_module=True, occlusion__harm_threshold=0.02,
+            external_cost_weights__occ_um=2.0, external_cost_weights__occ_ve=0.5,
+            prediction__calc_occlusions=True)),
+    )
+    for what, make in cases:
+        runs, _ = _compiled_against_eager(what, make, launches, smi)
+        _print_compiled(what, runs, smi, "states bitwise equal")
+
+    # (g) Wale-Net on the synthetic export at the recorded widths
+    path = write_synthetic_walenet_onnx(WALENET_FILE, seed=0)
+    walenet.WALENET_ONNX_PATH = path
+    walenet._WALENET_CACHE.clear()
+    walenet.WaleNet._net_cache.clear()
+    scenario = scenario_factory.make_convoy(n_vehicles=8)
+    net = walenet.WaleNet(scenario, device=dev)
+    hist, nbrs, sc, _ = net._preprocess([ob.obstacle_id for ob in
+                                         scenario.dynamic_obstacles], 40)
+    inputs = [torch.as_tensor(a, device=dev) for a in (hist, nbrs, sc)]
+    with compiled.disable_compiled():
+        want = walenet._net_program(net._net, *inputs)
+    got = walenet._net_program(net._net, *inputs)
+    delta = float((got - want).abs().max())
+    rel = delta / max(1.0, float(want.abs().max()))
+    bitwise = torch.equal(got, want)
+    check(bitwise or rel <= WALENET_NET_RTOL,
+          f"walenet: the captured net differs by {rel:.3e} relative")
+    runs, gap = _compiled_against_eager(
+        "(g) walenet highway", lambda: _phase20_sim(dev, prediction__mode="walenet"),
+        launches, smi, rtol=None if bitwise else WALENET_NET_RTOL)
+    _print_compiled("(g) walenet highway", runs, smi,
+                    f"net B={len(scenario.dynamic_obstacles)} bitwise={bitwise} (max "
+                    f"|Δ| {delta:.3e}), states "
+                    + ("bitwise equal" if bitwise else f"within {gap:.3e} m"))
+
+    # (h) the sharded cycle under NCCL
+    _compiled_sharded(dev, smi, launches)
+
+    # (i) a host sync inside a compiled body fails its capture: no fallback
+    @compiled.compiled
+    def syncing(x):
+        return x * float(x.sum().item())
+
+    raised = None
+    try:
+        syncing(torch.ones(4, device=dev))
+    except RuntimeError as e:
+        # the capture's own error, and the one it chained
+        raised = " <- ".join(str(x).splitlines()[0] for x in (e, e.__context__) if x)
+    torch.cuda.synchronize()
+    check(raised is not None, "a compiled body with .item() did not raise on the card")
+    check(not syncing.entries, "a failed capture left an entry")
+    phase(20, f"(i) a compiled body calling .item(): its capture raised "
+              f"RuntimeError ({raised[:240]}), no entry, no eager fallback [{smi}]")
+
+
+def _leaves(tree):
+    leaves = []
+    compiled._flatten(tree, leaves)
+    return leaves
+
+
+def _print_compiled(what, runs, smi, detail):
+    e, c, r = runs["eager"], runs["compiled"], runs["replayed"]
+    phase(20, f"{what}: {e['res'].steps} steps, compiled = eager ({detail}), K1 "
+              f"{c['k1']} = {r['k1']} = {e['k1']}; {c['captures']} captures in "
+              f"{c['capture_s']:.3f} s; ms per cycle: eager {e['ms']:.3f}, compiled "
+              f"run with captures {c['ms']:.3f}, replaying {r['ms']:.3f} [{smi}]")
+
+
+def _timed(fn, *args):
+    """`fn(*args)`, then a line with its seconds on the host clock."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[timing] {fn.__name__} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     dev, name, smi = phase_device()
-    phase_build()
-    k1_times, max_err = phase_k1(dev, smi)
+    _timed(phase_build)
+    k1_times, max_err = _timed(phase_k1, dev, smi)
     launches = Launches()
-    phase_dense_cycle(dev, smi, launches)
-    phase_simulation(dev, smi, launches)
-    batched_p50 = phase_batched_cycle(dev, smi, launches)
-    host_runs = phase_multiagent(dev, smi, launches)
-    phase_risk(dev, smi, launches)
-    host_resp = phase_responsibility(dev, smi, launches, batched_p50)
-    host_occ = phase_occlusion(dev, smi, launches)
-    device_runs = phase_device_run(dev, smi, launches, host_runs)
-    phase_fleet(dev, smi, launches)
-    phase_behavior(dev, smi, launches)
-    phase_device_post(dev, smi, launches, host_resp, host_occ)
-    cli = phase_cli(dev, smi, launches)
-    phase_walenet(dev, smi, launches)
-    phase_mesh(dev, smi, launches, batched_p50, device_runs)
-    phase_plots(dev, smi, launches, cli)
-    phase_surface(dev, smi, launches)
+    _timed(phase_dense_cycle, dev, smi, launches)
+    _timed(phase_simulation, dev, smi, launches)
+    batched_p50 = _timed(phase_batched_cycle, dev, smi, launches)
+    host_runs = _timed(phase_multiagent, dev, smi, launches)
+    _timed(phase_risk, dev, smi, launches)
+    host_resp = _timed(phase_responsibility, dev, smi, launches, batched_p50)
+    host_occ = _timed(phase_occlusion, dev, smi, launches)
+    device_runs = _timed(phase_device_run, dev, smi, launches, host_runs)
+    _timed(phase_fleet, dev, smi, launches)
+    _timed(phase_behavior, dev, smi, launches)
+    _timed(phase_device_post, dev, smi, launches, host_resp, host_occ)
+    cli = _timed(phase_cli, dev, smi, launches)
+    _timed(phase_walenet, dev, smi, launches)
+    _timed(phase_mesh, dev, smi, launches, batched_p50, device_runs)
+    _timed(phase_plots, dev, smi, launches, cli)
+    _timed(phase_surface, dev, smi, launches)
+    _timed(phase_compiled, dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]

@@ -13,7 +13,9 @@ Values live in one of two places, as in the JAX interpreter:
   NumPy, so `Reshape`, `Expand`, `Tile` and `Slice` read their shape
   arguments without waiting for the device;
 - everything else is a torch tensor on the device (a host constant that
-  meets a tensor is uploaded in the graph's float dtype, or as int64).
+  meets a tensor is uploaded in the graph's float dtype, or in its integer
+  dtype, once: the interpreter keeps it, so a call whose constants are
+  uploaded copies nothing host → device and can be captured).
 
 Each op is a plain function on tensors (`conv`, `maxpool`, `avgpool`, `gru`,
 `slice_`); the graph holds the weights.  The semantics are the JAX
@@ -146,7 +148,7 @@ def slice_(data, starts, ends, axes=None, steps=None):
             out = out[tuple(idx)]
         else:
             # torch slicing takes no negative step: gather the same indices
-            index = torch.as_tensor(np.arange(*sl.indices(lim)), device=out.device)
+            index = torch.arange(*sl.indices(lim), device=out.device)
             out = torch.index_select(out, ax, index)
     return out
 
@@ -163,15 +165,25 @@ class _Run:
         self.device = device
         self.dtype = dtype
         self.init = graph_to_torch(graph, self.device, dtype)
+        self.uploaded = {}     # host values met on the device, by contents
 
     def dev(self, x):
-        """A value as a device tensor (host floats in the graph's dtype)."""
+        """A value as a device tensor (host floats in the graph's dtype).
+        A host value is uploaded once and kept, keyed by its contents: a
+        call whose constants are all uploaded copies nothing host → device,
+        so a CUDA graph can capture it."""
         if isinstance(x, torch.Tensor):
             return x
-        a = np.require(np.asarray(x), requirements="W")
-        if a.dtype.kind == "f":
-            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
-        return torch.as_tensor(a, device=self.device)
+        a = np.asarray(x)
+        key = (a.dtype.str, a.shape, a.tobytes())
+        if key not in self.uploaded:
+            a = np.array(a)          # a copy of its own: the tensor keeps it
+            if a.dtype.kind == "f":
+                t = torch.as_tensor(a, dtype=self.dtype, device=self.device)
+            else:
+                t = torch.as_tensor(a, device=self.device)
+            self.uploaded[key] = t
+        return self.uploaded[key]
 
     def __call__(self, **inputs):
         for name, x in inputs.items():
@@ -259,7 +271,7 @@ class _Run:
                 return np.asarray(np.take(data, idx, axis=axis))
             data = dev(data)
             axis = axis % data.ndim
-            index = torch.as_tensor(idx, device=data.device).reshape(-1) % data.shape[axis]
+            index = (dev(idx) if _is_host(idx) else idx).reshape(-1) % data.shape[axis]
             out = torch.index_select(data, axis, index)
             return out.reshape(data.shape[:axis] + tuple(idx.shape) + data.shape[axis + 1:])
         if op == "Unsqueeze":

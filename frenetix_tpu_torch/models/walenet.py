@@ -4,10 +4,12 @@ The network runs through the port's ONNX interpreter
 (`onnx_torch.build_torch_fn`) on the simulation's device, batched over all
 obstacles of a call, in float32 whatever the simulation's dtype (the JAX
 package's net is float32 too: its weights and inputs are).  Per call, one
-host→device copy of (hist, nbrs, sc_img) and one device→host copy of the
-(T, B, 5) output.  Preprocessing (scene raster, neighbour grid) and
-postprocessing (frames, covariances) are NumPy copies of the JAX module's,
-the raster by its NumPy route (the port has no native rasterizer).
+host→device copy of (hist, nbrs, sc_img), the net as one compiled program
+(`utils.compiled`: a CUDA graph per export, device and batch size B, as JAX
+jits it) and one device→host copy of the (T, B, 5) output.  Preprocessing
+(scene raster, neighbour grid) and postprocessing (frames, covariances) are
+NumPy copies of the JAX module's, the raster by its NumPy route (the port
+has no native rasterizer).
 
 Model I/O (the reference's wale_net.py:209-341): hist (30, B, 2), nbrs
 (30, 39·B, 2), sc_img (B, 1, 256, 256) → predictions (40, B, 5) = (μx, μy,
@@ -31,6 +33,7 @@ import torch
 from frenetix_tpu_torch import default_device
 from frenetix_tpu_torch.models.onnx_lite import load_onnx
 from frenetix_tpu_torch.models.onnx_torch import build_torch_fn
+from frenetix_tpu_torch.utils.compiled import compiled
 
 __all__ = ["WaleNet", "walenet_predictions", "WALENET_ONNX_PATH"]
 
@@ -180,13 +183,15 @@ class WaleNet:
     # --------------------------------------------------------------- predict
     def _run_net(self, hist, nbrs, sc) -> np.ndarray:
         """The net on the device: one host→device copy of the three inputs
-        (packed), one device→host copy of the (T, B, 5) float32 output."""
+        (packed), the compiled net (`_net_program`: one entry per export,
+        device and B), one device→host copy of the (T, B, 5) float32
+        output."""
         sizes = (hist.size, nbrs.size, sc.size)
         packed = torch.from_numpy(
             np.concatenate([hist.ravel(), nbrs.ravel(), sc.ravel()])).to(self.device)
         h, n, s = torch.split(packed, sizes)
-        out = self._net(hist=h.view(hist.shape), nbrs=n.view(nbrs.shape),
-                        sc_img=s.view(sc.shape))[0]
+        out = _net_program(self._net, h.view(hist.shape), n.view(nbrs.shape),
+                           s.view(sc.shape))
         return out.cpu().numpy()
 
     def predict(self, obstacle_ids, time_step, world=None):
@@ -216,6 +221,14 @@ class WaleNet:
             cov = rot_back.T @ cov @ rot_back  # (T, 2, 2) via broadcasting
             out[oid] = (pos, cov)
         return out
+
+
+@compiled(static=("net",))
+def _net_program(net, hist, nbrs, sc_img) -> torch.Tensor:
+    """The net's (T, B, 5) predictions; one program per interpreter (export
+    and device) and input shape (JAX jits the net the same way,
+    `WaleNet._jit_cache`)."""
+    return net(hist=hist, nbrs=nbrs, sc_img=sc_img)[0]
 
 
 # the net of the last scenario asked for, per device (one entry)

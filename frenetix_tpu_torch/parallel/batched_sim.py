@@ -16,6 +16,10 @@ reach grids), with the occlusion module the safety gate and the soft costs
 do (phantom masks, stacked occluder geometry); see
 `parallel.mesh.batched_full_cycle`.
 
+On one device the step is ONE compiled program (the cycle and the next
+poses, a CUDA graph per signature: `parallel.mesh._stepper_program`), as
+the JAX package jits the two together.
+
 With a `mesh` (`parallel.mesh.make_agent_mesh`) the agent axis is split
 over the ranks of a torch.distributed world: every rank evaluates its rows
 and all-gathers the selection (`parallel.mesh.sharded_full_cycle`), so each
@@ -29,7 +33,7 @@ import torch
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.occlusion import PhantomThresholds
 from frenetix_tpu_torch.parallel.mesh import (
-    _pad_table, _poses_from, batched_full_cycle, sharded_full_cycle,
+    _pad_table, _stepper_program, sharded_full_cycle,
 )
 from frenetix_tpu_torch.planner.core import CycleContext
 
@@ -95,13 +99,8 @@ class BatchedAgentStepper:
             # (out, poses_all), both gathered over the mesh
             self._cycle = sharded_full_cycle(mesh, **kwargs)
         else:
-            cycle = batched_full_cycle(**kwargs)
-
-            def one_device(*args):
-                out = cycle(*args)
-                return out, _poses_from(out)
-
-            self._cycle = one_device
+            # the cycle and the next poses, one compiled program
+            self._cycle = _stepper_program(**kwargs)
 
     def _tensor(self, a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,

@@ -119,7 +119,10 @@ from frenetix_tpu_torch.parallel.mesh import (
     agent_rows, check_axis, concat_obstacles, gather_rows, mesh_rows,
     post_pass_selection,
 )
-from frenetix_tpu_torch.planner.core import CycleContext, evaluate_cycle
+# the body of the cycle, not its compiled program: the run's own CUDA graph
+# compiles it (and `utils.parting.RunTrace` patches this name)
+from frenetix_tpu_torch.planner.core import CycleContext
+from frenetix_tpu_torch.planner.core import evaluate_cycle_eager as evaluate_cycle
 from frenetix_tpu_torch.planner.reactive import wants_stopping_mode
 from frenetix_tpu_torch.occlusion.occlusion_module import PHANTOM_TYPES, PhantomThresholds
 from frenetix_tpu_torch.risk.costs import trajectory_risks

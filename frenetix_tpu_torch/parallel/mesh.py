@@ -31,6 +31,8 @@ the devices of one process.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -46,6 +48,7 @@ from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.risk.reachable_set import (
     ReachSetGrid, responsibility_reach_grid,
 )
+from frenetix_tpu_torch.utils.compiled import compiled
 
 __all__ = [
     "make_agent_mesh",
@@ -245,11 +248,44 @@ def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
 
     After either post-pass the argmin runs again over the agent's selectable
     candidates.  When none is left (the gate rejected all), `found` comes
-    back False for that agent and `best` stays the cycle's own."""
-    use_resp = resp_weight != 0.0
-    use_geom = occlusion and (occ_um_weight != 0.0 or occ_ve_weight != 0.0)
+    back False for that agent and `best` stays the cycle's own.
+
+    `fn` is compiled per signature (`utils.compiled`), as JAX jits it; equal
+    factory arguments return the same `fn`, so its entries are shared."""
+    return _batched_program(*_body_args(
+        dt=dt, n_steps=n_steps, low_vel_mode=low_vel_mode, table_window=table_window,
+        resp_weight=resp_weight, occlusion=occlusion, harm_threshold=harm_threshold,
+        risk_threshold=risk_threshold, thresholds=thresholds,
+        occ_pm_weight=occ_pm_weight, occ_um_weight=occ_um_weight,
+        occ_ve_weight=occ_ve_weight, compensated_sum=compensated_sum), poses=False)
+
+
+def _stepper_program(**factory):
+    """`batched_full_cycle(**factory)` and the agents' next poses as ONE
+    compiled program, fn(...) → (out, poses_all (A, 4)): the batched
+    stepper's step on one device (JAX jits the two together)."""
+    return _batched_program(*_body_args(**factory), poses=True)
+
+
+def _body_args(*, dt, n_steps, low_vel_mode=False, table_window=768, resp_weight=0.0,
+               occlusion=False, harm_threshold=0.1, risk_threshold=1.0, thresholds=None,
+               occ_pm_weight=0.0, occ_um_weight=0.0, occ_ve_weight=0.0,
+               compensated_sum=False):
+    """`_batched_body`'s arguments from a factory's (the gate's thresholds
+    made a PhantomThresholds)."""
     thresholds = thresholds or PhantomThresholds(harm=harm_threshold,
                                                  risk=risk_threshold)
+    return (dt, n_steps, low_vel_mode, table_window, resp_weight, occlusion,
+            thresholds, occ_pm_weight, occ_um_weight, occ_ve_weight, compensated_sum)
+
+
+def _batched_body(dt, n_steps, low_vel_mode, table_window, resp_weight, occlusion,
+                  thresholds, occ_pm_weight, occ_um_weight, occ_ve_weight,
+                  compensated_sum):
+    """The eager body of `batched_full_cycle` (its arguments in order, with
+    `thresholds` a PhantomThresholds)."""
+    use_resp = resp_weight != 0.0
+    use_geom = occlusion and (occ_um_weight != 0.0 or occ_ve_weight != 0.0)
 
     def fn(matrices, masks, ctx, *extras):
         extras = list(extras)
@@ -276,6 +312,22 @@ def batched_full_cycle(*, dt, n_steps, low_vel_mode=False, table_window=768,
         return _select(res, cost, best, found)
 
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_program(*factory, poses: bool):
+    """The compiled batched cycle of `factory` (`_batched_body`'s arguments);
+    with `poses` the program also returns the agents' next poses
+    (`_poses_from`), as the batched stepper's one program."""
+    body = _batched_body(*factory)
+    if not poses:
+        return compiled(body)
+
+    def with_poses(matrices, masks, ctx, *extras):
+        out = body(matrices, masks, ctx, *extras)
+        return out, _poses_from(out)
+
+    return compiled(with_poses)
 
 
 def _poses_from(out):
@@ -406,13 +458,19 @@ def sharded_full_cycle(mesh, *, dt, n_steps, low_vel_mode=False, table_window=76
     gathered result from the mesh's first rank, so that every rank of the
     world ends the call with the same selection."""
     check_axis(mesh, axis_name)
-    local = batched_full_cycle(
+    local = _batched_body(*_body_args(
         dt=dt, n_steps=n_steps, low_vel_mode=low_vel_mode, table_window=table_window,
         resp_weight=resp_weight, occlusion=occlusion, harm_threshold=harm_threshold,
         risk_threshold=risk_threshold, thresholds=thresholds,
         occ_pm_weight=occ_pm_weight, occ_um_weight=occ_um_weight,
-        occ_ve_weight=occ_ve_weight, compensated_sum=compensated_sum)
+        occ_ve_weight=occ_ve_weight, compensated_sum=compensated_sum))
     root = int(mesh.mesh.reshape(-1)[0])
+
+    # the rank's program: its rows of the cycle and the gather (the
+    # all-gather is captured with the rest under NCCL)
+    @compiled
+    def rank_cycle(matrices, masks, ctx, *extras):
+        return gather_rows(mesh, local(matrices, masks, ctx, *extras))
 
     def fn(matrices, masks, ctx, *extras):
         a_n = matrices.shape[0]
@@ -423,9 +481,8 @@ def sharded_full_cycle(mesh, *, dt, n_steps, low_vel_mode=False, table_window=76
         out = None
         if inside:
             lo, hi = mesh_rows(mesh, a_n)
-            out = gather_rows(mesh, local(
-                matrices[lo:hi], masks[lo:hi], agent_rows(ctx, lo, hi),
-                *(agent_rows(e, lo, hi) for e in extras)))
+            out = rank_cycle(matrices[lo:hi], masks[lo:hi], agent_rows(ctx, lo, hi),
+                             *(agent_rows(e, lo, hi) for e in extras))
         if mesh.size() < dist.get_world_size():
             box = [{k: v.cpu() for k, v in out.items()} if inside else None]
             dist.broadcast_object_list(box, src=root)

@@ -8,6 +8,9 @@ PyTorch port of `frenetix_tpu/planner/core.py`:
     → masked argmin, first index on ties                      here
 
 Everything stays on the context's device; nothing is copied to the host.
+`evaluate_cycle` is compiled per signature (`utils.compiled`: a CUDA graph
+captured once and replayed), as the JAX package jits it; its body is
+`evaluate_cycle_eager`.
 
 The agent axis: every op of the cycle accepts leading batch dimensions (the
 design chosen over folding agents into the candidate axis).  A matrix
@@ -29,8 +32,10 @@ from frenetix_tpu_torch.ops import collision as coll
 from frenetix_tpu_torch.ops import costs as costs_mod
 from frenetix_tpu_torch.ops.costs import PredictionTensors
 from frenetix_tpu_torch.ops.kinematics import Rollout, VehicleParams, rollout_candidates
+from frenetix_tpu_torch.utils.compiled import compiled
 
-__all__ = ["CycleContext", "CycleResult", "evaluate_cycle", "context_from_numpy"]
+__all__ = ["CycleContext", "CycleResult", "evaluate_cycle", "evaluate_cycle_eager",
+           "context_from_numpy"]
 
 _BIG = 1e15
 
@@ -71,6 +76,8 @@ def _boundary_harm(v, coeff_const, coeff_speed):
     return 1.0 / (1.0 + torch.exp(-(coeff_const + coeff_speed * v)))
 
 
+@compiled(static=("dt", "n_steps", "low_vel_mode", "quintic_lon", "check_boundary",
+                  "table_window", "compensated_sum"))
 def evaluate_cycle(
     matrix: torch.Tensor,
     valid_mask: torch.Tensor,
@@ -86,7 +93,9 @@ def evaluate_cycle(
     harm_coeffs=(-7.5, 0.0815),
 ) -> CycleResult:
     """Evaluate and select over one padded sampling matrix; `valid_mask`
-    excludes the padding rows (ops.sampling.pad_matrix)."""
+    excludes the padding rows (ops.sampling.pad_matrix).  Compiled per
+    signature (`utils.compiled`), as JAX jits it; `evaluate_cycle_eager` is
+    the body."""
     ro = rollout_candidates(
         matrix,
         ctx.ref,
@@ -149,6 +158,11 @@ def evaluate_cycle(
         found=found,
         histogram=histogram,
     )
+
+
+# the body itself: the device-resident run's graph compiles it, and the
+# run's tracer patches the run module's name for it
+evaluate_cycle_eager = evaluate_cycle.eager
 
 
 def context_from_numpy(*, ref, veh, weights, preds, obstacle_xy, obstacle_valid,

@@ -32,6 +32,13 @@ With a behavior planner (`sim.agent`) an armed stop point
 (`set_stop_point`) switches the cycle to end-position-constrained stopping
 sampling (`wants_stopping_mode`); when that finds nothing, the same level is
 sampled regularly.
+
+Every device program here is compiled per signature (`utils.compiled`), at
+the JAX package's program boundaries: per level `evaluate_cycle`, the
+responsibility re-selection (`_responsibility`) and the pack
+(`_replan_pack`), then the occlusion pack (`_occlusion_pack`), the risk
+totals of min_risk / `log_risk` (`_risk_program`) and the row gather of a
+fallback (`_select_rows`).  `<name>.eager` is each one's body.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from frenetix_tpu_torch.planner.initial_state import compute_initial_state_np
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.risk.reachable_set import responsibility_reach_grid
+from frenetix_tpu_torch.utils.compiled import compiled
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 
 __all__ = ["PlannedTrajectory", "ReactivePlanner", "wants_stopping_mode"]
@@ -115,23 +123,32 @@ _STATE_ROWS = ("x", "y", "theta_gl", "v", "a", "kappa_gl",
                "s", "s_vel", "s_acc", "d", "d_vel", "d_acc")
 
 
-def _selected_rows(res, idx: torch.Tensor, length: int) -> list[torch.Tensor]:
+def _selected_rows(ro, cost, terms, idx: torch.Tensor, length: int) -> list[torch.Tensor]:
     """The candidate `idx`'s 12 state rows and its [cost, cost_terms...] row,
     each padded to `length`, gathered without a host sync (idx is a (1,)
     device tensor)."""
-    ro = res.rollout
     n1 = ro.x.shape[1]
-    k = res.cost_terms.shape[1]
+    k = terms.shape[1]
     pad = length - n1
     rows = [torch.nn.functional.pad(torch.index_select(getattr(ro, f), 0, idx)[0],
                                     (0, pad))
             for f in _STATE_ROWS]
-    extra = torch.cat([torch.index_select(res.cost, 0, idx),
-                       torch.index_select(res.cost_terms, 0, idx)[0]])
+    extra = torch.cat([torch.index_select(cost, 0, idx),
+                       torch.index_select(terms, 0, idx)[0]])
     rows.append(torch.nn.functional.pad(extra, (0, length - 1 - k)))
     return rows
 
 
+@compiled
+def _select_rows(ro, cost, terms, idx: torch.Tensor) -> torch.Tensor:
+    """(13, L) tensor: the candidate `idx`'s 12 state rows and its
+    [cost, cost_terms...] row, L = max(N+1, 1+K); one program (JAX's
+    `_jitted_select_rows`)."""
+    length = max(ro.x.shape[1], 1 + terms.shape[1])
+    return torch.stack(_selected_rows(ro, cost, terms, idx, length))
+
+
+@compiled
 def _replan_pack(res, mask: torch.Tensor) -> torch.Tensor:
     """(14, L) tensor: header [found, best_idx, feasible, collisions, off_road,
     histogram...], the selected candidate's 12 state rows and its
@@ -155,9 +172,11 @@ def _replan_pack(res, mask: torch.Tensor) -> torch.Tensor:
     ])
     header = torch.nn.functional.pad(header, (0, length - 5 - h))
     idx = res.best_idx.reshape(1).long()
-    return torch.stack([header, *_selected_rows(res, idx, length)])
+    return torch.stack([header, *_selected_rows(ro, res.cost, res.cost_terms, idx,
+                                                length)])
 
 
+@compiled(static=("w", "dt", "mass"))
 def _responsibility(ro, preds, meta, grid, cost, selectable, best0, *, w, dt, mass):
     """Responsibility re-selection on the device: risk stack → reach-grid
     term → cost + w·term → argmin over `selectable` again (first index on
@@ -171,6 +190,7 @@ def _responsibility(ro, preds, meta, grid, cost, selectable, best0, *, w, dt, ma
     return cost2, best
 
 
+@compiled(static=("dt", "veh", "thresholds", "w_pm", "w_um", "w_ve"))
 def _occlusion_pack(res, preds, meta, phantom_mask, ego, r_vis, pts, pts_valid, *,
                     dt, veh, thresholds, w_pm, w_um, w_ve) -> torch.Tensor:
     """The occlusion-gated re-selection of one level as ONE (14, L) tensor:
@@ -202,7 +222,15 @@ def _occlusion_pack(res, preds, meta, phantom_mask, ego, r_vis, pts, pts_valid, 
     ])
     header = torch.nn.functional.pad(header, (0, length - 5))
     return torch.stack([header,
-                        *_selected_rows(res._replace(cost=cost2), idx, length)])
+                        *_selected_rows(ro, cost2, res.cost_terms, idx, length)])
+
+
+@compiled(static=("mass",))
+def _risk_program(ro, preds, meta, *, mass):
+    """((M,) ego_risk + obst_risk, the TrajectoryRisks) of a rollout over the
+    full risk stack; one program (JAX's jitted `_risk_fn`)."""
+    risks = trajectory_risks(ro, preds, meta, mass)
+    return risks.ego_risk + risks.obst_risk, risks
 
 
 class ReactivePlanner:
@@ -479,8 +507,7 @@ class ReactivePlanner:
         if preds is None or preds.num_obstacles == 0:
             return torch.zeros(ro.x.shape[0], dtype=self.dtype,
                                device=self.device), None
-        risks = trajectory_risks(ro, preds, self._default_meta(preds), self.veh.mass)
-        return risks.ego_risk + risks.obst_risk, risks
+        return _risk_program(ro, preds, self._default_meta(preds), mass=self.veh.mass)
 
     def _apply_responsibility(self, res):
         """Add the reach-set responsibility term to the level's costs and
@@ -598,10 +625,8 @@ class ReactivePlanner:
         """Candidate `idx` to the host in one copy; `risks`, when the caller
         already has the rollout's TrajectoryRisks, saves `log_risk` from
         computing them again."""
-        n1 = res.rollout.x.shape[1]
-        length = max(n1, 1 + res.cost_terms.shape[1])
         index = torch.tensor([idx], device=self.device)
-        rows = torch.stack(_selected_rows(res, index, length))
+        rows = _select_rows(res.rollout, res.cost, res.cost_terms, index)
         return self._plan_from_rows(rows.cpu().numpy().astype(self.np_dtype),
                                     res, idx, matrix, mode, risks=risks)
 

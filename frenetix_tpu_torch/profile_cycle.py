@@ -5,11 +5,13 @@ idle share and the heaviest kernels, from `torch.profiler`.
 
 Profiles, in float32 on the CUDA device, each over `--calls` calls after a
 warm-up: the dense cycle (34,816 candidates), one simulation-sized cycle
-(M = 1024), the batched cycle of 8 agents (A = 8, M = 1024), the risk stack
-on a simulation-sized rollout (4 obstacles), and the batched cycle at 16
-obstacle slots alone, with the responsibility term (reach grids) and with
-the occlusion gate and its soft costs (phantom masks, occluder geometry).
-Last the body of the device-resident run (`parallel.device_sim`): the first
+(M = 1024), the batched cycle of 8 agents (A = 8, M = 1024) and the risk
+stack on a simulation-sized rollout (4 obstacles), each eager
+(`utils.compiled.disable_compiled()`) and compiled (the program captured in
+the warm-up and replayed, with its input copies and output clones), and the
+batched cycle at 16 obstacle slots alone, with the responsibility term
+(reach grids) and with the occlusion gate and its soft costs (phantom
+masks, occluder geometry), also each eager and compiled.  Then the body of the device-resident run (`parallel.device_sim`): the first
 `--run-cycles` cycles of the convoy of 8 agents, as the eager loop and as the
 replayed CUDA graph, reported per cycle; then the same with the behavior
 planner, whose body adds the in-run FSM and the quintic stopping program,
@@ -17,12 +19,11 @@ with the responsibility term 0.2, and gated (the occlusion module with occ_um
 and occ_ve, and the visible-area sensor stage).  For the two post-pass
 bodies the risk stack's collision-probability quadrature is profiled alone
 on the calls one cycle makes, and its share of the replayed body's busy time
-is printed.  Last the Wale-Net net (`models.walenet`) at B = 1 and 16
-obstacles on a synthetic export at the recorded widths
+is printed.  Last the Wale-Net net (`models.walenet`), eager and compiled,
+at B = 1 and 16 obstacles on a synthetic export at the recorded widths
 (`workloads.write_synthetic_walenet_onnx`, written to
 build/walenet_synth.onnx), fed the convoy's preprocessed inputs.  The
-profiler slows the
-host, so the wall time it reports per call is longer than an unprofiled
+profiler slows the host, so the wall time it reports per call is longer than an unprofiled
 call's; device times per kernel are not affected.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -38,15 +39,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from frenetix_tpu_torch import default_device
 from frenetix_tpu_torch.io.scenario_factory import make_convoy
-from frenetix_tpu_torch.models.walenet import WaleNet
+from frenetix_tpu_torch.models.walenet import WaleNet, _net_program
 from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
+from frenetix_tpu_torch.planner import reactive
 from frenetix_tpu_torch.planner.core import evaluate_cycle
 from frenetix_tpu_torch.risk import costs as risk_costs
-from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.probability import collision_probability_fast
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
 from frenetix_tpu_torch.sim.simulation import Simulation
+from frenetix_tpu_torch.utils.compiled import disable_compiled
 from frenetix_tpu_torch.utils.config import load_config
 from frenetix_tpu_torch.workloads import (
     dense_cycle_problem, stacked_cycle_problem, stacked_post_pass_extras,
@@ -84,6 +86,14 @@ def profile_calls(name, fn, calls, top, card, units=1, unit="call"):
     return busy_ms
 
 
+def profile_both(name, fn, calls, top, card):
+    """`profile_calls` of `fn` eager (`disable_compiled()`) and compiled (its
+    programs replayed as CUDA graphs, captured in the warm-up)."""
+    with disable_compiled():
+        profile_calls(f"{name}, eager", fn, calls, top, card)
+    profile_calls(f"{name}, compiled (replayed CUDA graph)", fn, calls, top, card)
+
+
 def _quadrature_calls(run):
     """The arguments of every collision-probability quadrature call of one
     eager run of `run` (a DeviceSimulation), and the calls per cycle."""
@@ -118,42 +128,43 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
     matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, torch.float32)
-    profile_calls("dense cycle M=34816", lambda: evaluate_cycle(
+    profile_both("dense cycle M=34816", lambda: evaluate_cycle(
         matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False),
         args.calls, args.top, card)
 
     matrices, masks, sctx, ctxs, dt, n_steps = stacked_cycle_problem(
         8, dev, torch.float32, m_bucket=1024, spread=12.0, ragged=True)
-    profile_calls("simulation-sized cycle M=1024", lambda: evaluate_cycle(
+    profile_both("simulation-sized cycle M=1024", lambda: evaluate_cycle(
         matrices[0], masks[0], ctxs[0], dt=dt, n_steps=n_steps, low_vel_mode=False),
         args.calls, args.top, card)
     batched = batched_full_cycle(dt=dt, n_steps=n_steps)
-    profile_calls("batched cycle A=8 M=1024", lambda: batched(matrices, masks, sctx),
-                  args.calls, args.top, card)
+    profile_both("batched cycle A=8 M=1024", lambda: batched(matrices, masks, sctx),
+                 args.calls, args.top, card)
 
     res = evaluate_cycle(matrices[0], masks[0], ctxs[0], dt=dt, n_steps=n_steps,
                          low_vel_mode=False)
     preds = ctxs[0].preds
-    profile_calls("risk stack M=1024 O=4", lambda: trajectory_risks(
-        res.rollout, preds, meta_from_footprint(preds.lengths, preds.widths),
-        ctxs[0].veh.mass), args.calls, args.top, card)
+    meta = meta_from_footprint(preds.lengths, preds.widths)
+    # the planner's risk program (min_risk, log_risk): the stack and the total
+    profile_both("risk stack M=1024 O=4", lambda: reactive._risk_program(
+        res.rollout, preds, meta, mass=ctxs[0].veh.mass), args.calls, args.top, card)
 
     # the post-passes of the batched cycle, at the simulations' 16 slots
     matrices, masks, sctx, _, dt, n_steps = stacked_cycle_problem(
         8, dev, torch.float32, m_bucket=1024, spread=12.0, ragged=True, o_slots=16)
     grid, phantom_masks, geom = stacked_post_pass_extras(sctx)
     plain = batched_full_cycle(dt=dt, n_steps=n_steps)
-    profile_calls("batched cycle A=8 M=1024 O=16", lambda: plain(matrices, masks, sctx),
-                  args.calls, args.top, card)
+    profile_both("batched cycle A=8 M=1024 O=16", lambda: plain(matrices, masks, sctx),
+                 args.calls, args.top, card)
     with_resp = batched_full_cycle(dt=dt, n_steps=n_steps, resp_weight=0.2)
-    profile_calls("batched cycle with responsibility A=8 M=1024 O=16",
-                  lambda: with_resp(matrices, masks, sctx, grid),
-                  args.calls, args.top, card)
+    profile_both("batched cycle with responsibility A=8 M=1024 O=16",
+                 lambda: with_resp(matrices, masks, sctx, grid),
+                 args.calls, args.top, card)
     gated = batched_full_cycle(dt=dt, n_steps=n_steps, occlusion=True,
                                occ_um_weight=2.0, occ_ve_weight=0.5)
-    profile_calls("gated batched cycle (occ_um, occ_ve) A=8 M=1024 O=16",
-                  lambda: gated(matrices, masks, sctx, phantom_masks, *geom),
-                  args.calls, args.top, card)
+    profile_both("gated batched cycle (occ_um, occ_ve) A=8 M=1024 O=16",
+                 lambda: gated(matrices, masks, sctx, phantom_masks, *geom),
+                 args.calls, args.top, card)
 
     # the body of the device-resident run: a whole run of a few cycles is one
     # call (reset, the cycles, the one fetch)
@@ -223,8 +234,9 @@ def main(argv=None) -> int:
         hist, nbrs, sc, _ = net._preprocess(ids[:b], 40)
         inputs = {k: torch.as_tensor(v, device=dev)
                   for k, v in (("hist", hist), ("nbrs", nbrs), ("sc_img", sc))}
-        profile_calls(f"Wale-Net net B={b} (synthetic export, recorded widths)",
-                      lambda: net._net(**inputs), args.calls, args.top, card)
+        profile_both(f"Wale-Net net B={b} (synthetic export, recorded widths)",
+                     lambda: _net_program(net._net, inputs["hist"], inputs["nbrs"],
+                                          inputs["sc_img"]), args.calls, args.top, card)
     return 0
 
 

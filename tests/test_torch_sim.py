@@ -255,7 +255,7 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "models.onnx_lite", "models.onnx_torch", "models.walenet",
                  "parallel.distributed", "parallel.scenario_sharding", "graft_entry",
                  "utils.timers", "utils.visualization", "risk.visualization",
-                 "utils.parting"):
+                 "utils.parting", "utils.compiled"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke
 import os

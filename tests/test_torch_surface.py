@@ -37,8 +37,12 @@ MODULES_WITHOUT_COUNTERPART = {
                             "kernel csrc/table_interp.cu behind ops/table_interp.py",
     "planner/numpy_backend.py": "a scalar NumPy oracle of the cycle for the JAX "
                                 "tests; the port's tests hold against JAX directly",
-    "utils/aot_cache.py": "ahead-of-time export of XLA programs",
-    "utils/jax_cache.py": "the persistent XLA compilation cache",
+    "utils/aot_cache.py": "ahead-of-time export of XLA programs, which persists "
+                          "them across processes; the in-process compile cache's "
+                          "counterpart is utils/compiled.py",
+    "utils/jax_cache.py": "the persistent XLA compilation cache, kept across "
+                          "processes; the in-process compile cache's counterpart "
+                          "is utils/compiled.py",
 }
 
 NAMES_WITHOUT_COUNTERPART = {
