@@ -9,10 +9,14 @@ state.
 Host-side by design: grids are tiny (tens of values); the (M, 13) matrix is
 assembled in NumPy, padded to a bucketed M, and copied to the device once per
 cycle.  Ranges are sorted, so selection is deterministic under cost ties.
+With `utils.tracing` on, the matrix build and its padding are the spans
+`frenetix.sampling.matrix` and `frenetix.sampling.pad`.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from frenetix_tpu_torch.utils import tracing
 
 __all__ = [
     "time_samples",
@@ -62,23 +66,24 @@ def build_sampling_matrix(
     Product iteration order matches itertools.product over (t1, ss1, d1)
     (the reference varies d fastest, then v, then t).
     """
-    t1_vals = np.atleast_1d(np.asarray(t1_vals, dtype))
-    ss1_vals = np.atleast_1d(np.asarray(ss1_vals, dtype))
-    d1_vals = np.atleast_1d(np.asarray(d1_vals, dtype))
-    nt, nv, nd = len(t1_vals), len(ss1_vals), len(d1_vals)
-    m = nt * nv * nd
+    with tracing.span("frenetix.sampling.matrix"):
+        t1_vals = np.atleast_1d(np.asarray(t1_vals, dtype))
+        ss1_vals = np.atleast_1d(np.asarray(ss1_vals, dtype))
+        d1_vals = np.atleast_1d(np.asarray(d1_vals, dtype))
+        nt, nv, nd = len(t1_vals), len(ss1_vals), len(d1_vals)
+        m = nt * nv * nd
 
-    mat = np.zeros((m, 13), dtype)
-    mat[:, COL_T1] = np.repeat(t1_vals, nv * nd)
-    mat[:, COL_SS1] = np.tile(np.repeat(ss1_vals, nd), nt)
-    mat[:, COL_D1] = np.tile(d1_vals, nt * nv)
-    mat[:, COL_S0] = x0_lon[0]
-    mat[:, COL_SS0] = x0_lon[1]
-    mat[:, COL_SSS0] = x0_lon[2]
-    mat[:, COL_D0] = x0_lat[0]
-    mat[:, COL_DD0] = x0_lat[1]
-    mat[:, COL_DDD0] = x0_lat[2]
-    return mat
+        mat = np.zeros((m, 13), dtype)
+        mat[:, COL_T1] = np.repeat(t1_vals, nv * nd)
+        mat[:, COL_SS1] = np.tile(np.repeat(ss1_vals, nd), nt)
+        mat[:, COL_D1] = np.tile(d1_vals, nt * nv)
+        mat[:, COL_S0] = x0_lon[0]
+        mat[:, COL_SS0] = x0_lon[1]
+        mat[:, COL_SSS0] = x0_lon[2]
+        mat[:, COL_D0] = x0_lat[0]
+        mat[:, COL_DD0] = x0_lat[1]
+        mat[:, COL_DDD0] = x0_lat[2]
+        return mat
 
 
 def pad_range(values: np.ndarray, size: int) -> np.ndarray:
@@ -96,15 +101,16 @@ def pad_matrix(matrix: np.ndarray, bucket: int = 256):
     here excludes them from selection.  Bucketing keeps the number of distinct
     jit specializations small across sampling levels.
     """
-    m = matrix.shape[0]
-    m_pad = ((m + bucket - 1) // bucket) * bucket
-    if m_pad == m:
-        return matrix, np.ones(m, bool)
-    pad = np.repeat(matrix[:1], m_pad - m, axis=0)
-    out = np.concatenate([matrix, pad], axis=0)
-    mask = np.zeros(m_pad, bool)
-    mask[:m] = True
-    return out, mask
+    with tracing.span("frenetix.sampling.pad"):
+        m = matrix.shape[0]
+        m_pad = ((m + bucket - 1) // bucket) * bucket
+        if m_pad == m:
+            return matrix, np.ones(m, bool)
+        pad = np.repeat(matrix[:1], m_pad - m, axis=0)
+        out = np.concatenate([matrix, pad], axis=0)
+        mask = np.zeros(m_pad, bool)
+        mask[:m] = True
+        return out, mask
 
 
 def candidate_counts(t_min: float, horizon: float, dt: float, levels) -> dict:

@@ -14,7 +14,11 @@ every temporary, so the quadrature loops over the nodes and accumulates in
 place (a temporary then has the size of the query, not 24 times it), the
 four rectangle corners go through one call, and
 `collision_probability_fast` walks the candidates in chunks of a bounded
-number of cells.
+number of cells.  With `utils.tracing` on, the chunk loop is the device span
+`frenetix.risk.quadrature`; the counter `risk.quadrature.cells` counts the
+(agent, candidate, obstacle, step) cells it evaluates, and the device
+counter `risk.quadrature.useful` those inside the gate of a valid slot, the
+only ones whose probability can be non-zero.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from frenetix_tpu_torch.ops.costs import quadratic_form_2x2
+from frenetix_tpu_torch.utils import tracing
 
 __all__ = [
     "bvn_cdf",
@@ -121,42 +126,48 @@ def collision_probability_fast(ro, preds, veh):
     # two fills, not a host list: no host→device copy (CUDA-graph capture)
     offset = torch.full((2,), veh.length / 6.0, dtype=dtype, device=device)
     offset[1:].fill_(veh.width / 2.0)
-    valid = preds.valid[..., None, :, :t].to(dtype)
+    slot_valid = preds.valid[..., None, :, :t]
+    valid = slot_valid.to(dtype)
 
     n_batch = int(np.prod(batch)) if batch else 1
     max_cells = _MAX_CELLS_CUDA if device.type == "cuda" else _MAX_CELLS
     chunk = max(1, max_cells // max(9 * o * t * n_batch, 1))
     out = torch.empty(batch + (m, o, t), dtype=dtype, device=device)
-    for lo in range(0, m, chunk):
-        hi = min(lo + chunk, m)
-        ego_xy = torch.stack([ro.x[..., lo:hi, 1 : t + 1], ro.y[..., lo:hi, 1 : t + 1]],
-                             dim=-1)                                # (..., m, t, 2)
-        ego_th = ro.theta_gl[..., lo:hi, 1 : t + 1]
+    with tracing.device_span("frenetix.risk.quadrature"):
+        for lo in range(0, m, chunk):
+            hi = min(lo + chunk, m)
+            ego_xy = torch.stack([ro.x[..., lo:hi, 1 : t + 1], ro.y[..., lo:hi, 1 : t + 1]],
+                                 dim=-1)                                # (..., m, t, 2)
+            ego_th = ro.theta_gl[..., lo:hi, 1 : t + 1]
 
-        # 5 m distance gate on the minimum of the three mean distances
-        delta = means3.unsqueeze(-4) - ego_xy.unsqueeze(-3)[None]  # (3, ..., m, O, t, 2)
-        dist = torch.sqrt(torch.sum(delta * delta, dim=-1))
-        gate = torch.amin(dist, dim=0) <= 5.0  # (..., m, O, t)
+            # 5 m distance gate on the minimum of the three mean distances
+            delta = means3.unsqueeze(-4) - ego_xy.unsqueeze(-3)[None]  # (3, ..., m, O, t, 2)
+            dist = torch.sqrt(torch.sum(delta * delta, dim=-1))
+            gate = torch.amin(dist, dim=0) <= 5.0  # (..., m, O, t)
+            tracing.count("risk.quadrature.cells", gate.numel())
+            if tracing.enabled():
+                tracing.device_count("risk.quadrature.useful",
+                                     (gate & slot_valid).sum())
 
-        # 3 axis-aligned ego rectangles: centers at 0, ±(2/3)(l/2) along heading
-        heading = torch.stack([torch.cos(ego_th), torch.sin(ego_th)], dim=-1)
-        centers3 = torch.stack(
-            [ego_xy, ego_xy + off * heading, ego_xy - off * heading], dim=0
-        )  # (3, ..., m, t, 2)
-        lower3 = centers3 - offset
-        upper3 = centers3 + offset
+            # 3 axis-aligned ego rectangles: centers at 0, ±(2/3)(l/2) along heading
+            heading = torch.stack([torch.cos(ego_th), torch.sin(ego_th)], dim=-1)
+            centers3 = torch.stack(
+                [ego_xy, ego_xy + off * heading, ego_xy - off * heading], dim=0
+            )  # (3, ..., m, t, 2)
+            lower3 = centers3 - offset
+            upper3 = centers3 + offset
 
-        # broadcast: rect r (3) × mean (3) × (..., m, O, t)
-        p = rectangle_probability(
-            lower3.unsqueeze(1).unsqueeze(-3),     # (3, 1, ..., m, 1, t, 2)
-            upper3.unsqueeze(1).unsqueeze(-3),
-            means3[None].unsqueeze(-4),            # (1, 3, ..., 1, O, t, 2)
-            cov.unsqueeze(-5)[None, None],         # (1, 1, ..., 1, O, t, 2, 2)
-        )  # (3, 3, ..., m, O, t)
-        prob = p[0, 0]
-        for r, k in _RECT_MEAN_PAIRS[1:]:
-            prob = prob + p[r, k]
-        out[..., lo:hi, :, :] = prob / 3.0 * gate.to(dtype) * valid
+            # broadcast: rect r (3) × mean (3) × (..., m, O, t)
+            p = rectangle_probability(
+                lower3.unsqueeze(1).unsqueeze(-3),     # (3, 1, ..., m, 1, t, 2)
+                upper3.unsqueeze(1).unsqueeze(-3),
+                means3[None].unsqueeze(-4),            # (1, 3, ..., 1, O, t, 2)
+                cov.unsqueeze(-5)[None, None],         # (1, 1, ..., 1, O, t, 2, 2)
+            )  # (3, 3, ..., m, O, t)
+            prob = p[0, 0]
+            for r, k in _RECT_MEAN_PAIRS[1:]:
+                prob = prob + p[r, k]
+            out[..., lo:hi, :, :] = prob / 3.0 * gate.to(dtype) * valid
     return out, t
 
 

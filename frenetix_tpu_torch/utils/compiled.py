@@ -28,10 +28,16 @@ and replays it.
   callable runs `fn` eagerly and makes no entry.
 - **On the CPU** the same keys, static buffers, copies and output clones
   are used; the "replay" is `fn` run over the static buffers.
-- **K1's count**: an entry records the K1 launches its capture saw; each
-  replay adds them to `ops.table_interp.LAUNCHES`, so a compiled path counts
-  what its eager twin counts.  The warm-up's launches are set-up and are
-  not counted, nor are the capture's (it records, it does not launch).
+- **Host counters**: an entry records what its capture added to every host
+  counter, K1's `ops.table_interp.LAUNCHES` and `utils.tracing`'s counters;
+  each replay adds the whole record, so a compiled path counts what its
+  eager twin counts.  The warm-up's counts are set-up and are not counted,
+  nor are the capture's (it records, it does not launch).
+- **Tracing** (`utils.tracing`): an outermost call is the span
+  `frenetix.compiled`, with the children `.key` (bind, flatten, key
+  lookup), `.copy_in`, `.replay` (the replay and the counters' record) and
+  `.own`; a capture made with tracing on keeps the device spans and device
+  counters of its body as nodes of the graph.
 
 `CAPTURES` counts the entries made (graphs captured on the card); each
 compiled callable keeps its `entries`, `captures` and `capture_s`, and
@@ -50,6 +56,7 @@ import weakref
 import torch
 
 from frenetix_tpu_torch.ops import table_interp
+from frenetix_tpu_torch.utils import tracing
 
 __all__ = ["CAPTURES", "Compiled", "compiled", "disable_compiled", "clear_all",
            "stats"]
@@ -191,15 +198,35 @@ def _pool(device: torch.device):
     return handle, entries
 
 
+# the key of K1's launches in a record of host counters
+_K1 = "ops.table_interp.LAUNCHES"
+
+
+def _counters() -> dict:
+    """Every host counter: K1's launches and `utils.tracing`'s counters."""
+    return {**tracing.COUNTERS, _K1: table_interp.LAUNCHES}
+
+
+def _add(record: dict) -> None:
+    """Add a record of host counter deltas to the counters."""
+    for name, n in record.items():
+        if name == _K1:
+            table_interp.LAUNCHES += n
+        else:
+            tracing.count(name, n)
+
+
 class _Entry:
-    __slots__ = ("buffers", "graph", "out_tree", "outs", "k1", "__weakref__")
+    __slots__ = ("buffers", "graph", "out_tree", "outs", "counts", "spans",
+                 "__weakref__")
 
     def __init__(self, buffers):
         self.buffers = buffers
         self.graph = None
         self.out_tree = None
         self.outs = None
-        self.k1 = 0
+        self.counts = {}        # what the capture added to each host counter
+        self.spans = None       # tracing.DeviceSpans of the capture, if any
 
 
 class Compiled:
@@ -228,6 +255,26 @@ class Compiled:
     def __call__(self, *args, **kwargs):
         if getattr(_LOCAL, "disabled", False) or _depth() > 0:
             return self.eager(*args, **kwargs)
+        with tracing.span("frenetix.compiled"):
+            with tracing.span("frenetix.compiled.key"):
+                bound, tree, leaves, key = self._key(args, kwargs)
+                entry = self.entries.get(key) if leaves else None
+            if not leaves:
+                return self.eager(*args, **kwargs)
+            cuda = leaves[0].device.type == "cuda"
+            if cuda and torch.cuda.is_current_stream_capturing():
+                return self.eager(*args, **kwargs)     # inlined into the outer capture
+            if entry is None:
+                entry = self._make(tree, leaves, bound, cuda)
+                self.entries[key] = entry
+                while len(self.entries) > MAX_ENTRIES:
+                    self.entries.popitem(last=False)
+            else:
+                self.entries.move_to_end(key)
+            return self._run(entry, tree, leaves, bound, cuda)
+
+    def _key(self, args, kwargs):
+        """(bound arguments, tree, tensor leaves, key) of a call."""
         bound = self._signature.bind(*args, **kwargs)
         bound.apply_defaults()
         statics, dynamic = [], {}
@@ -242,25 +289,10 @@ class Compiled:
                 dynamic[name] = value
         leaves: list = []
         tree = _flatten(dynamic, leaves)
-        if not leaves:
-            return self.eager(*args, **kwargs)
-        device = leaves[0].device
-        if any(t.device != device for t in leaves):
+        if leaves and any(t.device != leaves[0].device for t in leaves):
             raise ValueError(f"{self.__qualname__}: compiled arguments lie on "
                              f"{sorted({str(t.device) for t in leaves})}; one device only")
-        cuda = device.type == "cuda"
-        if cuda and torch.cuda.is_current_stream_capturing():
-            return self.eager(*args, **kwargs)     # inlined into the outer capture
-        key = (tuple(statics), tree, tuple(_spec(t) for t in leaves))
-        entry = self.entries.get(key)
-        if entry is None:
-            entry = self._make(tree, leaves, bound, cuda)
-            self.entries[key] = entry
-            while len(self.entries) > MAX_ENTRIES:
-                self.entries.popitem(last=False)
-        else:
-            self.entries.move_to_end(key)
-        return self._run(entry, tree, leaves, bound, cuda)
+        return bound, tree, leaves, (tuple(statics), tree, tuple(_spec(t) for t in leaves))
 
     def _call_body(self, bound, tree, buffers):
         """The body on the static buffers in place of the tensor leaves."""
@@ -277,20 +309,23 @@ class Compiled:
         if cuda:
             device = leaves[0].device
             with torch.cuda.device(device):
-                before = table_interp.LAUNCHES
+                before = _counters()
                 stream = torch.cuda.current_stream(device)
                 side = torch.cuda.Stream(device)
                 side.wait_stream(stream)
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), tracing.warming():
                     self._call_body(bound, tree, entry.buffers)
                 stream.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                at_capture = table_interp.LAUNCHES
+                at_capture = _counters()
                 pool, pool_entries = _pool(device)
-                with torch.cuda.graph(graph, pool=pool):
+                with tracing.capture() as spans, torch.cuda.graph(graph, pool=pool):
                     out = self._call_body(bound, tree, entry.buffers)
-                entry.k1 = table_interp.LAUNCHES - at_capture
-                table_interp.LAUNCHES = before
+                after = _counters()
+                entry.counts = {k: n - at_capture.get(k, 0) for k, n in after.items()
+                                if n != at_capture.get(k, 0)}
+                _add({k: before.get(k, 0) - n for k, n in after.items()})
+                entry.spans = tracing.DeviceSpans(spans) if spans else None
             entry.graph = graph
             pool_entries.add(entry)
             outs: list = []
@@ -302,15 +337,24 @@ class Compiled:
         return entry
 
     def _run(self, entry: _Entry, tree, leaves, bound, cuda):
-        _copy_in(entry.buffers, leaves)
+        with tracing.span("frenetix.compiled.copy_in"):
+            _copy_in(entry.buffers, leaves)
         if not cuda:
-            outs: list = []
-            out_tree = _flatten(self._call_body(bound, tree, entry.buffers), outs)
-            return _own(out_tree, outs)
+            with tracing.span("frenetix.compiled.replay"):
+                outs: list = []
+                out_tree = _flatten(self._call_body(bound, tree, entry.buffers), outs)
+            with tracing.span("frenetix.compiled.own"):
+                return _own(out_tree, outs)
         with torch.cuda.device(leaves[0].device):
-            entry.graph.replay()
-            table_interp.LAUNCHES += entry.k1
-            return _own(entry.out_tree, entry.outs)
+            with tracing.span("frenetix.compiled.replay"):
+                if entry.spans is not None:
+                    entry.spans.fold()
+                entry.graph.replay()
+                if entry.spans is not None:
+                    entry.spans.replayed()
+                _add(entry.counts)
+            with tracing.span("frenetix.compiled.own"):
+                return _own(entry.out_tree, entry.outs)
 
 
 def compiled(fn=None, *, static=()):

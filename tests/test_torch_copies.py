@@ -2,11 +2,10 @@
 
 `frenetix_tpu_torch` imports nothing of `frenetix_tpu`; it carries copies of
 `geometry/refpath.py`, `geometry/corridor.py`, `ops/sampling.py`,
-`io/commonroad.py`, `io/scenario_factory.py`, `models/onnx_lite.py` and
-`utils/timers.py`.  Each test feeds the same
-inputs, made from a seed with NumPy, to the original and to the copy and
-asks for equal arrays (exact: the copies run the same NumPy expressions), so
-a copy cannot drift unnoticed.
+`io/commonroad.py`, `io/scenario_factory.py` and `models/onnx_lite.py`.
+Each test feeds the same inputs, made from a seed with NumPy, to the
+original and to the copy and asks for equal arrays (exact: the copies run
+the same NumPy expressions), so a copy cannot drift unnoticed.
 
 `graft_entry.entry()` is the twin of `__graft_entry__.entry()`: both build
 the synthetic problem in float32; cast to float64, the two cycles select the
@@ -25,7 +24,6 @@ from frenetix_tpu.io import commonroad as jcr
 from frenetix_tpu.io import scenario_factory as jfactory
 from frenetix_tpu.models import onnx_lite as jonnx
 from frenetix_tpu.ops import sampling as jsampling
-from frenetix_tpu.utils import timers as jtimers
 from frenetix_tpu_torch.geometry import corridor as tcorridor
 from frenetix_tpu_torch.geometry import refpath as trefpath
 from frenetix_tpu_torch.io import commonroad as tcr
@@ -33,7 +31,6 @@ from frenetix_tpu_torch.io import commonroad_writer
 from frenetix_tpu_torch.io import scenario_factory as tfactory
 from frenetix_tpu_torch.models import onnx_lite as tonnx
 from frenetix_tpu_torch.ops import sampling as tsampling
-from frenetix_tpu_torch.utils import timers as ttimers
 from frenetix_tpu_torch.workloads import write_synthetic_walenet_onnx
 
 
@@ -193,34 +190,6 @@ def test_factory_copy_brings_every_family():
     from frenetix_tpu_torch.run_scenario import FAMILIES
 
     assert sorted("make_" + f for f in FAMILIES) == _FAMILIES
-
-
-def test_timers_copy_equals_original(monkeypatch, tmp_path):
-    """The same nested scopes on a clock that ticks by known steps give the
-    same timing dict and the same JSON dump."""
-    import json
-    import time
-
-    def drive(mod, enabled):
-        ticks = iter(np.cumsum(np.linspace(0.5, 3.0, 40)))
-        monkeypatch.setattr(time, "perf_counter", lambda: float(next(ticks)))
-        timer = mod.ExecTimer(timing_enabled=enabled)
-        for _ in range(2):
-            with timer.time_with_cm("cycle"):
-                with timer.time_with_cm("cycle/risk"):
-                    with timer.time_with_cm("cycle/risk/harm"):
-                        pass
-                with timer.time_with_cm("cycle/costs"):
-                    pass
-        path = tmp_path / f"{mod.__name__}_{enabled}.json"
-        timer.dump(str(path))
-        return timer.get_timing_dict(), json.loads(path.read_text())
-
-    for enabled in (True, False):
-        want, got = drive(jtimers, enabled), drive(ttimers, enabled)
-        assert got == want
-    assert drive(ttimers, True)[0]["cycle"]["risk"]["calls"] == 2
-    assert ttimers.__all__ == jtimers.__all__
 
 
 def test_entry_cycle_equals_the_jax_entry():

@@ -254,7 +254,7 @@ for expected in ("geometry.refpath", "geometry.corridor", "ops.sampling",
                  "sim.planner_interfaces", "run_scenario", "workloads", "models",
                  "models.onnx_lite", "models.onnx_torch", "models.walenet",
                  "parallel.distributed", "parallel.scenario_sharding", "graft_entry",
-                 "utils.timers", "utils.visualization", "risk.visualization",
+                 "utils.tracing", "utils.visualization", "risk.visualization",
                  "utils.parting", "utils.compiled"):
     assert "frenetix_tpu_torch." + expected in names, expected
 import chip_smoke

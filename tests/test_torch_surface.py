@@ -43,6 +43,9 @@ MODULES_WITHOUT_COUNTERPART = {
     "utils/jax_cache.py": "the persistent XLA compilation cache, kept across "
                           "processes; the in-process compile cache's counterpart "
                           "is utils/compiled.py",
+    "utils/timers.py": "ExecTimer, a host-clock timer that nothing read; the port's "
+                       "spans and counters are utils/tracing.py, on the profiler's "
+                       "clock",
 }
 
 NAMES_WITHOUT_COUNTERPART = {
