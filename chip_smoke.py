@@ -7,7 +7,8 @@ Phases, each printed on lines of its own:
 
 1. device: a CUDA device must exist and be Hopper (compute capability 9.x);
    prints the card's name and power limit; TF32 is switched off.
-2. build: compiles the K1 kernel (csrc/table_interp.cu) with nvcc.
+2. build: compiles the K1 kernel (csrc/table_interp.cu) and kernel Q
+   (csrc/risk_quadrature.cu) with nvcc; prints ptxas's register report.
 3. K1 against its plain PyTorch twin on the card, at the dense cycle's
    shapes (R = 868, C = 7, P = 1,079,296), at the simulations' P = 1024 x 31
    and at a ragged P, in float32 and float64: the outputs must be bitwise
@@ -245,6 +246,20 @@ Phases, each printed on lines of its own:
    cycle compiled (the replaying run) against eager.  (i) A compiled body
    that calls `.item()` must raise at its capture.
 
+21. (run after phase 8) kernel Q, the risk stack's collision-probability
+   quadrature, at the convoy cells' shape (A = 8, M = 1,024, O = 16,
+   t = 30) in two settings: near (obstacles 7-18 m ahead and slower, others
+   at -25..-8 or 20-45 m: 2.6 % of the cells inside the 5 m gate of a valid
+   slot) and open (at most one obstacle, 25-50 m ahead and faster: none).
+   In float32 and float64 Q against the plain twin on the card: +0.0 on
+   every cell it does not price, the twin 0 there, the max |Δ| on the
+   priced cells within 1e-6 (float32) / 1e-13 (float64); Q's device time
+   alone and with the wrapper's preparation, its bound (the larger of its
+   bytes at 3.35 TB/s, the priced cells' operations at 67 TFLOP/s and the
+   launch floor of phase 3) and the twin's time.  Then the batched convoy
+   path (phase 9's batched cycle with responsibility) launches Q once per
+   call, compiled and replaying.
+
 Each path on the card (phases 4 to 20) is driven with K1's launch count set
 to 0 just before and read just after (spawned ranks and workers report
 their own counts); a path that launched no kernel fails the run.
@@ -267,6 +282,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 import numpy as np
 import torch
@@ -394,14 +410,15 @@ def phase_device():
 
 
 def phase_build():
-    t0 = time.perf_counter()
-    _kernels.load_library("table_interp")
-    info = _kernels.build_info("table_interp")
-    phase(2, f"K1 built={info['built']} nvcc_s={info['seconds']:.2f} "
-             f"load_s={time.perf_counter() - t0:.2f} lib={info['library']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for what, name in (("K1", "table_interp"), ("Q", "risk_quadrature")):
+        t0 = time.perf_counter()
+        _kernels.load_library(name)
+        info = _kernels.build_info(name)
+        phase(2, f"{what} built={info['built']} nvcc_s={info['seconds']:.2f} "
+                 f"load_s={time.perf_counter() - t0:.2f} lib={info['library']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def k1_bound_ms(rows, cols, p, itemsize):
@@ -3029,6 +3046,176 @@ def phase_compiled(dev, smi, launches):
               f"RuntimeError ({raised[:240]}), no entry, no eager fallback [{smi}]")
 
 
+Q_SOURCE = "frenetix_tpu_torch/csrc/risk_quadrature.cu"
+Q_ATOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+# operations of one priced cell: per (rectangle, mean) pair and node 6 for
+# the correlation terms and 12 per corner; per pair 12 for the standardised
+# corners, 16 for the four Φ, 16 for the corner products and sums, 5 to
+# combine and clamp
+Q_OPS_PER_PRICED = 9 * (24 * (6 + 4 * 12) + 12 + 16 + 16 + 5) + 1
+# per valid cell, the gate: three distances of 2 subtractions, 2 products,
+# a sum, a root and a comparison
+Q_OPS_PER_VALID = 3 * 7
+
+
+class _QRollout(typing.NamedTuple):
+    """The rollout fields the quadrature reads."""
+    x: torch.Tensor
+    y: torch.Tensor
+    theta_gl: torch.Tensor
+
+
+def _quadrature_problem(setting, dev, dtype, seed=0):
+    """A rollout (A = 8, M = 1,024, N + 1 = 31) and 16 obstacle slots of
+    predictions in the convoy cells' settings: "near" (per agent 1-2
+    obstacles 7-18 m ahead and up to 3 m/s slower within 1 m of the lane,
+    1-5 more at -25..-8 or 20-45 m), "open" (0-1 obstacle 25-50 m ahead and
+    as fast or faster).  Candidates: end speeds around the agent's, lateral
+    end offsets on [-3, 3] m, reached by a smooth ramp."""
+    from frenetix_tpu_torch.ops.costs import PredictionTensors
+
+    rng = np.random.default_rng(seed)
+    a_n, m, n1, o = A_BATCH, M_BATCH, 31, O_SLOTS
+    k = np.arange(n1) * 0.1
+    v0 = rng.uniform(8.0, 14.0, (a_n, 1, 1))
+    dv = rng.uniform(-4.0, 4.0, (a_n, m, 1))
+    d_end = rng.uniform(-3.0, 3.0, (a_n, m, 1))
+    ramp = np.clip(k / rng.uniform(1.1, 3.0, (a_n, m, 1)), 0.0, 1.0)
+    ramp = ramp * ramp * (3.0 - 2.0 * ramp)
+    x = rng.uniform(30.0, 60.0, (a_n, 1, 1)) + v0 * k + 0.5 * dv / 3.0 * k * k
+    y = rng.uniform(-1.0, 1.0, (a_n, 1, 1)) + d_end * ramp
+    theta = np.arctan2(np.gradient(y, axis=-1), np.gradient(x, axis=-1))
+    means = np.zeros((a_n, o, n1, 2))
+    valid = np.zeros((a_n, o, n1), bool)
+    for a in range(a_n):
+        if setting == "near":
+            groups = [(rng.integers(1, 3), [(7.0, 18.0)], 1.0, (-3.0, 0.0)),
+                      (rng.integers(1, 6), [(-25.0, -8.0), (20.0, 45.0)], 4.0, (-3.0, 3.0))]
+        else:
+            groups = [(rng.integers(0, 2), [(25.0, 50.0)], 1.0, (0.0, 3.0))]
+        slot = 0
+        for count, spans, lateral, speed in groups:
+            for _ in range(count):
+                lo, hi = spans[rng.integers(len(spans))]
+                s0 = x[a, 0, 0] + rng.uniform(lo, hi)
+                v = v0[a, 0, 0] + rng.uniform(*speed)
+                means[a, slot, :, 0] = s0 + v * k
+                means[a, slot, :, 1] = rng.uniform(-lateral, lateral)
+                valid[a, slot] = True
+                slot += 1
+    covs = np.broadcast_to(0.5 * np.eye(2), (a_n, o, n1, 2, 2)).copy()
+
+    def t(arr, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dt, device=dev)
+
+    ro = _QRollout(x=t(x), y=t(y),
+                    theta_gl=t(theta))
+    preds = PredictionTensors(
+        means=t(means), inv_covs=t(covs * 4.0), covs=t(covs),
+        orientations=t(np.zeros((a_n, o, n1))), velocities=t(np.ones((a_n, o, n1))),
+        lengths=t(np.full((a_n, o), 4.5)), widths=t(np.full((a_n, o), 1.8)),
+        valid=t(valid, torch.bool))
+    return ro, preds
+
+
+def _quadrature_cells(ro, preds, t):
+    """(valid cells, priced cells): cells on a valid slot, and of those the
+    cells inside the 5 m gate, by the twin's formula."""
+    ego = torch.stack([ro.x[..., 1:t + 1], ro.y[..., 1:t + 1]], dim=-1)
+    yaw = preds.orientations[..., 1:t + 1]
+    half = torch.stack([torch.cos(yaw), torch.sin(yaw)], dim=-1) * (
+        preds.lengths[..., None, None] / 2.0)
+    centre = preds.means[..., :t, :]
+    dists = [torch.sqrt(torch.sum((p.unsqueeze(-4) - ego.unsqueeze(-3)) ** 2, dim=-1))
+             for p in (centre, centre + half, centre - half)]
+    valid = preds.valid[..., None, :, :t].expand(dists[0].shape)
+    return valid, valid & (torch.amin(torch.stack(dists), dim=0) <= 5.0)
+
+
+def q_bound_ms(shape, itemsize, n_valid, n_priced, floor_ms):
+    """The least time the card could take for one Q call on (B, M, O, t):
+    the larger of its bytes (the three rectangle centres and the three
+    means, sx, sy, ρ and the slot mask read once, the result written once)
+    at 3.35 TB/s, the gate's and the priced cells' operations at 67 TFLOP/s,
+    and the launch floor.  Returns (ms, what bounds it, bytes, operations)."""
+    b, m, o, t = shape
+    n_bytes = (3 * b * m * t * 2 + 3 * b * o * t * 2 + 3 * b * o * t + b * m * o * t) \
+        * itemsize + b * o * t
+    n_ops = Q_OPS_PER_VALID * n_valid + Q_OPS_PER_PRICED * n_priced
+    by = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": n_ops / F32_FLOPS * 1e3,
+          "launch floor": floor_ms}
+    what = max(by, key=by.get)
+    return by[what], what, n_bytes, n_ops
+
+
+def phase_quadrature(dev, smi, floor_ms):
+    from frenetix_tpu_torch.ops.kinematics import VehicleParams
+    from frenetix_tpu_torch.risk import probability
+
+    veh = VehicleParams()
+    results = {}
+    for setting in ("near", "open"):
+        for dtype in (torch.float32, torch.float64):
+            ro, preds = _quadrature_problem(setting, dev, dtype)
+            got, t = probability.collision_probability_fast(ro, preds, veh)
+            want, _ = probability.collision_probability_fast(ro, preds, veh, plain=True)
+            torch.cuda.synchronize()
+            valid, priced = _quadrature_cells(ro, preds, t)
+            n_priced, n_valid = int(priced.sum()), int(valid.sum())
+            dead = ~priced
+            check(bool((got[dead] == 0).all()) and not bool(torch.signbit(got[dead]).any()),
+                  f"Q {setting} {dtype}: a cell it does not price is not +0.0")
+            check(bool((want[dead] == 0).all()), f"twin {setting}: non-zero beyond the gate")
+            diff = (got - want)[priced].abs()
+            err = float(diff.max()) if n_priced else 0.0
+            check(err <= Q_ATOL[dtype], f"Q {setting} {dtype}: max |Δ| {err} > "
+                                        f"{Q_ATOL[dtype]}")
+            n_bitwise = int((diff == 0).sum()) if n_priced else 0
+            inputs = probability._kernel_inputs(ro, preds, veh, t)
+            ms = cuda_ms(lambda: probability._quadrature(*inputs, veh), 20, 5)
+            call_ms = cuda_ms(
+                lambda: probability.collision_probability_fast(ro, preds, veh), 20, 5)
+            plain_ms = cuda_ms(lambda: probability.collision_probability_fast(
+                ro, preds, veh, plain=True), 2, 3)
+            bound, by, n_bytes, n_ops = q_bound_ms(tuple(got.shape), got.element_size(),
+                                                   n_valid, n_priced, floor_ms)
+            name = str(dtype).split(".")[-1]
+            results[(setting, dtype)] = dict(
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bytes=n_bytes,
+                ops=n_ops, max_abs_err=err, priced_share=100.0 * n_priced / got.numel(),
+                priced=n_priced, bitwise_priced=n_bitwise)
+            phase(21, f"Q {setting} {name} {tuple(got.shape)}: priced {n_priced} of "
+                      f"{got.numel()} cells ({100.0 * n_priced / got.numel():.3f} %), "
+                      f"{n_valid} on valid slots; +0.0 on every other; max |Δ| vs the "
+                      f"plain twin {err:.3e} ({n_bitwise} of {n_priced} priced bitwise); "
+                      f"kernel {ms:.4f} ms (the call with its preparation {call_ms:.4f} "
+                      f"ms), plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
+                      f"by {by} ({n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} G operations) "
+                      f"= {bound / ms:.3f} of the kernel's time [{smi}]")
+
+    # the batched convoy path: one Q launch per call, compiled and replaying
+    matrices, masks, ctx, _, dt, n_steps = stacked_cycle_problem(
+        A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True,
+        o_slots=O_SLOTS)
+    grid, _, _ = stacked_post_pass_extras(ctx)
+    fn = batched_full_cycle(dt=dt, n_steps=n_steps, resp_weight=0.2)
+    fn.clear()
+    before = probability.LAUNCHES
+    calls = 5
+    for _ in range(calls):
+        fn(matrices, masks, ctx, grid)
+    torch.cuda.synchronize()
+    n_launches = probability.LAUNCHES - before
+    check(n_launches == calls, f"batched convoy path: {n_launches} Q launches in "
+                               f"{calls} calls")
+    p50, lo, hi = timed_calls(lambda: fn(matrices, masks, ctx, grid))
+    phase(21, f"batched cycle with responsibility A={A_BATCH} M={M_BATCH} O={O_SLOTS}: "
+              f"{n_launches} Q launches in {calls} calls (captures {fn.captures}); p50 "
+              f"{p50:.3f} ms over 20 calls (min {lo:.3f}, max {hi:.3f}) [{smi}]")
+    return results, n_launches
+
+
 def _leaves(tree):
     leaves = []
     compiled._flatten(tree, leaves)
@@ -3061,6 +3248,10 @@ def main() -> int:
     batched_p50 = _timed(phase_batched_cycle, dev, smi, launches)
     host_runs = _timed(phase_multiagent, dev, smi, launches)
     _timed(phase_risk, dev, smi, launches)
+    # phase 21 runs here: phase 20's deliberately failed capture (i) leaves
+    # the shared graph pool recording, so no capture may follow it
+    q_times, q_launches = _timed(phase_quadrature, dev, smi, k1_times[
+        (torch.float32, R_ROWS, P_DENSE)]["launch_floor_ms"])
     host_resp = _timed(phase_responsibility, dev, smi, launches, batched_p50)
     host_occ = _timed(phase_occlusion, dev, smi, launches)
     device_runs = _timed(phase_device_run, dev, smi, launches, host_runs)
@@ -3074,6 +3265,7 @@ def main() -> int:
     _timed(phase_surface, dev, smi, launches)
     _timed(phase_compiled, dev, smi, launches)
     dense = k1_times[(torch.float32, R_ROWS, P_DENSE)]
+    q_near, q_open = (q_times[(s, torch.float32)] for s in ("near", "open"))
     stacked = k1_times[(torch.float32, A_BATCH * R_ROWS, A_BATCH * M_BATCH * 31)]
     sim_sized = k1_times[(torch.float32, R_ROWS, P_SIM)]
     print(smi)
@@ -3098,6 +3290,17 @@ def main() -> int:
         "sim_sized": dict(sim_sized, shape=f"R={R_ROWS} C={C_COLS} P={P_SIM} float32"),
         "stacked": dict(stacked, shape=f"R={A_BATCH * R_ROWS} C={C_COLS} "
                                        f"P={A_BATCH * M_BATCH * 31} float32"),
+    }, {
+        "name": "risk_quadrature", "route": "cuda", "source": Q_SOURCE,
+        "replaces": None,   # the JAX package leaves the quadrature to XLA
+        # on the batched convoy path, one per call
+        "launches": q_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in q_times.values()),
+        "ms": q_near["ms"], "plain_ms": q_near["plain_ms"],
+        "bound_ms": q_near["bound_ms"], "bound_by": q_near["bound_by"],
+        "shape": f"B={A_BATCH} M={M_BATCH} O={O_SLOTS} t=30 float32, near",
+        "open": dict(q_open, shape=f"B={A_BATCH} M={M_BATCH} O={O_SLOTS} t=30 float32"),
+        "float64": {s: q_times[(s, torch.float64)] for s in ("near", "open")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

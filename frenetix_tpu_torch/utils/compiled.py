@@ -29,7 +29,8 @@ and replays it.
 - **On the CPU** the same keys, static buffers, copies and output clones
   are used; the "replay" is `fn` run over the static buffers.
 - **Host counters**: an entry records what its capture added to every host
-  counter, K1's `ops.table_interp.LAUNCHES` and `utils.tracing`'s counters;
+  counter, the kernels' launch counters (K1's `ops.table_interp.LAUNCHES`,
+  Q's `risk.probability.LAUNCHES`) and `utils.tracing`'s counters;
   each replay adds the whole record, so a compiled path counts what its
   eager twin counts.  The warm-up's counts are set-up and are not counted,
   nor are the capture's (it records, it does not launch).
@@ -56,6 +57,7 @@ import weakref
 import torch
 
 from frenetix_tpu_torch.ops import table_interp
+from frenetix_tpu_torch.risk import probability
 from frenetix_tpu_torch.utils import tracing
 
 __all__ = ["CAPTURES", "Compiled", "compiled", "disable_compiled", "clear_all",
@@ -198,20 +200,25 @@ def _pool(device: torch.device):
     return handle, entries
 
 
-# the key of K1's launches in a record of host counters
+# the keys of K1's and Q's launches in a record of host counters, and the
+# modules that hold them
 _K1 = "ops.table_interp.LAUNCHES"
+_Q = "risk.probability.LAUNCHES"
+_LAUNCHES = {_K1: table_interp, _Q: probability}
 
 
 def _counters() -> dict:
-    """Every host counter: K1's launches and `utils.tracing`'s counters."""
-    return {**tracing.COUNTERS, _K1: table_interp.LAUNCHES}
+    """Every host counter: the kernels' launches and `utils.tracing`'s
+    counters."""
+    return {**tracing.COUNTERS, **{k: m.LAUNCHES for k, m in _LAUNCHES.items()}}
 
 
 def _add(record: dict) -> None:
     """Add a record of host counter deltas to the counters."""
     for name, n in record.items():
-        if name == _K1:
-            table_interp.LAUNCHES += n
+        module = _LAUNCHES.get(name)
+        if module is not None:
+            module.LAUNCHES += n
         else:
             tracing.count(name, n)
 

@@ -12,7 +12,9 @@ its counterpart in `frenetix_tpu_torch.risk`:
   `meta_from_footprint`, `ObstacleMeta.from_obstacles`: rtol 1e-10;
 - `trajectory_risks` in four mode sets: rtol 1e-10 (absolute floor 1e-14 for
   the probability's cancellation);
-- chunking over candidates changes no bit;
+- chunking over candidates changes no bit; a CPU call builds and loads no
+  kernel, raises on mixed dtypes or devices before anything runs, and
+  counts every (agent, candidate, obstacle, step) cell it visits;
 - a planner cycle in which every candidate collides ends in min_risk and
   selects the JAX planner's index; `debug.log_risk` reports the same risks.
 """
@@ -27,11 +29,13 @@ from frenetix_tpu.ops.sampling import build_sampling_matrix
 from frenetix_tpu.risk import costs as jrc
 from frenetix_tpu.risk import harm as jharm
 from frenetix_tpu.risk import probability as jprob
+from frenetix_tpu_torch.ops import _kernels
 from frenetix_tpu_torch.ops.costs import PredictionTensors as TPreds
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
 from frenetix_tpu_torch.risk import costs as trc
 from frenetix_tpu_torch.risk import harm as tharm
 from frenetix_tpu_torch.risk import probability as tprob
+from frenetix_tpu_torch.utils import tracing
 from tests.torch_parity import CPU, curved_ref_np, t64, to_np, torch_rollout
 
 torch.set_num_threads(1)
@@ -136,6 +140,49 @@ def test_collision_probability_chunks_change_no_bit(risk_inputs, monkeypatch):
     monkeypatch.setattr(tprob, "_MAX_CELLS", 9 * 5 * (N - 1) * 7)   # 7 rows a chunk
     chunked, _ = tprob.collision_probability_fast(tro, tpreds, VehicleParams())
     np.testing.assert_array_equal(to_np(chunked), to_np(whole))
+
+
+def test_collision_probability_on_the_cpu_loads_no_kernel(risk_inputs, monkeypatch):
+    _, tro, _, tpreds = risk_inputs
+
+    def no_nvcc():
+        raise AssertionError("a CPU call must not build a kernel")
+    monkeypatch.setattr(_kernels, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_kernels, "_libraries", {})
+    launches = tprob.LAUNCHES
+    prob, _ = tprob.collision_probability_fast(tro, tpreds, VehicleParams())
+    assert float(prob.max()) > 0.05
+    assert "risk_quadrature" not in _kernels._libraries
+    assert tprob.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("fault", ["f32_predictions", "f32_rollout_field", "int_valid",
+                                   "other_device"])
+def test_collision_probability_checks_before_any_launch(risk_inputs, fault):
+    _, tro, _, tpreds = risk_inputs
+    if fault == "f32_predictions":
+        tpreds = tpreds._replace(**{f: getattr(tpreds, f).float() for f in (
+            "means", "covs", "orientations", "lengths")})
+    elif fault == "f32_rollout_field":
+        tro = tro._replace(theta_gl=tro.theta_gl.float())
+    elif fault == "int_valid":
+        tpreds = tpreds._replace(valid=tpreds.valid.to(torch.uint8))
+    else:
+        tpreds = tpreds._replace(means=tpreds.means.to("meta"))
+    with pytest.raises(ValueError if fault == "other_device" else TypeError):
+        tprob.collision_probability_fast(tro, tpreds, VehicleParams())
+
+
+def test_collision_probability_counts_every_cell(risk_inputs):
+    _, tro, _, tpreds = risk_inputs
+    stacked = type(tro)(*(torch.stack([v, v]) if torch.is_tensor(v) and v.dim() >= 2
+                          else v for v in tro))
+    preds2 = type(tpreds)(*(torch.stack([v, v]) for v in tpreds))
+    m, o = tro.x.shape[0], tpreds.num_obstacles
+    before = tracing.COUNTERS.get("risk.quadrature.cells", 0)
+    prob, t = tprob.collision_probability_fast(stacked, preds2, VehicleParams())
+    assert prob.shape == (2, m, o, t)
+    assert tracing.COUNTERS["risk.quadrature.cells"] - before == 2 * m * o * t
 
 
 def test_inv_mahalanobis_matches_jax(risk_inputs):

@@ -5,8 +5,8 @@
   it, and the host sampling matrix is `frenetix.sampling.matrix` and
   `.pad`; with tracing off the same profile holds no `frenetix.` event;
 - (b) a counter bumped in a compiled body counts per call as its eager
-  twin does, and a capture's record of host counters adds K1's launches and
-  the tracing counters at each replay;
+  twin does, and a capture's record of host counters adds K1's and Q's
+  launches and the tracing counters at each replay;
 - (c) on a small rollout with one obstacle slot near, one far and one
   invalid, `risk.quadrature.cells` and `risk.quadrature.useful` equal a
   plain NumPy count of the cells and of (gate ∧ valid), eager and compiled;
@@ -32,6 +32,7 @@ from frenetix_tpu_torch.ops import sampling
 from frenetix_tpu_torch.ops import table_interp
 from frenetix_tpu_torch.ops.costs import PredictionTensors
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
+from frenetix_tpu_torch.risk import probability
 from frenetix_tpu_torch.risk.probability import collision_probability_fast
 from frenetix_tpu_torch.utils import compiled as C
 from frenetix_tpu_torch.utils import tracing
@@ -131,14 +132,16 @@ def test_a_counter_in_a_compiled_body_counts_per_call_as_its_eager_twin():
     assert (tracing.COUNTERS["test.elements"], table_interp.LAUNCHES) == eager == (18, 0)
 
 
-def test_a_capture_record_adds_every_host_counter_at_each_replay():
+def test_a_capture_record_adds_every_host_counter_at_each_replay(monkeypatch):
     table_interp.reset_launches()
-    record = {C._K1: 2, "test.cells": 30}
+    monkeypatch.setattr(probability, "LAUNCHES", 0)
+    record = {C._K1: 2, C._Q: 1, "test.cells": 30}
     for _ in range(3):
         C._add(record)
     assert table_interp.LAUNCHES == 6
+    assert probability.LAUNCHES == 3
     assert tracing.COUNTERS["test.cells"] == 90
-    assert C._counters() == {C._K1: 6, "test.cells": 90}
+    assert C._counters() == {C._K1: 6, C._Q: 3, "test.cells": 90}
     table_interp.reset_launches()
 
 
