@@ -6,7 +6,9 @@ Each configuration, traffic mix, comparison limit and per-layer metric is a
 file of its own, found by the name BENCHMARK.json gives it
 (`configs/<config>.json`, `traffic/<traffic>.json`, `limits/<config>.json`,
 `metrics/<metric>.py`); a configuration names the entry that drives the
-program (`entries/<entry>.py`).  `reference/` is the plain reference the
+program (`entries/<entry>.py`), and may name a generator of its own
+(`generators/<name>.py`) and a check of its own (`checks/<name>.py`).
+`reference/` is the plain reference the
 answers are held to; nothing in this package imports JAX or the JAX
 package.
 """

@@ -30,14 +30,20 @@ def program_readings(workload, seed, seconds, device, bench):
 
 
 def control_readings(workload, seed, device, bench, dtype=torch.bfloat16):
+    """The numbers of the control: the reference in `dtype` answers the
+    sampled requests of the pool (the configuration's check's
+    `control_answer` where it has one), held as a run holds the program's."""
     cell = spec.cell(bench, workload)
     config, mix = spec.config(cell["config"]), spec.traffic(cell["traffic"])
-    lines, pool = generate.draw_pool(config, mix, seed)
-    checked = [(pool[k % len(pool)],
-                judge.reference_answer(config, lines, pool[k % len(pool)], dtype=dtype,
-                                       device=device))
-               for k in judge.sample(len(pool), config["check_requests"], seed)]
-    return judge.compare(config, lines, checked, device=device)
+    lines, pool = generate.pool_of(config, mix, seed)
+    answer = getattr(judge.check_of(config), "control_answer", judge.reference_answer)
+    numbers = dict.fromkeys(judge.numbers_of(config), 0.0)
+    for k in judge.sample(len(pool), config["check_requests"], seed):
+        req = pool[k % len(pool)]
+        judge.fold(numbers, judge.compare_one(
+            config, lines, req, answer(config, lines, req, dtype=dtype, device=device),
+            device=device))
+    return numbers
 
 
 def main(argv=None) -> int:

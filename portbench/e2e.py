@@ -8,13 +8,15 @@ import numpy as np
 
 
 def cycle_ms_p95(window) -> float:
-    """95th percentile of every request's latency, host clock, in ms."""
-    return float(np.percentile(np.asarray(window.latencies_s) * 1e3, 95))
+    """95th percentile over every request of its latency, host clock, in ms,
+    over its planning cycles (a request of many cycles gives its mean
+    cycle time; one of one cycle, its latency)."""
+    return float(np.percentile(np.asarray(window.latencies_s) * 1e3 / window.cycles, 95))
 
 
 def cand_evals_per_s(window) -> float:
-    """Real (unpadded) candidates of all completed requests over the
-    window's seconds."""
+    """Real (unpadded) candidates of all completed requests, over all their
+    cycles, over the window's seconds."""
     return window.candidates * len(window.latencies_s) / window.seconds
 
 

@@ -1,5 +1,7 @@
-"""The one traffic generator: a configuration and a traffic mix's
+"""The general traffic generator: a configuration and a traffic mix's
 parameters → the road and a pool of replanning requests, from the seed.
+A configuration that names a `generator` draws its pool with
+`generators/<name>.py` instead (`pool_of`).
 
 Everything is plain NumPy.  The road follows `frenetix_tpu_torch/
 workloads.py` (commit eab69ff): `dense_cycle_problem`'s 60° arc of radius
@@ -26,6 +28,8 @@ again.  A traffic mix (`traffic/<name>.json`) holds:
   `half_angle_deg`, `margin_m`, `speed_margin_mps`.
 """
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 
@@ -185,3 +189,13 @@ def draw_pool(config, mix, seed: int):
             req["grid_valid"] = req["obstacle_valid"].copy()
         pool.append(req)
     return lines, pool
+
+
+def pool_of(config, mix, seed: int):
+    """(lines, pool) of a cell: `generators/<name>.py::draw_pool(config,
+    mix, seed)` where the configuration names a `generator`, else
+    `draw_pool` above."""
+    name = config.get("generator")
+    if name is None:
+        return draw_pool(config, mix, seed)
+    return importlib.import_module(f"portbench.generators.{name}").draw_pool(config, mix, seed)

@@ -32,10 +32,13 @@ Where the configuration weights responsibility, also per checked request:
 
 Each number is the largest over all checked agents (requests) and is held
 to the limit in `limits/<config>.json`; the numbers of a configuration are
-those its limits file names.
+those its limits file names.  A configuration that names a `check` is held
+by `checks/<name>.py` instead (`compare_one`), to the numbers that module
+lists; a limits file that names any other number is refused.
 """
 from __future__ import annotations
 
+import importlib
 import json
 from pathlib import Path
 
@@ -54,10 +57,32 @@ _S_VEL = 7                         # s_vel in the reference's row order
 _POSITION_ROWS = (0, 1, 6, 9)      # x, y, s, d in the program's row order
 
 
-def limits(config_name: str) -> dict:
-    path = Path(__file__).resolve().parent / "limits" / f"{config_name}.json"
-    data = json.loads(path.read_text())
-    return {k: float(data[k]) for k in NUMBERS if k in data}
+def check_of(config):
+    """The module of the configuration's own `check`, or None."""
+    name = config.get("check")
+    return None if name is None else importlib.import_module(f"portbench.checks.{name}")
+
+
+def numbers_of(config) -> tuple:
+    """The names of the numbers the configuration's comparison computes."""
+    check = check_of(config)
+    return NUMBERS if check is None else tuple(check.NUMBERS)
+
+
+def limits(config_name: str, config=None) -> dict:
+    """The limits file of `config_name`, in the order of its numbers; a key
+    that names no number of the configuration's comparison raises.
+    `config` defaults to the configuration's file."""
+    here = Path(__file__).resolve().parent
+    if config is None:
+        config = json.loads((here / "configs" / f"{config_name}.json").read_text())
+    data = json.loads((here / "limits" / f"{config_name}.json").read_text())
+    names = numbers_of(config)
+    unknown = sorted(set(data) - set(names))
+    if unknown:
+        raise ValueError(f"limits/{config_name}.json names {unknown}, which the "
+                         f"comparison of {config_name!r} does not compute: {list(names)}")
+    return {k: float(data[k]) for k in names if k in data}
 
 
 def sample(n_done: int, k: int, seed: int) -> list[int]:
@@ -110,6 +135,27 @@ def compare(config, lines, checked, *, device) -> dict:
                                       abs(float(ans["cost"][a]) - cost[b])
                                       / max(abs(cost[b]), 1.0))
     return {k: float(v) for k, v in out.items()}
+
+
+def compare_one(config, lines, req, ans, *, device) -> dict:
+    """The numbers of one sampled answer: the configuration's own check,
+    or `compare` above."""
+    check = check_of(config)
+    if check is None:
+        return compare(config, lines, [(req, ans)], device=device)
+    got = check.compare(config, lines, req, ans, device=device)
+    missing = sorted(set(check.NUMBERS) - set(got))
+    if missing:
+        raise ValueError(f"check {config['check']!r} computed no {missing}")
+    return {k: float(v) for k, v in got.items()}
+
+
+def fold(numbers: dict, got: dict) -> None:
+    """Fold one answer's numbers `got` into `numbers`: `found_mismatch` is
+    summed, every other number takes the largest."""
+    for name, v in got.items():
+        numbers[name] = (numbers.get(name, 0.0) + v if name == "found_mismatch"
+                         else max(numbers.get(name, 0.0), v))
 
 
 def _resp_err_rel(ans, ref) -> float:

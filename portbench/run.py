@@ -7,7 +7,8 @@ the seed (plain NumPy), builds the program's inputs that stay (the road),
 and warms up every program the cell's requests use.  The window then sends
 the pool's requests in order, each when the last has returned (one client,
 closed loop), for `--seconds`.  After it, the answers of a sample of
-requests drawn from the seed are held against the plain reference.
+requests drawn from the seed are held against the plain reference (by the
+configuration's own check, where it names one).
 
 With `--trace 0` the result's metrics are the cell's end-to-end metrics;
 with `--trace 1` its per-layer metrics, read from `torch.profiler` over a
@@ -57,7 +58,8 @@ def forbidden_modules() -> list[str]:
 @dataclass
 class Window:
     setup_s: float
-    candidates: int
+    candidates: int                 # real candidates per request
+    cycles: int = 1                 # planning cycles per request
     latencies_s: list = field(default_factory=list)
     answers: list = field(default_factory=list)
     seconds: float = 0.0
@@ -95,7 +97,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
 
     clock = setup_from or process_age_s
     phases = {"imports": clock()}
-    lines, pool = generate.draw_pool(config, mix, seed)
+    lines, pool = generate.pool_of(config, mix, seed)
     phases["pool"] = clock()
     entry = entries.load(config["entry"]).Entry(config, lines, device, tracing=traced)
     prepared = [entry.prepare(r) for r in pool]
@@ -106,7 +108,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
         phases[f"warmup_{i}"] = clock()
     gc.collect()
     window = Window(setup_s=clock(),
-                    candidates=config["agents"] * config["candidates_per_agent"])
+                    candidates=getattr(entry, "candidates",
+                                       config["agents"] * config["candidates_per_agent"]),
+                    cycles=getattr(entry, "cycles", 1))
 
     run = Run(entry=entry, k1_shape=entry.k1_shape, captures=0)
     first, count = config["trace_after_requests"], config["trace_requests"]
@@ -160,17 +164,14 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    lims = judge.limits(cell["config"])
+    lims = judge.limits(cell["config"], config)
     picks = judge.sample(len(window.answers), config["check_requests"], seed)
-    numbers, failed = dict.fromkeys(judge.NUMBERS, 0.0), 0
+    numbers, failed = dict.fromkeys(judge.numbers_of(config), 0.0), 0
     for k in picks:
-        got = judge.compare(config, lines, [(pool[k % len(pool)],
-                                             entry.answer(window.answers[k]))],
-                            device=device)
+        got = judge.compare_one(config, lines, pool[k % len(pool)],
+                                entry.answer(window.answers[k]), device=device)
         failed += not judge.verdict(got, lims)
-        for name, v in got.items():
-            numbers[name] = (numbers[name] + v if name == "found_mismatch"
-                             else max(numbers[name], v))
+        judge.fold(numbers, got)
 
     lat = np.asarray(window.latencies_s) * 1e3
     found = np.concatenate([entry.answer(a)["found"] for a in window.answers[:len(pool)]])
@@ -187,7 +188,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
     }
     if sl is not None:
         result["breakdown"] = {"device_ops": sl.top_ops(), "idle_gaps": sl.idle_by_host()}
-    return result, [(k, numbers[k], lims[k]) for k in judge.NUMBERS if k in lims], window
+    return result, [(k, numbers[k], lims[k]) for k in lims], window
 
 
 def _unit(bench, name):

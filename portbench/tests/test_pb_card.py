@@ -9,7 +9,7 @@ import torch
 
 from portbench import calibrate, judge, spec
 
-CELLS = ("ego_dense.sweep", "convoy8_risk.near", "convoy8_risk.open")
+CELLS = ("ego_dense.sweep", "convoy8_risk.near", "convoy8_risk.open", "convoy8.plain")
 
 
 @pytest.fixture

@@ -8,7 +8,7 @@ import pytest
 from portbench import generate, reference
 from portbench.tests.conftest import tiny
 
-CELLS = ("ego_dense.sweep", "convoy8_risk.near", "convoy8_risk.open")
+CELLS = ("ego_dense.sweep", "convoy8_risk.near", "convoy8_risk.open", "convoy8.plain")
 LARGE_SEED = 2 ** 33 + 12_345
 
 

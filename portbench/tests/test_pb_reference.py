@@ -15,7 +15,7 @@ from frenetix_tpu_torch.risk import probability
 from portbench import entries, generate, judge, run
 from portbench.tests.conftest import tiny
 
-CELLS = ("ego_dense.sweep", "convoy8_risk.near", "convoy8_risk.open")
+CELLS = ("ego_dense.sweep", "convoy8_risk.near", "convoy8_risk.open", "convoy8.plain")
 
 
 def _run(workload, cpu, seed=2 ** 31 + 77, seconds=0.3):
@@ -34,7 +34,7 @@ def test_port_matches_reference(workload, cpu):
         assert value <= limit, (name, value, limit)
 
 
-@pytest.mark.parametrize("workload", ("ego_dense.sweep", "convoy8_risk.near"))
+@pytest.mark.parametrize("workload", ("ego_dense.sweep", "convoy8_risk.near", "convoy8.plain"))
 def test_control_in_bfloat16_is_not_correct(workload, cpu):
     config, mix = tiny(workload)
     lines, pool = generate.draw_pool(config, mix, 13)
@@ -82,6 +82,7 @@ def _half_batch(request):
 @pytest.mark.parametrize("workload,fault", [
     ("ego_dense.sweep", _stale), ("ego_dense.sweep", _altered),
     ("convoy8_risk.near", _altered), ("convoy8_risk.near", _half_batch),
+    ("convoy8.plain", _stale), ("convoy8.plain", _altered), ("convoy8.plain", _half_batch),
 ])
 def test_planted_fault_is_not_correct(workload, fault, cpu, monkeypatch):
     config, _ = tiny(workload)

@@ -12,7 +12,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import e2e, entries, metrics, spec
+from portbench import e2e, entries, judge, metrics, spec
 
 ROOT = spec.ROOT
 KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end",
@@ -40,6 +40,12 @@ def test_keys_and_limits_of_the_file():
         assert w["chips"] == 1 and len(w["why"]) <= 200
         reported = spec.metrics_of(bench, w["name"], "per_layer")
         assert reported and len(spec.metrics_of(bench, w["name"], "end_to_end")) >= 2
+    for c in bench["configs"]:                   # the optional keys, and the limits
+        config = spec.config(c["name"])
+        for key in ("generator", "check"):
+            assert config.get(key) is None or spec.NAME.match(config[key])
+        lims = judge.limits(c["name"])             # raises on a number not computed
+        assert list(lims) == [n for n in judge.numbers_of(config) if n in lims] != []
 
 
 @pytest.mark.parametrize("name,ok", [
@@ -68,6 +74,12 @@ def test_every_name_is_a_file():
         assert config["reduced"] == c["reduced"] == []
         assert entries.load(config["entry"]).Entry
         assert (spec.HERE / "limits" / f"{c['name']}.json").is_file()
+        if "generator" in config:
+            assert (spec.HERE / "generators" / f"{config['generator']}.py").is_file()
+        if "check" in config:
+            assert (spec.HERE / "checks" / f"{config['check']}.py").is_file()
+            check = judge.check_of(config)
+            assert check.NUMBERS and callable(check.compare)
     for w in bench["workloads"]:
         assert spec.traffic(w["traffic"])["pool_requests"] > 0
     for m in bench["per_layer"]:
