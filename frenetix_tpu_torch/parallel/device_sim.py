@@ -12,7 +12,8 @@ run stays on the device:
            both kinematics modes and at every densification level → the
            emergency ladder → `replanning_frequency` executed sub-steps with
            the status ladder and the in-order collision sweep
-    fetch: ONE device→host copy of statuses, trajectories and selections.
+    fetch: ONE device→host copy of statuses, trajectories, selections and
+           the selected candidates' costs.
 
 The JAX package compiles the body into a `lax.scan`.  Here the body is a
 plain function that only enqueues work: it reads no tensor on the host, so
@@ -35,6 +36,22 @@ captured) × (replays), or the counter's own difference for an eager run.
 
 A fleet (`run_fleet`) pads every member to the fleet's maxima with inert
 rows and runs the same body over one more leading axis, (S, A, ...).
+
+A captured run serves further scenarios of the same statics and shapes:
+`share_runner(sims)` gives every member one runner (its buffers hold the
+window slots any member fills), and a member's `run()` copies its own
+inputs into the buffers (`_Runner.load`) before the replays, so a service
+that simulates one scenario after another captures once.  The result is
+bitwise that of the member's own fresh run.
+
+Tracing (`utils.tracing`): the spans `frenetix.device_sim.load`, `.reset`,
+`.capture`, `.replay` (the loop of a run's cycles), `.fetch` and
+`.finalize`; the device span `frenetix.device_sim.cycles`, two timing
+events on the stream around that loop; the counters `device_sim.cycles`
+(cycles driven), `.captures`, `.fetches` (as `FETCHES`) and `.programs`
+(K1 launches of each captured cycle).  A runner captures again when
+tracing was switched since its capture, so no graph keeps the other
+state's nodes.
 
 The behavior planner runs in one of two ways.  Where
 `behavior.device_fsm.build_fsm_tensors` supports the scenario (and
@@ -136,8 +153,10 @@ from frenetix_tpu_torch.sim.prediction import ground_truth_predictions
 from frenetix_tpu_torch.sim.visible_area import (
     obb_segments_batch, polar_visibility_batch, road_boundary_segments,
 )
+from frenetix_tpu_torch.utils import tracing
 
-__all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet"]
+__all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet",
+           "share_runner"]
 
 # AgentStatus values as plain ints: the status carry is an int32 tensor
 _RUNNING, _SUCCESS, _TIMELIMIT, _COLLISION, _ERROR = 1, 2, 3, 4, 5
@@ -206,13 +225,14 @@ class SimTensors:
     turn_hot: object = None        # (A, R2) |κ| above the threshold
 
     def to(self, device, dtype) -> "SimTensors":
-        """The same structure as tensors on `device`: floats as `dtype`,
-        masks bool, counters int32."""
+        """The same structure as fresh tensors on `device` (never views of
+        the host arrays: a runner loads other inputs into them): floats as
+        `dtype`, masks bool, counters int32."""
         def leaf(a):
             a = np.require(a, requirements="C")     # keeps a 0-d leaf 0-d
             if a.dtype.kind == "f":
-                return torch.as_tensor(a, dtype=dtype, device=device)
-            return torch.as_tensor(a, device=device)
+                return torch.tensor(a, dtype=dtype, device=device)
+            return torch.tensor(a, device=device)
 
         return _map_leaves(leaf, self)
 
@@ -247,6 +267,7 @@ class DeviceSimResult:
     status_per_step: np.ndarray   # (T, A)
     selections: np.ndarray        # (C, A, 3): chosen (t1, ss1_target, d1)
     found: np.ndarray             # (C, A) bool
+    costs: np.ndarray             # (C, A): the chosen candidate's cost
     wall_time: float = 0.0
     extras: dict = field(default_factory=dict)
 
@@ -581,7 +602,8 @@ def select_with_fallback(res, matrix, mask, d0, emergency: str, risks=None,
     candidate in the order of `stopping_rank_key`, with "min_risk" the
     feasible candidate of lowest ego + obstacle risk; first index on ties.
     Returns the selected candidate's state rows (..., N+1), `found`, `fb_ok`
-    (the ladder had a feasible candidate), `best` and `sel` (t1, ṡ1, d1).
+    (the ladder had a feasible candidate), `best`, `sel` (t1, ṡ1, d1) and
+    `cost` (its cost).
 
     With `emit_margins` also the selection's knife edge, from the program's
     own masked cost vector: `margin_gap` (second best − best, inf with fewer
@@ -602,7 +624,8 @@ def select_with_fallback(res, matrix, mask, d0, emergency: str, risks=None,
     params = _gather_rows(matrix, idx)
     out.update(found=res.found, fb_ok=torch.any(feas, dim=-1), best=idx,
                sel=torch.stack([params[..., 1], params[..., 5], params[..., 10]],
-                               dim=-1))
+                               dim=-1),
+               cost=torch.gather(res.cost, -1, idx[..., None])[..., 0])
     if emit_margins:
         inf = torch.full_like(res.cost, torch.inf)
         top2 = -torch.topk(-torch.where(res.selectable, res.cost, inf), 2, dim=-1).values
@@ -851,7 +874,8 @@ class _Runner:
     (`select_with_fallback`) into (C, ..., A) output buffers that the one
     fetch brings back.  `load` copies another input set of the same shapes
     into the input buffers (a fleet's next chunk, restacked tables), `run`
-    resets the carry, drives `n_cycles` cycles and fetches once."""
+    resets the carry, drives `n_cycles` cycles and fetches once.  `loaded`
+    is the DeviceSimulation whose inputs the buffers hold."""
 
     def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int,
                  hybrid: bool = False, hybrid_pred: bool = False, keep=None,
@@ -914,6 +938,7 @@ class _Runner:
             status_steps=buf((c_n,) + lead + (k, a_n), torch.int32),
             sel=buf((c_n,) + lead + (a_n, 3)),
             found=buf((c_n,) + lead + (a_n,), torch.bool),
+            cost=buf((c_n,) + lead + (a_n,)),
             x_cl=buf((c_n,) + lead + (a_n, 6)),
         )
         self.emit_margins = bool(emit_margins)
@@ -934,6 +959,8 @@ class _Runner:
         self.graph = None
         self.k1_per_cycle = None
         self.capture_s = 0.0
+        self.traced = None        # tracing's state at the capture
+        self.loaded = proto
 
     # ------------------------------------------------------------- buffers
     def _buffers(self) -> list:
@@ -1216,6 +1243,7 @@ class _Runner:
         o["status_steps"].index_copy_(0, c, torch.stack(status_steps, dim=nl)[None])
         o["sel"].index_copy_(0, c, out["sel"][None])
         o["found"].index_copy_(0, c, found[None])
+        o["cost"].index_copy_(0, c, out["cost"][None])
         o["x_cl"].index_copy_(0, c, x_cl_replan[None])
         for name in MARGINS if self.emit_margins else ():
             o[name].index_copy_(0, c, out[name][None])
@@ -1365,21 +1393,25 @@ class _Runner:
         middle of a hybrid run."""
         t_start = time.perf_counter()
         dev = self.device
-        saved = [b.clone() for b in self._buffers()]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for b, s in zip(self._buffers(), saved):
-            b.copy_(s)
-        before = table_interp.LAUNCHES
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.step()
+        with tracing.span("frenetix.device_sim.capture"):
+            saved = [b.clone() for b in self._buffers()]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            for b, s in zip(self._buffers(), saved):
+                b.copy_(s)
+            before = table_interp.LAUNCHES
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.step()
         self.k1_per_cycle = table_interp.LAUNCHES - before
         self.graph = graph
+        self.traced = tracing.enabled()
         self.capture_s = time.perf_counter() - t_start
+        tracing.count("device_sim.captures", 1)
+        tracing.count("device_sim.programs", self.k1_per_cycle)
 
     def advance(self, use_graph: bool) -> None:
         """One cycle: a replay of the captured body (captured at the first
@@ -1408,6 +1440,7 @@ class _Runner:
         # statuses are small integers: exact in float32
         host = torch.cat([t.to(self.dtype).reshape(-1) for t in parts]).cpu().numpy()
         FETCHES += 1
+        tracing.count("device_sim.fetches", 1)
         out, pos = {}, 0
         for n, t in zip(names, parts):
             out[n] = host[pos:pos + t.numel()].reshape(tuple(t.shape))
@@ -1424,7 +1457,7 @@ class _Runner:
         global FETCHES
         margins = MARGINS if self.emit_margins else ()
         parts = [self.state["status"], *(self.out[n] for n in (
-            "traj", "status_steps", "sel", "found", "x_cl"))]
+            "traj", "status_steps", "sel", "found", "x_cl", "cost"))]
         parts += [self.out[n] for n in margins]
         if self.use_fsm:
             parts.append(self.fsm_state.bail)
@@ -1432,17 +1465,22 @@ class _Runner:
         packed = torch.cat([t.to(self.dtype).reshape(-1) for t in parts])
         host = packed.cpu().numpy()
         FETCHES += 1
+        tracing.count("device_sim.fetches", 1)
         arrays, pos = [], 0
         for t in parts:
             arrays.append(host[pos:pos + t.numel()].reshape(tuple(t.shape)))
             pos += t.numel()
-        status, traj, status_steps, sel, found, x_cl = arrays[:6]
+        status, traj, status_steps, sel, found, x_cl, cost = arrays[:7]
         out = dict(final_status=status.astype(np.int32), trajectories=traj,
                    status_per_step=status_steps.astype(np.int32), selections=sel,
-                   found=found != 0, x_cl_cycles=x_cl)
-        out.update(zip(margins, arrays[6:6 + len(margins)]))
+                   found=found != 0, x_cl_cycles=x_cl, costs=cost)
+        out.update(zip(margins, arrays[7:7 + len(margins)]))
         out["bail"] = (arrays[-1] != 0) if self.use_fsm else np.zeros(self.lead, bool)
         return out
+
+    def needs_capture(self) -> bool:
+        """No graph yet, or tracing was switched since the capture."""
+        return self.graph is None or self.traced != tracing.enabled()
 
     def run(self, graph: bool = True, sync_debug: bool = False) -> dict:
         """Drive the whole run and fetch once.  Returns the host arrays
@@ -1455,20 +1493,25 @@ class _Runner:
             guard = torch.cuda.device(self.device)
         with torch.no_grad(), guard:
             capture_s = 0.0
-            if use_graph and self.graph is None:
+            if use_graph and self.needs_capture():
                 self.reset()          # the warm-up runs on the run's inputs
                 self._capture()
                 capture_s = self.capture_s
-            self.reset()
+            with tracing.span("frenetix.device_sim.reset"):
+                self.reset()
             before = table_interp.LAUNCHES
-            with _no_sync_allowed(sync_debug and self.device.type == "cuda"):
+            with _no_sync_allowed(sync_debug and self.device.type == "cuda"), \
+                    tracing.span("frenetix.device_sim.replay"), \
+                    tracing.stream_span("frenetix.device_sim.cycles", self.device):
                 for _ in range(self.n_cycles):
                     self.advance(use_graph)
+            tracing.count("device_sim.cycles", self.n_cycles)
             if use_graph:
                 k1_launches = self.k1_per_cycle * self.n_cycles
             else:
                 k1_launches = table_interp.LAUNCHES - before
-            out = self.fetch_outputs()
+            with tracing.span("frenetix.device_sim.fetch"):
+                out = self.fetch_outputs()
         out.update(k1_launches=int(k1_launches), graph=use_graph, capture_s=capture_s)
         return out
 
@@ -1503,6 +1546,7 @@ def _member_arrays(out: dict, member=None) -> dict:
         status_per_step=sps.reshape((-1,) + sps.shape[2:]),
         selections=pick(out["selections"], 1),
         found=pick(out["found"], 1),
+        costs=pick(out["costs"], 1),
         x_cl_cycles=pick(out["x_cl_cycles"], 1),
         **{name: pick(out[name], 1) for name in MARGINS if name in out},
     )
@@ -1810,6 +1854,11 @@ class DeviceSimulation:
                 if self._runner is None:
                     self._runner = _Runner(self, self.tensors, self.n_cycles)
                 runner = self._runner
+                if runner.loaded is not self:
+                    # a runner shared with other scenarios (`share_runner`)
+                    with tracing.span("frenetix.device_sim.load"):
+                        runner.load(self.tensors)
+                    runner.loaded = self
             out = runner.run(graph=graph, sync_debug=sync_debug)
             if out["bail"]:
                 # the in-run FSM wanted to overtake, which only the host FSM
@@ -1818,7 +1867,8 @@ class DeviceSimulation:
                 res = _drive_hybrid([self], graph=graph)[0]
                 res.extras["bailed"] = True
             else:
-                res = self._finalize(_member_arrays(out), out)
+                with tracing.span("frenetix.device_sim.finalize"):
+                    res = self._finalize(_member_arrays(out), out)
         res.wall_time = time.perf_counter() - t_start
         return res
 
@@ -1839,7 +1889,7 @@ class DeviceSimulation:
             agent_ids=[a.id for a in self.agents], status=status, steps=steps,
             trajectories=traj, status_per_step=sps,
             selections=arrays["selections"][:c_n, :a_n],
-            found=arrays["found"][:c_n, :a_n],
+            found=arrays["found"][:c_n, :a_n], costs=arrays["costs"][:c_n, :a_n],
             extras={"x_cl_cycles": arrays["x_cl_cycles"][:c_n, :a_n],
                     **{k: arrays[k][:c_n, :a_n] for k in MARGINS if k in arrays},
                     **{k: facts[k] for k in ("k1_launches", "graph", "capture_s",
@@ -2179,6 +2229,38 @@ def _fleet_dims(sims, use_fsm: bool = False) -> dict:
             t1_max=top(lambda g: g.fsm.ob_pos.shape[0]),
             c_max=dims["c"])
     return dims
+
+
+def _leaf_shapes(g: SimTensors) -> tuple:
+    """The shape and kind of every leaf of `g`, in field order."""
+    shapes = []
+    _map_leaves(lambda x: shapes.append((np.shape(x), np.asarray(x).dtype.kind)), g)
+    return tuple(shapes)
+
+
+def share_runner(sims: list) -> None:
+    """Give every simulation of `sims` one runner, so that one capture serves
+    all their runs: a member's `run()` copies its own inputs into the shared
+    buffers and replays (`_Runner.load`), with a result bitwise equal to its
+    own fresh run.  The buffers hold the window slots any member fills.
+
+    The members must share the statics (`DeviceSimulation.statics`), the
+    mesh and the buffers' shapes (agents, cycles, table rows, obstacles,
+    goal rings, bank width), and run on the run's own path (not the hybrid
+    one); otherwise ValueError."""
+    base = sims[0]
+    for s in sims:
+        if s.statics != base.statics or s.mesh is not base.mesh:
+            raise ValueError("a shared runner needs the members' statics and mesh equal")
+        if s.hybrid_pred or (s.hybrid_behavior and not s.fsm_in_scan):
+            raise ValueError(f"a shared runner does not take the hybrid path ({s.fsm_reason})")
+    keep = _kept_slots(*(s.tensors for s in sims))
+    shapes = {(s.n_cycles, _leaf_shapes(_trim_slots(s.tensors, keep))) for s in sims}
+    if len(shapes) > 1:
+        raise ValueError("a shared runner needs the members' cycles and input shapes equal")
+    runner = _Runner(base, base.tensors, base.n_cycles, keep=keep)
+    for s in sims:
+        s._runner = runner
 
 
 def _fleet_stack(sims, dims=None, use_fsm: bool = False) -> SimTensors:

@@ -2,8 +2,9 @@
 
 Tracing is off by default; `enable()` / `disable()` switch it, and
 `with on():` turns it on for a block.  A switch drops every compiled entry
-(`utils.compiled.clear_all`), so no CUDA graph keeps the event or counter
-nodes of the other state.
+(`utils.compiled.clear_all`), and the device-resident run captures again
+at its next run, so no CUDA graph keeps the event or counter nodes of the
+other state.
 
 - `span(name)`: with tracing on, `torch.profiler.record_function(name)`,
   so a program span lands in the profiler's event stream beside CUPTI's
@@ -16,6 +17,10 @@ nodes of the other state.
   span's total, which waits for that replay's end where it has not
   finished.  Elsewhere it is a plain `span`: eager device work is timed by
   the profiler's device trace.
+- `stream_span(name, device)`: with tracing on, the device time of the
+  work the block enqueues on the device's current stream, from a pair of
+  timing events recorded around it; the host does not wait for them, they
+  are read in `snapshot()`.  Off the card, a plain `span`.
 - `count(name, n)`: adds to a host counter, always on (as
   `ops.table_interp.LAUNCHES`).  A compiled entry records what its capture
   counted and adds it at each replay, so a compiled path counts what its
@@ -30,9 +35,11 @@ nodes of the other state.
   host counters and the device counters; `reset()` clears them.
 
 Spans: `frenetix.compiled` (with `.key`, `.copy_in`, `.replay`, `.own`),
-`frenetix.sampling.matrix` and `.pad`; device span
-`frenetix.risk.quadrature`.  Counters: `risk.quadrature.cells` (host) and
-`risk.quadrature.useful` (device).
+`frenetix.sampling.matrix` and `.pad`, `frenetix.device_sim.load`,
+`.reset`, `.capture`, `.replay`, `.fetch` and `.finalize`; device spans
+`frenetix.risk.quadrature` and `frenetix.device_sim.cycles`.  Counters:
+`risk.quadrature.cells` (host) and `risk.quadrature.useful` (device),
+`device_sim.cycles`, `.captures`, `.fetches` and `.programs` (host).
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ import threading
 import torch
 
 __all__ = ["COUNTERS", "enable", "disable", "enabled", "on", "span", "device_span",
-           "count", "device_count", "snapshot", "reset"]
+           "stream_span", "count", "device_count", "snapshot", "reset"]
 
 # host counters, name → count (always on)
 COUNTERS: dict = {}
@@ -125,6 +132,26 @@ def device_span(name: str):
     if spans is not None and _capturing():
         return _recorded(name, spans)
     return span(name)
+
+
+@contextlib.contextmanager
+def _on_stream(name: str):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    DeviceSpans([(name, start, end)]).replayed()
+
+
+def stream_span(name: str, device) -> object:
+    """Device time of the work the block enqueues on `device`'s current
+    stream, with tracing on (see the module's doc)."""
+    if not _ENABLED:
+        return _NOOP
+    if torch.device(device).type != "cuda" or _capturing():
+        return span(name)
+    return _on_stream(name)
 
 
 def count(name: str, n: int) -> None:
