@@ -410,14 +410,14 @@ def phase_device():
 
 
 def phase_build():
-    for what, name in (("K1", "table_interp"), ("Q", "risk_quadrature")):
+    for what, name in (("K1", "table_interp"), ("K2", "rollout"), ("Q", "risk_quadrature")):
         t0 = time.perf_counter()
         _kernels.load_library(name)
         info = _kernels.build_info(name)
         phase(2, f"{what} built={info['built']} nvcc_s={info['seconds']:.2f} "
                  f"load_s={time.perf_counter() - t0:.2f} lib={info['library']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -3216,6 +3216,295 @@ def phase_quadrature(dev, smi, floor_ms):
     return results, n_launches
 
 
+K2_SOURCE = "frenetix_tpu_torch/csrc/rollout.cu"
+# the Rollout's (..., M, N+1) fields besides K1's extra columns
+ROLLOUT_FIELDS = 14
+
+
+def k2_bytes(n_rows, n1, n_extra, itemsize):
+    """(floor, design) bytes of one rollout of `n_rows` candidates: the floor
+    reads the (M, 13) matrix once and writes the fourteen (M, N+1) fields,
+    the 12 coefficients, traj_len, the 11 slots, feasible and valid once;
+    the design adds the matrix's second read (K2b), K1's rows and factors
+    (written by K2a, read by K1), K1's (5 + K) columns (written) and K1's
+    five columns that K2b reads back; the (A·R, C) table is left out (a
+    few hundred KB, in L2)."""
+    p = n_rows * n1
+    per_row = 12 * itemsize + 4 + 11 + 2
+    floor = n_rows * 13 * itemsize + ROLLOUT_FIELDS * p * itemsize + n_rows * per_row
+    design = (floor + n_rows * 13 * itemsize + 2 * p * (4 + itemsize)
+              + (5 + n_extra) * p * itemsize + 5 * p * itemsize)
+    return floor, design
+
+
+@contextlib.contextmanager
+def _plain_spy():
+    """Yields a one-element list that counts the calls of
+    `ops.kinematics.rollout_candidates_plain` given CUDA tensors while the
+    block runs (the main paths must make none)."""
+    from frenetix_tpu_torch.ops import kinematics
+
+    cuda_calls, original = [0], kinematics.rollout_candidates_plain
+
+    def spy(matrix, *args, **kw):
+        cuda_calls[0] += matrix.device.type == "cuda"
+        return original(matrix, *args, **kw)
+
+    kinematics.rollout_candidates_plain = spy
+    try:
+        yield cuda_calls
+    finally:
+        kinematics.rollout_candidates_plain = original
+
+
+@contextlib.contextmanager
+def _rollout_twin_in_programs():
+    """The programs' rollout as the plain twin (the parent's), to count and
+    time them as they were: `planner.core`'s name is rebound, compiled
+    entries are dropped on the way in and out."""
+    from frenetix_tpu_torch.ops import kinematics
+    from frenetix_tpu_torch.planner import core
+
+    compiled.clear_all()
+    core.rollout_candidates = kinematics.rollout_candidates_plain
+    try:
+        yield
+    finally:
+        core.rollout_candidates = kinematics.rollout_candidates
+        compiled.clear_all()
+
+
+def _kernels_per_call(fn, calls, units=1):
+    """(kernels, device busy ms) per unit of `calls` calls of `fn` under
+    `torch.profiler`, after 3 warm-up calls; one call does `units` units."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    n = calls * units
+    return len(events) / n, sum(ev.device_time for ev in events) / 1e3 / n
+
+
+class _Recorded(Exception):
+    """Ends an eager run once the rollouts wanted are recorded."""
+
+
+def _recorded_rollouts(ds, n):
+    """The arguments of the first `n` rollouts of an eager run of `ds` (the
+    run is abandoned after them)."""
+    from frenetix_tpu_torch.planner import core
+
+    calls, original = [], core.rollout_candidates
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        if len(calls) == n:
+            raise _Recorded
+        return original(*args, **kw)
+
+    core.rollout_candidates = recording
+    try:
+        ds.run(graph=False)
+    except _Recorded:
+        pass
+    finally:
+        core.rollout_candidates = original
+    return calls
+
+
+def _k2_paths(dev, smi, spy):
+    """(c): K2's launches on every main path against its rollouts, and K1's."""
+    from frenetix_tpu_torch.ops import rollout_kernel
+
+    counts = {}
+
+    def counted(path, fn, rollouts, facts=None):
+        """Run `fn`; its K2 launches (a replayed run's own figures, read by
+        `facts` from what `fn` returned) must equal `rollouts`."""
+        k1, k2 = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
+        out = fn()
+        torch.cuda.synchronize()
+        n1, n2 = table_interp.LAUNCHES - k1, rollout_kernel.LAUNCHES - k2
+        if facts is not None:
+            n1, n2 = facts(out)["k1_launches"], facts(out)["k2_launches"]
+        want = rollouts(out) if callable(rollouts) else rollouts
+        check(n2 == want and n2 > 0,
+              f"{path}: {n2} K2 launches for {want} rollouts (K1 {n1})")
+        counts[path] = dict(k2=n2, k1=n1, rollouts=want)
+        return out
+
+    # the dense cycle, compiled: its replays
+    matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, torch.float32)
+    compiled.clear_all()
+    evaluate_cycle(matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False)
+    counted("dense cycle, 5 replays", lambda: [evaluate_cycle(
+        matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False)
+        for _ in range(5)], 5)
+    # the host planner (planner/reactive.py): one rollout per evaluate_cycle
+    calls = [0]
+    original = reactive.evaluate_cycle
+
+    def counting(*args, **kw):
+        calls[0] += 1
+        return original(*args, **kw)
+
+    reactive.evaluate_cycle = counting
+    try:
+        sim = _phase20_sim(dev)
+        sim.max_steps = 30
+        counted("host planner, highway 30 steps", sim.run, lambda out: calls[0])
+    finally:
+        reactive.evaluate_cycle = original
+    # the batched cycle (mesh.batched_full_cycle), compiled, and its eager body
+    matrices, masks, ctx_b, _, dt, n_steps = stacked_cycle_problem(
+        A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+    fn = batched_full_cycle(dt=dt, n_steps=n_steps)
+    fn(matrices, masks, ctx_b)
+    counted("batched cycle, 5 replays", lambda: [fn(matrices, masks, ctx_b)
+                                                 for _ in range(5)], 5)
+    with compiled.disable_compiled():
+        counted("batched cycle, eager", lambda: fn(matrices, masks, ctx_b), 1)
+    # the sharded cycle at W = 1 under NCCL
+    from frenetix_tpu_torch.parallel import distributed
+    from frenetix_tpu_torch.parallel.mesh import make_agent_mesh, sharded_full_cycle
+
+    os.makedirs(os.path.dirname(MESH_STORE), exist_ok=True)
+    store = os.path.abspath(MESH_STORE + "_22")
+    if os.path.exists(store):
+        os.remove(store)
+    check(distributed.initialize(init_method=f"file://{store}", num_processes=1,
+                                 process_id=0, device="cuda"), "initialize() joined nothing")
+    try:
+        sharded = sharded_full_cycle(make_agent_mesh(), dt=dt, n_steps=n_steps)
+        sharded(matrices, masks, ctx_b)
+        counted("sharded cycle W=1, 3 replays", lambda: [sharded(matrices, masks, ctx_b)
+                                                         for _ in range(3)], 3)
+    finally:
+        torch.distributed.destroy_process_group()
+    # the device run, the in-run FSM and a fleet: rollouts = K1's programs
+    ds = _device_sim("convoy", dev)
+    for graph in (False, True):
+        counted(f"device run convoy, {'replayed' if graph else 'eager'}",
+                lambda graph=graph: ds.run(graph=graph), 2 * ds.n_cycles,
+                facts=lambda res: res.extras)
+    fsm = device_sim.DeviceSimulation(_behavior_sim("traffic_light", dev, "float32"))
+    # (K1 runs only inside the rollouts of a device run: its count is theirs)
+    counted("device run with the in-run FSM, replayed", lambda: fsm.run(graph=True),
+            lambda res: res.extras["k1_launches"], facts=lambda res: res.extras)
+    counted("fleet of 2 (highway, overtake), replayed",
+            lambda: device_sim.run_fleet(device_fleet(2, dev)),
+            lambda res: res[0].extras["k1_launches"], facts=lambda res: res[0].extras)
+    check(spy[0] == 0, f"{spy[0]} CUDA calls reached the plain twin")
+    for path, c in counts.items():
+        phase(22, f"(c) {path}: K2 {c['k2']} launch pairs = {c['rollouts']} rollouts; "
+                  f"K1 {c['k1']} [{smi}]")
+    return counts
+
+
+def phase_rollout(dev, smi, floor_ms):
+    """Phase 22, kernel K2: (a) bitwise against the plain twin and (b) times
+    at the dense, batched and device-run shapes, (c) launches on every main
+    path, (d) kernels per replay of the programs with the twin and with K2."""
+    from frenetix_tpu_torch.ops import kinematics, rollout_kernel
+
+    shapes = {}
+    for dtype in (torch.float32, torch.float64):
+        matrix, _, ctx, dt, n_steps, _ = dense_cycle_problem(dev, dtype)
+        matrices, _, ctx_b, _, _, _ = stacked_cycle_problem(
+            A_BATCH, dev, dtype, m_bucket=M_BATCH, spread=12.0, ragged=True, o_slots=O_SLOTS)
+        for what, m, c in (("dense", matrix, ctx), ("batched", matrices, ctx_b)):
+            shapes[(what, dtype)] = ((m, c.ref, c.veh), dict(
+                dt=dt, n_steps=n_steps, low_vel_mode=False, x0_orientation=c.x0_orientation,
+                extra_ref_tables=c.corridor, table_window=768))
+    ds = _device_sim("convoy", dev)
+    for (args, kw), mode in zip(_recorded_rollouts(ds, 2), ("", " low_vel")):
+        shapes[(f"device run{mode}", torch.float32)] = (args, kw)
+    results = {}
+    for (what, dtype), (call_args, call_kw) in shapes.items():
+        matrix = call_args[0]
+        before = rollout_kernel.LAUNCHES
+        got = kinematics.rollout_candidates(*call_args, **call_kw)
+        check(rollout_kernel.LAUNCHES == before + 1, f"K2 {what}: not one launch pair")
+        want = kinematics.rollout_candidates_plain(*call_args, **call_kw)
+        torch.cuda.synchronize()
+        for name in kinematics.Rollout._fields:
+            g, w = getattr(got, name), getattr(want, name)
+            if name == "extras":
+                g, w = torch.stack(g), torch.stack(w)
+            if g.dtype.is_floating_point:
+                ints = torch.int32 if g.dtype == torch.float32 else torch.int64
+                g, w = g.contiguous().view(ints), w.contiguous().view(ints)
+            check(torch.equal(g, w), f"K2 {what} {dtype}: {name} differs from the twin")
+        n_rows = matrix.numel() // 13
+        n1 = call_kw["n_steps"] + 1
+        ms = cuda_ms(lambda: kinematics.rollout_candidates(*call_args, **call_kw), 20, 5)
+        plain_ms = cuda_ms(
+            lambda: kinematics.rollout_candidates_plain(*call_args, **call_kw), 3, 5)
+        n_extra = 0 if got.extras is None else len(got.extras)
+        floor, design = k2_bytes(n_rows, n1, n_extra, matrix.element_size())
+        bound = max(floor / HBM_BYTES_PER_S * 1e3, 3 * floor_ms)
+        name = str(dtype).split(".")[-1]
+        results[(what, dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, floor_bytes=floor,
+            design_bytes=design, rows=n_rows, n1=n1,
+            infeasible_share=float(got.inf_slots[..., 0].float().mean()))
+        phase(22, f"(a, b) K2 {what} {name} rows={n_rows} N+1={n1}: bitwise equal to the "
+                  f"plain twin in all {len(kinematics.Rollout._fields)} fields; K2a + K1 + "
+                  f"K2b {ms:.4f} ms, plain twin {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); "
+                  f"bound max(floor {floor / 1e6:.2f} MB at 3.35 TB/s, 3 launch floors) "
+                  f"{bound:.4f} ms = {bound / ms:.3f} of K2's time; the design moves "
+                  f"{design / 1e6:.2f} MB ({design / floor:.2f}x the floor) [{smi}]")
+
+    # K2's three kernels apart, at the dense shape (device time per call)
+    from torch.profiler import ProfilerActivity, profile
+
+    dense_args, dense_kw = shapes[("dense", torch.float32)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kinematics.rollout_candidates(*dense_args, **dense_kw)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.device_time / 1e3 / 10
+    for kernel, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+        phase(22, f"(b) dense float32, profiled: {ms:.4f} ms per call in {kernel[:80]} "
+                  f"[{smi}]")
+
+    with _plain_spy() as spy:
+        counts = _k2_paths(dev, smi, spy)
+
+    # (d) kernels per replay, with the plain twin (the parent's program) and K2
+    matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, torch.float32)
+    matrices, masks, ctx_b, _, _, _ = stacked_cycle_problem(
+        A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+    programs = {}
+    for label, ctxm in (("twin", _rollout_twin_in_programs), ("K2", contextlib.nullcontext)):
+        with ctxm():
+            compiled.clear_all()
+            dense = _kernels_per_call(lambda: evaluate_cycle(
+                matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False), 10)
+            fn = batched_full_cycle(dt=dt, n_steps=n_steps)
+            fn.clear()
+            batched = _kernels_per_call(lambda: fn(matrices, masks, ctx_b), 10)
+            run = _device_sim("convoy", dev)
+            cycles = run.n_cycles
+            device_run = _kernels_per_call(lambda: run.run(graph=True), 1, units=cycles)
+            programs[label] = dict(dense=dense, batched=batched, device_run=device_run)
+    for what in ("dense", "batched", "device_run"):
+        (n0, b0), (n1_, b1) = programs["twin"][what], programs["K2"][what]
+        phase(22, f"(d) {what} program replayed, per {'cycle' if what == 'device_run' else 'call'}"
+                  f": {n0:.0f} -> {n1_:.0f} kernels, device busy {b0:.3f} -> {b1:.3f} ms "
+                  f"(profiled; twin -> K2) [{smi}]")
+    return results, counts, programs
+
+
 def _leaves(tree):
     leaves = []
     compiled._flatten(tree, leaves)
@@ -3251,6 +3540,8 @@ def main() -> int:
     # phase 21 runs here: phase 20's deliberately failed capture (i) leaves
     # the shared graph pool recording, so no capture may follow it
     q_times, q_launches = _timed(phase_quadrature, dev, smi, k1_times[
+        (torch.float32, R_ROWS, P_DENSE)]["launch_floor_ms"])
+    k2_times, k2_paths, k2_programs = _timed(phase_rollout, dev, smi, k1_times[
         (torch.float32, R_ROWS, P_DENSE)]["launch_floor_ms"])
     host_resp = _timed(phase_responsibility, dev, smi, launches, batched_p50)
     host_occ = _timed(phase_occlusion, dev, smi, launches)
@@ -3301,6 +3592,17 @@ def main() -> int:
         "shape": f"B={A_BATCH} M={M_BATCH} O={O_SLOTS} t=30 float32, near",
         "open": dict(q_open, shape=f"B={A_BATCH} M={M_BATCH} O={O_SLOTS} t=30 float32"),
         "float64": {s: q_times[(s, torch.float64)] for s in ("near", "open")},
+    }, {
+        "name": "rollout", "route": "cuda", "source": K2_SOURCE,
+        "replaces": None,   # the JAX package leaves the rollout to XLA's fusion
+        "launches": sum(c["k2"] for c in k2_paths.values()),
+        "launches_by_path": k2_paths,
+        "max_abs_err": 0.0,     # bitwise equal to the plain twin, every field
+        **{k: k2_times[("dense", torch.float32)][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "shape": f"M={k2_times[('dense', torch.float32)]['rows']} N+1=31 float32, dense",
+        "shapes": {f"{w} {str(d).split('.')[-1]}": r for (w, d), r in k2_times.items()},
+        "kernels_per_replay": {label: {w: n for w, (n, _) in p.items()}
+                               for label, p in k2_programs.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@ kinematic feasibility masks.
 
 PyTorch port of `frenetix_tpu/ops/kinematics.py`.  One pass over the whole
 (M, 13) candidate batch produces (M, N+1) state tensors and (M,) masks; the
-reference-table lookup goes through the K1 kernel.
+reference-table lookup goes through the K1 kernel.  On the card the rollout
+is kernel K2 around K1 (`ops.rollout_kernel`, three launches); its plain
+twin `rollout_candidates_plain` runs on the CPU.
 
 Every tensor may carry leading agent axes B: the matrix is (B..., M, 13),
 the reference tables (B..., R, ...), `x0_orientation` (B...), and all outputs
@@ -34,8 +36,9 @@ import torch
 
 from frenetix_tpu_torch.geometry import frenet as fr
 from frenetix_tpu_torch.ops import polynomials as poly
+from frenetix_tpu_torch.ops import rollout_kernel
 
-__all__ = ["VehicleParams", "Rollout", "rollout_candidates"]
+__all__ = ["VehicleParams", "Rollout", "rollout_candidates", "rollout_candidates_plain"]
 
 _EPS = 1e-5
 
@@ -116,12 +119,43 @@ def rollout_candidates(
     table_window: int = 0,
 ) -> Rollout:
     """Evaluate all candidates of an (M, 13) sampling matrix, or of a
-    (B..., M, 13) stack of them against (B..., R, ...) tables.
+    (B..., M, 13) stack of them against (B..., R, ...) tables (or one
+    (R, ...) table shared by all).
 
     low_vel_mode plans the lateral polynomial over arclength; quintic_lon
     treats column 5 as the end position s1 (stopping mode);
     `table_window` > 0 restricts the table lookup to a window of that many
-    rows anchored at s0 (see geometry.frenet.interp_ref_tables)."""
+    rows anchored at s0 (see geometry.frenet.interp_ref_tables).
+
+    CPU tensors run the plain twin `rollout_candidates_plain`; anything else
+    goes to kernel K2 (`ops.rollout_kernel.rollout_fields`), which raises on
+    what it does not take."""
+    tensors = [matrix, *ref[:5]] + ([extra_ref_tables] if extra_ref_tables is not None
+                                    else [])
+    kw = dict(dt=dt, n_steps=n_steps, low_vel_mode=low_vel_mode,
+              x0_orientation=x0_orientation, quintic_lon=quintic_lon,
+              extra_ref_tables=extra_ref_tables, table_window=table_window)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rollout_candidates_plain(matrix, ref, params, **kw)
+    return Rollout(**rollout_kernel.rollout_fields(matrix, ref, params, **kw))
+
+
+def rollout_candidates_plain(
+    matrix: torch.Tensor,
+    ref,
+    params: VehicleParams,
+    *,
+    dt: float,
+    n_steps: int,
+    low_vel_mode: bool,
+    x0_orientation,
+    quintic_lon: bool = False,
+    extra_ref_tables=None,
+    table_window: int = 0,
+) -> Rollout:
+    """Plain PyTorch twin of kernel K2, the rollout on the CPU (arguments as
+    `rollout_candidates`); on the card it runs as ~335 elementwise kernels
+    and K1, and K2 equals it bitwise."""
     dtype = matrix.dtype
     device = matrix.device
     rows = matrix.shape[:-1]          # (B..., M)

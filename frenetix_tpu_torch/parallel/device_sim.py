@@ -29,10 +29,12 @@ read with `index_select` on it and outputs go into preallocated (C, ...)
 buffers with `index_copy_`.  On the CPU the same body runs eagerly.
 
 K1 (`ops.table_interp`) runs once per program (kinematics mode × level) per
-cycle on the stacked (S·A·R, C) table.  Its `LAUNCHES` counter counts calls
-of the wrapper, so a graph replay does not move it; a run reports its kernel
-launches in `extras["k1_launches"]` as (launches counted while the body was
-captured) × (replays), or the counter's own difference for an eager run.
+cycle on the stacked (S·A·R, C) table, inside that program's rollout, K2
+(`ops.rollout_kernel`, one launch pair per rollout).  Their `LAUNCHES`
+counters count calls of the wrappers, so a graph replay does not move them;
+a run reports its kernel launches in `extras["k1_launches"]` and
+`extras["k2_launches"]` as (launches counted while the body was captured) ×
+(replays), or the counters' own differences for an eager run.
 
 A fleet (`run_fleet`) pads every member to the fleet's maxima with inert
 rows and runs the same body over one more leading axis, (S, A, ...).
@@ -127,7 +129,7 @@ from frenetix_tpu_torch.behavior.device_fsm import (
 )
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.ops import sampling as smp
-from frenetix_tpu_torch.ops import table_interp
+from frenetix_tpu_torch.ops import rollout_kernel, table_interp
 from frenetix_tpu_torch.ops.collision import obb_overlap
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, PredictionTensors
 from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
@@ -958,6 +960,7 @@ class _Runner:
                       for lvl in proto.levels]
         self.graph = None
         self.k1_per_cycle = None
+        self.k2_per_cycle = None
         self.capture_s = 0.0
         self.traced = None        # tracing's state at the capture
         self.loaded = proto
@@ -1402,11 +1405,12 @@ class _Runner:
             torch.cuda.current_stream(dev).wait_stream(side)
             for b, s in zip(self._buffers(), saved):
                 b.copy_(s)
-            before = table_interp.LAUNCHES
+            before = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 self.step()
-        self.k1_per_cycle = table_interp.LAUNCHES - before
+        self.k1_per_cycle = table_interp.LAUNCHES - before[0]
+        self.k2_per_cycle = rollout_kernel.LAUNCHES - before[1]
         self.graph = graph
         self.traced = tracing.enabled()
         self.capture_s = time.perf_counter() - t_start
@@ -1499,7 +1503,7 @@ class _Runner:
                 capture_s = self.capture_s
             with tracing.span("frenetix.device_sim.reset"):
                 self.reset()
-            before = table_interp.LAUNCHES
+            before = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
             with _no_sync_allowed(sync_debug and self.device.type == "cuda"), \
                     tracing.span("frenetix.device_sim.replay"), \
                     tracing.stream_span("frenetix.device_sim.cycles", self.device):
@@ -1508,11 +1512,14 @@ class _Runner:
             tracing.count("device_sim.cycles", self.n_cycles)
             if use_graph:
                 k1_launches = self.k1_per_cycle * self.n_cycles
+                k2_launches = self.k2_per_cycle * self.n_cycles
             else:
-                k1_launches = table_interp.LAUNCHES - before
+                k1_launches = table_interp.LAUNCHES - before[0]
+                k2_launches = rollout_kernel.LAUNCHES - before[1]
             with tracing.span("frenetix.device_sim.fetch"):
                 out = self.fetch_outputs()
-        out.update(k1_launches=int(k1_launches), graph=use_graph, capture_s=capture_s)
+        out.update(k1_launches=int(k1_launches), k2_launches=int(k2_launches),
+                   graph=use_graph, capture_s=capture_s)
         return out
 
 
@@ -1892,8 +1899,9 @@ class DeviceSimulation:
             found=arrays["found"][:c_n, :a_n], costs=arrays["costs"][:c_n, :a_n],
             extras={"x_cl_cycles": arrays["x_cl_cycles"][:c_n, :a_n],
                     **{k: arrays[k][:c_n, :a_n] for k in MARGINS if k in arrays},
-                    **{k: facts[k] for k in ("k1_launches", "graph", "capture_s",
-                                             "fetches", "captures") if k in facts}},
+                    **{k: facts[k] for k in ("k1_launches", "k2_launches", "graph",
+                                             "capture_s", "fetches", "captures")
+                       if k in facts}},
         )
 
     def to_simulation_result(self, dres: DeviceSimResult):
@@ -2309,8 +2317,8 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
     guard = contextlib.nullcontext()
     if runner.device.type == "cuda":
         guard = torch.cuda.device(runner.device)
-    # K1 launches: counted eagerly, or recorded per capture × its replays
-    captures, replays, k1_launches, capture_s = 0, 0, 0, 0.0
+    # K1 and K2 launches: counted eagerly, or recorded per capture × its replays
+    captures, replays, k1_launches, k2_launches, capture_s = 0, 0, 0, 0, 0.0
     with torch.no_grad(), guard:
         runner.reset()
         if behavior_on:
@@ -2344,6 +2352,7 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
                             new_b.copy_(old_b)
                         if old.graph is not None:
                             k1_launches += old.k1_per_cycle * replays
+                            k2_launches += old.k2_per_cycle * replays
                         replays = 0
                     else:
                         runner.load(inputs())
@@ -2358,14 +2367,17 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
                 captures += 1
                 runner._capture()
                 capture_s += runner.capture_s
-            before = table_interp.LAUNCHES
+            before = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
             runner.advance(use_graph)
             replays += 1
-            k1_launches += table_interp.LAUNCHES - before
+            k1_launches += table_interp.LAUNCHES - before[0]
+            k2_launches += rollout_kernel.LAUNCHES - before[1]
         out = runner.fetch_outputs()
     if use_graph:
         k1_launches += runner.k1_per_cycle * replays
-    out.update(k1_launches=int(k1_launches), graph=use_graph, capture_s=capture_s,
+        k2_launches += runner.k2_per_cycle * replays
+    out.update(k1_launches=int(k1_launches), k2_launches=int(k2_launches),
+               graph=use_graph, capture_s=capture_s,
                captures=captures, fetches=FETCHES - fetches0)
     return [s._finalize(_member_arrays(out, i if fleet else None), out)
             for i, s in enumerate(sims)]

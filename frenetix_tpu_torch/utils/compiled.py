@@ -30,7 +30,8 @@ and replays it.
   are used; the "replay" is `fn` run over the static buffers.
 - **Host counters**: an entry records what its capture added to every host
   counter, the kernels' launch counters (K1's `ops.table_interp.LAUNCHES`,
-  Q's `risk.probability.LAUNCHES`) and `utils.tracing`'s counters;
+  K2's `ops.rollout_kernel.LAUNCHES`, Q's `risk.probability.LAUNCHES`) and
+  `utils.tracing`'s counters;
   each replay adds the whole record, so a compiled path counts what its
   eager twin counts.  The warm-up's counts are set-up and are not counted,
   nor are the capture's (it records, it does not launch).
@@ -56,7 +57,7 @@ import weakref
 
 import torch
 
-from frenetix_tpu_torch.ops import table_interp
+from frenetix_tpu_torch.ops import rollout_kernel, table_interp
 from frenetix_tpu_torch.risk import probability
 from frenetix_tpu_torch.utils import tracing
 
@@ -200,11 +201,12 @@ def _pool(device: torch.device):
     return handle, entries
 
 
-# the keys of K1's and Q's launches in a record of host counters, and the
-# modules that hold them
+# the keys of K1's, K2's and Q's launches in a record of host counters, and
+# the modules that hold them
 _K1 = "ops.table_interp.LAUNCHES"
+_K2 = "ops.rollout_kernel.LAUNCHES"
 _Q = "risk.probability.LAUNCHES"
-_LAUNCHES = {_K1: table_interp, _Q: probability}
+_LAUNCHES = {_K1: table_interp, _K2: rollout_kernel, _Q: probability}
 
 
 def _counters() -> dict:

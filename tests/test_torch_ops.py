@@ -226,16 +226,18 @@ def _matrix(kind):
                                  x0_lon=x0_lon, x0_lat=x0_lat)
 
 
+_STATIC = ("dt", "n_steps", "low_vel_mode", "quintic_lon", "table_window")
+
+
 def _rollouts(kind, window=768):
     ref = curved_ref_np()
     corridor = strip_corridor(ref, 3.5)
-    matrix = _matrix(kind)
-    kw = dict(dt=DT, n_steps=N, low_vel_mode=kind == "low_vel",
-              x0_orientation=0.35, quintic_lon=kind == "quintic_lon",
-              table_window=window)
-    jro = jax.jit(jkin.rollout_candidates,
-                  static_argnames=("dt", "n_steps", "low_vel_mode", "quintic_lon",
-                                   "table_window"))(
+    base = kind.removesuffix("_n51")
+    matrix = _matrix(base)
+    kw = dict(dt=DT, n_steps=50 if kind.endswith("_n51") else N,
+              low_vel_mode=base == "low_vel", x0_orientation=0.35,
+              quintic_lon=base == "quintic_lon", table_window=window)
+    jro = jax.jit(jkin.rollout_candidates, static_argnames=_STATIC)(
         jnp.asarray(matrix), ref, jkin.VehicleParams(),
         extra_ref_tables=jnp.asarray(corridor), **kw)
     tro = tkin.rollout_candidates(t64(matrix), ref_to_torch(ref), tkin.VehicleParams(),
@@ -243,16 +245,56 @@ def _rollouts(kind, window=768):
     return jro, tro
 
 
-@pytest.mark.parametrize("kind", ["normal", "low_vel", "quintic_lon", "standstill"])
+def _batched_rollouts(n_agents=3, window=768):
+    """A (A, M, 13) stack against A tables of one length R = 868 (the arc
+    moved and turned per agent, so every agent's window lies elsewhere):
+    the JAX function vmapped over the agents against the port's one
+    batched call."""
+    refs, corridors, matrices = [], [], []
+    for a in range(n_agents):
+        ref = curved_ref_np()
+        turn = 0.3 * a
+        rot = np.array([[np.cos(turn), -np.sin(turn)], [np.sin(turn), np.cos(turn)]])
+        ref = ref._replace(xy=ref.xy @ rot.T + np.array([10.0 * a, -4.0 * a]),
+                           theta=ref.theta + turn)
+        refs.append(ref)
+        corridors.append(strip_corridor(ref, 3.0 + 0.5 * a))
+        matrix = _matrix("normal")
+        matrix[:, 2] += 20.0 * a          # s0: the window anchor moves along
+        matrices.append(matrix)
+    ref = type(refs[0])(*(np.stack(f) for f in zip(*refs)))
+    corridor, matrix = np.stack(corridors), np.stack(matrices)
+    x0 = np.array([0.35 + 0.3 * a for a in range(n_agents)])
+    kw = dict(dt=DT, n_steps=N, low_vel_mode=False, quintic_lon=False,
+              table_window=window)
+
+    def one(m, r, c, th):
+        return jkin.rollout_candidates(m, r, jkin.VehicleParams(), x0_orientation=th,
+                                       extra_ref_tables=c, **kw)
+
+    jro = jax.jit(jax.vmap(one))(jnp.asarray(matrix), ref, jnp.asarray(corridor),
+                                 jnp.asarray(x0))
+    tro = tkin.rollout_candidates(t64(matrix), ref_to_torch(ref), tkin.VehicleParams(),
+                                  x0_orientation=t64(x0), extra_ref_tables=t64(corridor),
+                                  **kw)
+    return jro, tro
+
+
+@pytest.mark.parametrize("kind", ["normal", "low_vel", "quintic_lon", "standstill",
+                                  "normal_n51", "standstill_n51", "batched"])
 def test_rollout_matches_jax(kind):
-    jro, tro = _rollouts(kind)
+    jro, tro = _batched_rollouts() if kind == "batched" else _rollouts(kind)
     assert_fields_match(jro, tro, what=f"{kind}: ")
     slots = to_np(tro.inf_slots)
-    if kind == "normal":
-        assert slots[:, 0].any() and (~slots[:, 0]).any()
-    if kind == "standstill":
+    if kind in ("normal", "normal_n51", "batched"):
+        assert slots[..., 0].any() and (~slots[..., 0]).any()
+    if kind.startswith("standstill"):
         moving = to_np(tro.s_vel) > 0.001
         assert (~moving).any() and moving.any()
+    if kind == "batched":
+        # the agents' windows and headings differ, so their rows do too
+        x = to_np(tro.x)
+        assert not np.allclose(x[0], x[1])
 
 
 def test_carry_forward_matches_sequential_loop():

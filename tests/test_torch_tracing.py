@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from frenetix_tpu_torch.ops import sampling
-from frenetix_tpu_torch.ops import table_interp
+from frenetix_tpu_torch.ops import rollout_kernel, table_interp
 from frenetix_tpu_torch.ops.costs import PredictionTensors
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
 from frenetix_tpu_torch.risk import probability
@@ -135,13 +135,15 @@ def test_a_counter_in_a_compiled_body_counts_per_call_as_its_eager_twin():
 def test_a_capture_record_adds_every_host_counter_at_each_replay(monkeypatch):
     table_interp.reset_launches()
     monkeypatch.setattr(probability, "LAUNCHES", 0)
-    record = {C._K1: 2, C._Q: 1, "test.cells": 30}
+    monkeypatch.setattr(rollout_kernel, "LAUNCHES", 0)
+    record = {C._K1: 2, C._K2: 2, C._Q: 1, "test.cells": 30}
     for _ in range(3):
         C._add(record)
     assert table_interp.LAUNCHES == 6
+    assert rollout_kernel.LAUNCHES == 6
     assert probability.LAUNCHES == 3
     assert tracing.COUNTERS["test.cells"] == 90
-    assert C._counters() == {C._K1: 6, C._Q: 3, "test.cells": 90}
+    assert C._counters() == {C._K1: 6, C._K2: 6, C._Q: 3, "test.cells": 90}
     table_interp.reset_launches()
 
 
