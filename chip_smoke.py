@@ -307,7 +307,7 @@ from frenetix_tpu_torch.run_scenario import run_scenarios
 from frenetix_tpu_torch.sim import visible_area
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import load_config
-from frenetix_tpu_torch.utils import compiled, visualization
+from frenetix_tpu_torch.utils import compiled, tracing, visualization
 from frenetix_tpu_torch.utils.parting import (
     CycleTrace, RunTrace, classify_parting, classify_run_parting, first_parting,
     first_run_parting, stopping_flips,
@@ -434,21 +434,28 @@ def k1_bound_ms(rows, cols, p, itemsize):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", n_bytes
 
 
+def host_count(name):
+    """The port's host counter `name` (`utils.tracing`; 0 before its first
+    count)."""
+    return tracing.COUNTERS.get(name, 0)
+
+
 class Launches:
-    """K1's launch count per driven path: set to 0 just before the path,
-    read just after; a path that launched no kernel fails."""
+    """K1's launch count per driven path: the counter's change from just
+    before the path to just after; a path that launched no kernel fails."""
 
     def __init__(self):
         self.by_path = {}
+        self.at_start = 0
 
     def start(self):
-        table_interp.reset_launches()
+        self.at_start = host_count("kernel.k1.launches")
 
     def stop(self, path, replayed=None):
-        """`replayed`: the path replays a CUDA graph, which the counter does
-        not see (it counted the launches recorded at capture); the path's
-        launches are then the run's own figure, recorded × replays."""
-        return self.record(path, table_interp.LAUNCHES if replayed is None else replayed)
+        """`replayed`: the path's launches as the run reports them
+        (`extras["k1_launches"]`), read in place of the counter."""
+        launched = host_count("kernel.k1.launches") - self.at_start
+        return self.record(path, launched if replayed is None else replayed)
 
     def record(self, path, n):
         """A path's launches as counted elsewhere (a replayed graph, or a
@@ -668,9 +675,9 @@ def phase_batched_cycle(dev, smi, launches):
         err = float(np.abs(out["x"][a].cpu().numpy() - x64).max())
         check(int(best[a]) != b64 or err < 1e-2, f"agent {a}: selected x off by {err} m")
 
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     p50, lo, hi = timed_calls(lambda: fn(matrices, masks, ctx))
-    check(table_interp.LAUNCHES - before == 23, "one K1 launch per batched call")
+    check(host_count("kernel.k1.launches") - before == 23, "one K1 launch per batched call")
 
     def sequential():
         for a in range(a_n):
@@ -1071,9 +1078,9 @@ def _device_sim(family, dev):
 def _run_once(ds, graph):
     """One device-resident run under the sync debug mode; checks that it
     made exactly one device-to-host copy."""
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     res = ds.run(graph=graph, sync_debug=True)
-    check(device_sim.FETCHES == fetches + 1, "a device-resident run fetches once")
+    check(host_count("device_sim.fetches") == fetches + 1, "a device-resident run fetches once")
     return res
 
 
@@ -1168,7 +1175,7 @@ def phase_fleet(dev, smi, launches):
         build_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fetches = device_sim.FETCHES
+        fetches = host_count("device_sim.fetches")
         launches.start()
         t0 = time.perf_counter()
         results = device_sim.run_fleet(sims, sync_debug=True)
@@ -1176,7 +1183,7 @@ def phase_fleet(dev, smi, launches):
         n_k1 = results[0].extras["k1_launches"]
         launches.stop(f"fleet S={size}, replayed", replayed=n_k1)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        check(device_sim.FETCHES == fetches + 1, "a fleet run fetches once")
+        check(host_count("device_sim.fetches") == fetches + 1, "a fleet run fetches once")
         check(len(results) == size and results[0].extras["fleet_size"] == size,
               f"fleet S={size}: {len(results)} results")
         for i, r in enumerate(results):
@@ -1373,11 +1380,12 @@ def _device_f32_against_cpu(family, ds, replayed, launches, programs):
     check(gap <= F32_CPU_TOL, f"{what}: card f32 {gap} m from the cpu f32 device run "
                               f"before they part")
     # the same replayed run with the selection margins: a body of its own
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     launches.start()
     marg = ds.run(graph=True, sync_debug=True, emit_margins=True)
     launches.stop(f"{what}, replayed with margins", replayed=marg.extras["k1_launches"])
-    check(device_sim.FETCHES == fetches + 1, f"{what}: the margins run fetches once")
+    check(host_count("device_sim.fetches") == fetches + 1,
+          f"{what}: the margins run fetches once")
     check(marg.extras["k1_launches"] == programs * ds.n_cycles,
           f"{what} with margins: {marg.extras['k1_launches']} K1 launches")
     check(marg.steps == replayed.steps, f"{what}: margins run steps {marg.steps}")
@@ -1409,11 +1417,12 @@ def _fleet_margins(sims, families, results, launches):
     a member's margins must equal its solo margins run's (the same inf
     pattern, within F32_MARGIN_ULPS float32 ulps of the best cost) at every
     cycle where the member selects as its solo run does."""
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     launches.start()
     marg = device_sim.run_fleet(sims, sync_debug=True, emit_margins=True)
     launches.stop("behavior fleet S=3 with margins", replayed=marg[0].extras["k1_launches"])
-    check(device_sim.FETCHES == fetches + 1, "a behavior fleet with margins fetches once")
+    check(host_count("device_sim.fetches") == fetches + 1,
+          "a behavior fleet with margins fetches once")
     compared = total = 0
     worst = 0.0
     for f, member, plain, sim in zip(families, marg, results, sims):
@@ -1567,14 +1576,14 @@ def phase_behavior(dev, smi, launches):
     check(all(s.fsm_in_scan for s in sims), "behavior fleet: FSM not in the run")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     launches.start()
     t0 = time.perf_counter()
     results = device_sim.run_fleet(sims, sync_debug=True)
     wall = time.perf_counter() - t0
     launches.stop("behavior fleet S=3", replayed=results[0].extras["k1_launches"])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(device_sim.FETCHES == fetches + 1, "a behavior fleet run fetches once")
+    check(host_count("device_sim.fetches") == fetches + 1, "a behavior fleet run fetches once")
     gap = 0.0
     for f, fleet_res, sim in zip(families, results, sims):
         solo = sim.run()
@@ -1673,14 +1682,15 @@ def phase_device_post(dev, smi, launches, host_resp, host_occ):
     check(all(s.resp_weight == 0.2 for s in sims), "fleet: no responsibility term")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     launches.start()
     t0 = time.perf_counter()
     results = device_sim.run_fleet(sims, sync_debug=True)
     wall = time.perf_counter() - t0
     launches.stop("responsibility fleet S=3", replayed=results[0].extras["k1_launches"])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(device_sim.FETCHES == fetches + 1, "a responsibility fleet run fetches once")
+    check(host_count("device_sim.fetches") == fetches + 1,
+          "a responsibility fleet run fetches once")
     gap = 0.0
     for i, (fleet_res, s) in enumerate(zip(results, sims)):
         solo = s.run()
@@ -1875,12 +1885,12 @@ def phase_cli(dev, smi, launches):
 
         # (c) the two-agent highway as one device run
         spy = _CliSpy()
-        fetches = device_sim.FETCHES
+        fetches = host_count("device_sim.fetches")
         with spy.active():
             launches.start()
             _cli(["highway", "--multiagent", "--device-sim", "--evaluate",
                   "--logs", d["c"]], "(c)")
-        check(device_sim.FETCHES == fetches + 1, "(c): a device run fetches once")
+        check(host_count("device_sim.fetches") == fetches + 1, "(c): a device run fetches once")
         k1_c, programs, cycles = _cli_device_path(
             spy, "cli highway --multiagent --device-sim --evaluate, replayed", launches, 1)
         (_, res_c), = spy.runs
@@ -1902,12 +1912,12 @@ def phase_cli(dev, smi, launches):
 
         # (d) a fleet of two through the CLI
         spy = _CliSpy()
-        fetches = device_sim.FETCHES
+        fetches = host_count("device_sim.fetches")
         with spy.active():
             launches.start()
             _cli(["highway", "overtake", "--device-fleet", "--evaluate",
                   "--logs", d["d"]], "(d)")
-        check(device_sim.FETCHES == fetches + 1, "(d): a fleet run fetches once")
+        check(host_count("device_sim.fetches") == fetches + 1, "(d): a fleet run fetches once")
         k1_d, programs, cycles = _cli_device_path(
             spy, "cli highway overtake --device-fleet --evaluate, replayed", launches, 2)
         with open(os.path.join(d["d"], "score_overview.csv")) as f:
@@ -2114,15 +2124,15 @@ def phase_walenet(dev, smi, launches):
         runs[path_name] = res
     sim = _walenet_sim("convoy", dev)
     ds = device_sim.DeviceSimulation(sim)
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     launches.start()
     dres = ds.run()
     programs = 2 * len(ds.levels)
     k1 = dres.extras["k1_launches"]
     launches.stop("walenet convoy device hybrid, replayed", replayed=k1)
-    check(device_sim.FETCHES - fetches == ds.n_cycles + 1,
-          f"walenet device run: {device_sim.FETCHES - fetches} fetches, expected one "
-          f"per cycle + 1")
+    check(host_count("device_sim.fetches") - fetches == ds.n_cycles + 1,
+          f"walenet device run: {host_count('device_sim.fetches') - fetches} fetches, "
+          f"expected one per cycle + 1")
     check(k1 == programs * ds.n_cycles, f"walenet device run: {k1} K1 launches")
     seq, bat = runs["sequential"], runs["batched"]
     status = _dres_statuses(dres)
@@ -2290,7 +2300,7 @@ def _mesh_fleet(dev, smi, launches):
     from frenetix_tpu_torch.parallel.mesh import make_agent_mesh
 
     fleet_mesh = make_agent_mesh(axis_name="scenarios")
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     launches.start()
     t0 = time.perf_counter()
     sharded = device_sim.run_fleet(device_fleet(2, dev, "float32"), mesh=fleet_mesh,
@@ -2298,7 +2308,7 @@ def _mesh_fleet(dev, smi, launches):
     wall = time.perf_counter() - t0
     n_k1 = launches.record("fleet S=2 over the mesh W=1, replayed",
                            sharded[0].extras["k1_launches"])
-    check(device_sim.FETCHES == fetches + 1, "a fleet on a mesh of one fetches once")
+    check(host_count("device_sim.fetches") == fetches + 1, "a fleet on a mesh of one fetches once")
     plain = device_sim.run_fleet(device_fleet(2, dev, "float32"))
     for i, (a, b) in enumerate(zip(sharded, plain)):
         check(np.array_equal(a.status, b.status) and a.steps == b.steps
@@ -2560,7 +2570,7 @@ def _plots_fail_without(dev, smi, root):
     package = "matplotlib"
     config = load_config()
     config.visualization.save_plots = True
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     try:
         run_scenario.run_one("highway", config, log_dir=os.path.join(root, "one"),
                              device=dev)
@@ -2589,8 +2599,8 @@ def _plots_fail_without(dev, smi, root):
             rows[" ".join(flags)] = _failures(logs)
     finally:
         run_scenario.run_pipeline = real
-    check(table_interp.LAUNCHES == before,
-          f"(c): {table_interp.LAUNCHES - before} K1 launches without {package}")
+    check(host_count("kernel.k1.launches") == before,
+          f"(c): {host_count('kernel.k1.launches') - before} K1 launches without {package}")
     check(len(seen) == 2 and all(k == 0 and ok is None for _, ok, k in seen),
           f"(c): the workers report {seen}")
     for what, r in rows.items():
@@ -2798,9 +2808,10 @@ def phase_surface(dev, smi, launches):
     # (d) the JAX CLI's --cpu in a process of its own: no card work at all
     code = ("import sys, torch\n"
             "from frenetix_tpu_torch import run_scenario\n"
-            "from frenetix_tpu_torch.ops import table_interp\n"
+            "from frenetix_tpu_torch.utils import tracing\n"
             "rc = run_scenario.main(['highway', '--cpu', '--logs', sys.argv[1]])\n"
-            "print('K1', table_interp.LAUNCHES, torch.cuda.is_initialized())\n"
+            "print('K1', tracing.COUNTERS.get('kernel.k1.launches', 0), "
+            "torch.cuda.is_initialized())\n"
             "sys.exit(rc)\n")
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -3201,12 +3212,12 @@ def phase_quadrature(dev, smi, floor_ms):
     grid, _, _ = stacked_post_pass_extras(ctx)
     fn = batched_full_cycle(dt=dt, n_steps=n_steps, resp_weight=0.2)
     fn.clear()
-    before = probability.LAUNCHES
+    before = host_count("kernel.q.launches")
     calls = 5
     for _ in range(calls):
         fn(matrices, masks, ctx, grid)
     torch.cuda.synchronize()
-    n_launches = probability.LAUNCHES - before
+    n_launches = host_count("kernel.q.launches") - before
     check(n_launches == calls, f"batched convoy path: {n_launches} Q launches in "
                                f"{calls} calls")
     p50, lo, hi = timed_calls(lambda: fn(matrices, masks, ctx, grid))
@@ -3320,17 +3331,15 @@ def _recorded_rollouts(ds, n):
 
 def _k2_paths(dev, smi, spy):
     """(c): K2's launches on every main path against its rollouts, and K1's."""
-    from frenetix_tpu_torch.ops import rollout_kernel
-
     counts = {}
 
     def counted(path, fn, rollouts, facts=None):
         """Run `fn`; its K2 launches (a replayed run's own figures, read by
         `facts` from what `fn` returned) must equal `rollouts`."""
-        k1, k2 = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
+        k1, k2 = host_count("kernel.k1.launches"), host_count("kernel.k2.launches")
         out = fn()
         torch.cuda.synchronize()
-        n1, n2 = table_interp.LAUNCHES - k1, rollout_kernel.LAUNCHES - k2
+        n1, n2 = host_count("kernel.k1.launches") - k1, host_count("kernel.k2.launches") - k2
         if facts is not None:
             n1, n2 = facts(out)["k1_launches"], facts(out)["k2_launches"]
         want = rollouts(out) if callable(rollouts) else rollouts
@@ -3411,7 +3420,7 @@ def phase_rollout(dev, smi, floor_ms):
     """Phase 22, kernel K2: (a) bitwise against the plain twin and (b) times
     at the dense, batched and device-run shapes, (c) launches on every main
     path, (d) kernels per replay of the programs with the twin and with K2."""
-    from frenetix_tpu_torch.ops import kinematics, rollout_kernel
+    from frenetix_tpu_torch.ops import kinematics
 
     shapes = {}
     for dtype in (torch.float32, torch.float64):
@@ -3428,9 +3437,9 @@ def phase_rollout(dev, smi, floor_ms):
     results = {}
     for (what, dtype), (call_args, call_kw) in shapes.items():
         matrix = call_args[0]
-        before = rollout_kernel.LAUNCHES
+        before = host_count("kernel.k2.launches")
         got = kinematics.rollout_candidates(*call_args, **call_kw)
-        check(rollout_kernel.LAUNCHES == before + 1, f"K2 {what}: not one launch pair")
+        check(host_count("kernel.k2.launches") == before + 1, f"K2 {what}: not one launch pair")
         want = kinematics.rollout_candidates_plain(*call_args, **call_kw)
         torch.cuda.synchronize()
         for name in kinematics.Rollout._fields:

@@ -117,17 +117,17 @@ def _check(cond, what):
 def _dryrun_rank(rank, world, device_type, config, n_steps):
     """One rank of `dryrun_multichip`; returns its summary and K1 launches."""
     from frenetix_tpu_torch.io.scenario_factory import make_highway, make_overtake
-    from frenetix_tpu_torch.ops import table_interp
     from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation, run_fleet
     from frenetix_tpu_torch.parallel.mesh import (
         agent_pose_predictions, concat_obstacles, make_agent_mesh, sharded_full_cycle,
     )
     from frenetix_tpu_torch.sim.simulation import Simulation
+    from frenetix_tpu_torch.utils import tracing
     from frenetix_tpu_torch.utils.config import load_config
     from frenetix_tpu_torch.workloads import stacked_cycle_problem
 
     device = default_device() if device_type == "cuda" else torch.device("cpu")
-    table_interp.reset_launches()
+    k1_before = tracing.COUNTERS.get("kernel.k1.launches", 0)
     mesh = make_agent_mesh()
     a = 2 * world                     # two agents per rank
     n_cycle, dt = 10, 0.1
@@ -196,7 +196,8 @@ def _dryrun_rank(rank, world, device_type, config, n_steps):
         f"{list(map(int, solo.status))} == solo; fleet of {world} highway scenarios "
         f"split over the world: all SUCCESS, member 0 steps {fleet[0].steps} == solo "
         f"{solo_hw.steps}")
-    return dict(summary=summary, k1_launches=table_interp.LAUNCHES,
+    k1_launches = tracing.COUNTERS.get("kernel.k1.launches", 0) - k1_before
+    return dict(summary=summary, k1_launches=k1_launches,
                 sharded_steps=None if sharded is None else sharded.steps)
 
 

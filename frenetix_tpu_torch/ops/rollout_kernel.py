@@ -16,7 +16,8 @@ The plain twin is `ops.kinematics.rollout_candidates_plain`, the CPU path;
 K2 equals it bitwise on the card.  The kernels take float32 and float64,
 any leading agent axes, one table per agent or one shared by all, any
 number K of extra table columns, any n_steps and both modes; anything else
-raises before a launch.
+raises before a launch.  Each call counts one launch pair (K2a + K2b) on
+the host counter `kernel.k2.launches` (`utils.tracing`), and K1 its own.
 """
 from __future__ import annotations
 
@@ -26,14 +27,9 @@ import math
 import torch
 
 from frenetix_tpu_torch.ops import _kernels, table_interp
+from frenetix_tpu_torch.utils import tracing
 
-__all__ = ["LAUNCHES", "reset_launches", "rollout_fields"]
-
-# K2 launch pairs (K2a + K2b) made by `rollout_fields`, one per rollout on
-# the card.  A call recorded while a CUDA graph is captured counts once;
-# `utils.compiled` adds a capture's launches at each replay, and the device
-# run reports them as (count while capturing) × (replays), beside K1's.
-LAUNCHES = 0
+__all__ = ["rollout_fields"]
 
 _KERNEL = "rollout"
 _ENTRY = {torch.float32: ("rollout_k2a_f32", "rollout_k2b_f32"),
@@ -64,11 +60,6 @@ class _Args(ctypes.Structure):
                                      "v", "a", "kappa_gl", "kappa_dot", "x", "y",
                                      "feasible", "valid", "slots")]
     )
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def _entries(dtype):
@@ -127,7 +118,6 @@ def rollout_fields(matrix, ref, params, *, dt, n_steps, low_vel_mode, x0_orienta
                    quintic_lon, extra_ref_tables, table_window) -> dict:
     """The `ops.kinematics.Rollout` fields of a (B..., M, 13) matrix on the
     card, by K2a → K1 → K2b (arguments as `rollout_candidates`)."""
-    global LAUNCHES
     _check(matrix, ref, extra_ref_tables, x0_orientation)
     device, dtype = matrix.device, matrix.dtype
     lead, m_rows = tuple(matrix.shape[:-2]), matrix.shape[-2]
@@ -192,7 +182,7 @@ def rollout_fields(matrix, ref, params, *, dt, n_steps, low_vel_mode, x0_orienta
         err = k2b(ctypes.byref(args), *flags, stream)
         if err != 0:
             raise RuntimeError(f"rollout kernel K2b launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    tracing.count("kernel.k2.launches", 1)
     rows = lead + (m_rows, n1)
     out["extras"] = (tuple(field[5 + k].reshape(rows) for k in range(n_extra))
                      if extra_ref_tables is not None else None)

@@ -13,6 +13,8 @@ and returns the column-major (C, P) result that
 `interp_rows` launches the CUDA kernel (`csrc/table_interp.cu`) for tensors
 on a CUDA device and uses the plain PyTorch twin `interp_rows_plain` only for
 tensors on the CPU.  A CUDA tensor either reaches the kernel or raises.
+Each launch counts 1 on the host counter `kernel.k1.launches`
+(`utils.tracing`); calls of the plain twin are not counted.
 """
 from __future__ import annotations
 
@@ -21,24 +23,12 @@ import ctypes
 import torch
 
 from frenetix_tpu_torch.ops import _kernels
+from frenetix_tpu_torch.utils import tracing
 
-__all__ = ["LAUNCHES", "interp_rows", "interp_rows_plain", "launch_empty",
-           "reset_launches"]
-
-# Kernel launches made by `interp_rows` (plain-twin calls are not counted).
-# It counts calls of the wrapper: a call recorded while a CUDA graph is being
-# captured counts once, and replays of the graph do not move it.  A run that
-# replays a graph reports its launches as (count while capturing) × (replays)
-# (`parallel.device_sim`, `extras["k1_launches"]`).
-LAUNCHES = 0
+__all__ = ["interp_rows", "interp_rows_plain", "launch_empty"]
 
 _KERNEL = "table_interp"
 _ENTRY = {torch.float32: "table_interp_f32", torch.float64: "table_interp_f64"}
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def interp_rows_plain(table: torch.Tensor, gidx: torch.Tensor,
@@ -66,7 +56,7 @@ def _entry(dtype):
 def launch_empty(device: torch.device) -> None:
     """Launch the library's empty kernel (one thread, no work) on `device`'s
     current stream, through the same ctypes path as `interp_rows`: its device
-    time is the floor of one launch.  Not counted in LAUNCHES."""
+    time is the floor of one launch.  Not counted."""
     fn = _kernels.load_library(_KERNEL).table_interp_empty
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -130,6 +120,5 @@ def interp_rows(table: torch.Tensor, gidx: torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"table_interp kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    tracing.count("kernel.k1.launches", 1)
     return out

@@ -21,20 +21,21 @@ nothing in the run waits for the device.  Its three runtime branches in the
 JAX package (the low-velocity program, a further densification level, each
 behind a `lax.cond`) are value-identical to computing both sides and merging
 with `where`, which is what this port does.  On a CUDA device the body is the
-same program every cycle, so `run()` warms it up once (which also builds the
-K1 kernel), captures it into a CUDA graph and replays the graph `n_cycles`
-times: the carry lives in fixed buffers updated with `copy_`, the cycle
-counter is a device tensor incremented inside the graph, per-cycle inputs are
-read with `index_select` on it and outputs go into preallocated (C, ...)
-buffers with `index_copy_`.  On the CPU the same body runs eagerly.
+same program every cycle, so `run()` captures it once into a CUDA graph
+(`utils.compiled._Graph`, which warms it up first and so builds the kernels)
+and replays the graph `n_cycles` times: the carry lives in fixed buffers
+updated with `copy_`, the cycle counter is a device tensor incremented inside
+the graph, per-cycle inputs are read with `index_select` on it and outputs go
+into preallocated (C, ...) buffers with `index_copy_`.  On the CPU the same
+body runs eagerly.
 
 K1 (`ops.table_interp`) runs once per program (kinematics mode × level) per
 cycle on the stacked (S·A·R, C) table, inside that program's rollout, K2
-(`ops.rollout_kernel`, one launch pair per rollout).  Their `LAUNCHES`
-counters count calls of the wrappers, so a graph replay does not move them;
-a run reports its kernel launches in `extras["k1_launches"]` and
-`extras["k2_launches"]` as (launches counted while the body was captured) ×
-(replays), or the counters' own differences for an eager run.
+(`ops.rollout_kernel`, one launch pair per rollout).  A run reports their
+launches in `extras["k1_launches"]` and `extras["k2_launches"]`: the change
+of the host counters `kernel.k1.launches` and `kernel.k2.launches` across
+its cycles, which each replay moves by what its capture recorded, as the
+eager body moves them by what it launches.
 
 A fleet (`run_fleet`) pads every member to the fleet's maxima with inert
 rows and runs the same body over one more leading axis, (S, A, ...).
@@ -50,10 +51,11 @@ Tracing (`utils.tracing`): the spans `frenetix.device_sim.load`, `.reset`,
 `.capture`, `.replay` (the loop of a run's cycles), `.fetch` and
 `.finalize`; the device span `frenetix.device_sim.cycles`, two timing
 events on the stream around that loop; the counters `device_sim.cycles`
-(cycles driven), `.captures`, `.fetches` (as `FETCHES`) and `.programs`
-(K1 launches of each captured cycle).  A runner captures again when
-tracing was switched since its capture, so no graph keeps the other
-state's nodes.
+(cycles driven), `.captures`, `.fetches` (device→host copies: one per run or
+chunk, and one per cycle on the hybrid path) and `.programs` (K1 launches of
+each captured cycle).  A runner captures again when its graph is stale
+(tracing was switched since the capture), so no graph keeps the other
+state's nodes.  The runner's graph records no device spans.
 
 The behavior planner runs in one of two ways.  Where
 `behavior.device_fsm.build_fsm_tensors` supports the scenario (and
@@ -129,7 +131,6 @@ from frenetix_tpu_torch.behavior.device_fsm import (
 )
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.ops import sampling as smp
-from frenetix_tpu_torch.ops import rollout_kernel, table_interp
 from frenetix_tpu_torch.ops.collision import obb_overlap
 from frenetix_tpu_torch.ops.costs import COST_TERM_ORDER, PredictionTensors
 from frenetix_tpu_torch.parallel.batched_sim import BatchedAgentStepper
@@ -156,16 +157,13 @@ from frenetix_tpu_torch.sim.visible_area import (
     obb_segments_batch, polar_visibility_batch, road_boundary_segments,
 )
 from frenetix_tpu_torch.utils import tracing
+from frenetix_tpu_torch.utils.compiled import _Graph
 
 __all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet",
            "share_runner"]
 
 # AgentStatus values as plain ints: the status carry is an int32 tensor
 _RUNNING, _SUCCESS, _TIMELIMIT, _COLLISION, _ERROR = 1, 2, 3, 4, 5
-
-# device→host copies made by runs of this module (one per run, or per chunk;
-# a hybrid run adds one per cycle)
-FETCHES = 0
 
 # the selection margins of a run with `emit_margins` (`select_with_fallback`)
 MARGINS = ("margin_gap", "margin_rel")
@@ -958,11 +956,8 @@ class _Runner:
                         for lvl in proto.levels]
         self.masks = [torch.ones(lead + (a_n, lvl[3]), dtype=torch.bool, device=dev)
                       for lvl in proto.levels]
-        self.graph = None
-        self.k1_per_cycle = None
-        self.k2_per_cycle = None
+        self.graph = None         # the captured body (`_Graph`)
         self.capture_s = 0.0
-        self.traced = None        # tracing's state at the capture
         self.loaded = proto
 
     # ------------------------------------------------------------- buffers
@@ -1390,39 +1385,24 @@ class _Runner:
 
     # ----------------------------------------------------------------- run
     def _capture(self) -> None:
-        """Warm the body up once on a side stream (this builds K1 and leaves
-        the allocator warm), then capture it into a CUDA graph.  The carry
-        and outputs are put back as they were: a capture may come in the
-        middle of a hybrid run."""
+        """Capture the body into a CUDA graph (`_Graph`: one warm-up pass on
+        a side stream, then the capture), dropping the stale graph first.
+        The carry and outputs are put back as they were before the warm-up
+        wrote them: a capture may come in the middle of a hybrid run."""
         t_start = time.perf_counter()
-        dev = self.device
+        self.graph = None
         with tracing.span("frenetix.device_sim.capture"):
             saved = [b.clone() for b in self._buffers()]
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.step()
-            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = _Graph(self.step, self.device)
             for b, s in zip(self._buffers(), saved):
                 b.copy_(s)
-            before = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.step()
-        self.k1_per_cycle = table_interp.LAUNCHES - before[0]
-        self.k2_per_cycle = rollout_kernel.LAUNCHES - before[1]
-        self.graph = graph
-        self.traced = tracing.enabled()
         self.capture_s = time.perf_counter() - t_start
         tracing.count("device_sim.captures", 1)
-        tracing.count("device_sim.programs", self.k1_per_cycle)
+        tracing.count("device_sim.programs", self.graph.counts.get("kernel.k1.launches", 0))
 
     def advance(self, use_graph: bool) -> None:
-        """One cycle: a replay of the captured body (captured at the first
-        call), or the body itself."""
+        """One cycle: a replay of the captured body, or the body itself."""
         if use_graph:
-            if self.graph is None:
-                self._capture()
             self.graph.replay()
         else:
             self.step()
@@ -1433,7 +1413,6 @@ class _Runner:
         previous orientation, and with `prev_cycle` that cycle's executed
         sub-steps (`traj` (k, A, 5) and `status_steps` (k, A): the walenet
         mirrors' histories), all in one copy."""
-        global FETCHES
         names = ["x_cl", "center", "theta", "v", "acc", "status"]
         if self.hybrid:
             names += ["kap", "th_prev"]
@@ -1443,7 +1422,6 @@ class _Runner:
             parts += [self.out["traj"][prev_cycle], self.out["status_steps"][prev_cycle]]
         # statuses are small integers: exact in float32
         host = torch.cat([t.to(self.dtype).reshape(-1) for t in parts]).cpu().numpy()
-        FETCHES += 1
         tracing.count("device_sim.fetches", 1)
         out, pos = {}, 0
         for n, t in zip(names, parts):
@@ -1458,7 +1436,6 @@ class _Runner:
         """THE one fetch of a run: statuses, per-step trajectories and
         statuses, selections, found flags, replan states (and the FSM's bail
         flag, the selection margins), packed into one tensor."""
-        global FETCHES
         margins = MARGINS if self.emit_margins else ()
         parts = [self.state["status"], *(self.out[n] for n in (
             "traj", "status_steps", "sel", "found", "x_cl", "cost"))]
@@ -1468,7 +1445,6 @@ class _Runner:
         # statuses and flags are small integers: exact in float32
         packed = torch.cat([t.to(self.dtype).reshape(-1) for t in parts])
         host = packed.cpu().numpy()
-        FETCHES += 1
         tracing.count("device_sim.fetches", 1)
         arrays, pos = [], 0
         for t in parts:
@@ -1482,10 +1458,6 @@ class _Runner:
         out["bail"] = (arrays[-1] != 0) if self.use_fsm else np.zeros(self.lead, bool)
         return out
 
-    def needs_capture(self) -> bool:
-        """No graph yet, or tracing was switched since the capture."""
-        return self.graph is None or self.traced != tracing.enabled()
-
     def run(self, graph: bool = True, sync_debug: bool = False) -> dict:
         """Drive the whole run and fetch once.  Returns the host arrays
         final_status, trajectories, status_per_step, selections, found,
@@ -1497,31 +1469,33 @@ class _Runner:
             guard = torch.cuda.device(self.device)
         with torch.no_grad(), guard:
             capture_s = 0.0
-            if use_graph and self.needs_capture():
+            if use_graph and (self.graph is None or self.graph.stale):
                 self.reset()          # the warm-up runs on the run's inputs
                 self._capture()
                 capture_s = self.capture_s
             with tracing.span("frenetix.device_sim.reset"):
                 self.reset()
-            before = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
+            launched = _launches()
             with _no_sync_allowed(sync_debug and self.device.type == "cuda"), \
                     tracing.span("frenetix.device_sim.replay"), \
                     tracing.stream_span("frenetix.device_sim.cycles", self.device):
                 for _ in range(self.n_cycles):
                     self.advance(use_graph)
+            launched = _launches() - launched
             tracing.count("device_sim.cycles", self.n_cycles)
-            if use_graph:
-                k1_launches = self.k1_per_cycle * self.n_cycles
-                k2_launches = self.k2_per_cycle * self.n_cycles
-            else:
-                k1_launches = table_interp.LAUNCHES - before[0]
-                k2_launches = rollout_kernel.LAUNCHES - before[1]
             with tracing.span("frenetix.device_sim.fetch"):
                 out = self.fetch_outputs()
-        out.update(k1_launches=int(k1_launches), k2_launches=int(k2_launches),
+        out.update(k1_launches=int(launched[0]), k2_launches=int(launched[1]),
                    graph=use_graph, capture_s=capture_s)
         return out
 
+
+
+def _launches() -> np.ndarray:
+    """K1's and K2's launches so far (`kernel.k1.launches`,
+    `kernel.k2.launches`)."""
+    return np.array([tracing.COUNTERS.get("kernel.k1.launches", 0),
+                     tracing.COUNTERS.get("kernel.k2.launches", 0)], dtype=np.int64)
 
 
 @contextlib.contextmanager
@@ -2300,7 +2274,6 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
     and when they grow the body gets new buffers and a new capture (counted
     in `extras["captures"]`).  The outputs stay on the device until the
     run's last fetch.  Returns one DeviceSimResult per member."""
-    global FETCHES
     base = sims[0]
     fleet = len(sims) > 1
     behavior_on, pred_on = base.hybrid_behavior, base.hybrid_pred
@@ -2311,14 +2284,14 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
             return _fleet_stack(sims, dims)
         return base._padded_tensors(dims)
 
-    fetches0 = FETCHES
+    fetches0 = tracing.COUNTERS.get("device_sim.fetches", 0)
     runner = _Runner(base, inputs(), dims["c"], hybrid=behavior_on, hybrid_pred=pred_on)
     use_graph = bool(graph) and runner.device.type == "cuda"
     guard = contextlib.nullcontext()
     if runner.device.type == "cuda":
         guard = torch.cuda.device(runner.device)
-    # K1 and K2 launches: counted eagerly, or recorded per capture × its replays
-    captures, replays, k1_launches, k2_launches, capture_s = 0, 0, 0, 0, 0.0
+    # K1's and K2's launches across the cycles' advances, not the host side
+    captures, capture_s, launched = 0, 0.0, np.zeros(2, dtype=np.int64)
     with torch.no_grad(), guard:
         runner.reset()
         if behavior_on:
@@ -2350,10 +2323,6 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
                                          hybrid_pred=pred_on, keep=old.keep)
                         for new_b, old_b in zip(runner._buffers(), old._buffers()):
                             new_b.copy_(old_b)
-                        if old.graph is not None:
-                            k1_launches += old.k1_per_cycle * replays
-                            k2_launches += old.k2_per_cycle * replays
-                        replays = 0
                     else:
                         runner.load(inputs())
                     runner.state["x_cl"].copy_(torch.as_tensor(x_cl_new))
@@ -2367,18 +2336,13 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
                 captures += 1
                 runner._capture()
                 capture_s += runner.capture_s
-            before = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
+            before = _launches()
             runner.advance(use_graph)
-            replays += 1
-            k1_launches += table_interp.LAUNCHES - before[0]
-            k2_launches += rollout_kernel.LAUNCHES - before[1]
+            launched += _launches() - before
         out = runner.fetch_outputs()
-    if use_graph:
-        k1_launches += runner.k1_per_cycle * replays
-        k2_launches += runner.k2_per_cycle * replays
-    out.update(k1_launches=int(k1_launches), k2_launches=int(k2_launches),
-               graph=use_graph, capture_s=capture_s,
-               captures=captures, fetches=FETCHES - fetches0)
+    out.update(k1_launches=int(launched[0]), k2_launches=int(launched[1]),
+               graph=use_graph, capture_s=capture_s, captures=captures,
+               fetches=tracing.COUNTERS.get("device_sim.fetches", 0) - fetches0)
     return [s._finalize(_member_arrays(out, i if fleet else None), out)
             for i, s in enumerate(sims)]
 

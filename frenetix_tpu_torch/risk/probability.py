@@ -25,7 +25,8 @@ With `utils.tracing` on, the launch (or the chunk loop) is the device span
 `frenetix.risk.quadrature`; the counter `risk.quadrature.cells` counts the
 cells visited, and the device counter `risk.quadrature.useful` the cells
 priced, those inside the gate of a valid slot (on the card Q counts them
-itself).
+itself).  Each launch of Q counts 1 on the host counter `kernel.q.launches`;
+the plain twin's calls are not counted.
 """
 from __future__ import annotations
 
@@ -40,7 +41,6 @@ from frenetix_tpu_torch.ops.costs import quadratic_form_2x2
 from frenetix_tpu_torch.utils import tracing
 
 __all__ = [
-    "LAUNCHES",
     "bvn_cdf",
     "rectangle_probability",
     "collision_probability_fast",
@@ -60,11 +60,6 @@ _GL_NODES = (ctypes.c_double * 48)(*_GL_X, *_GL_W)
 # the plain twin; a chunk's largest temporary is 4 corners × this many
 # elements
 _MAX_CELLS = 1 << 22
-
-# Kernel Q's launches by `collision_probability_fast` (plain-twin calls are
-# not counted).  A call recorded while a CUDA graph is captured counts once;
-# `utils.compiled` adds a capture's launches at each replay.
-LAUNCHES = 0
 
 _KERNEL = "risk_quadrature"
 _ENTRY = {torch.float32: "risk_quadrature_f32", torch.float64: "risk_quadrature_f64"}
@@ -197,7 +192,6 @@ def _kernel_inputs(ro, preds, veh, t):
 def _quadrature(centers3, means3, sx, sy, rho, valid, veh):
     """Kernel Q on `_kernel_inputs`: the (B..., M, O, t) result in one
     launch on the current stream."""
-    global LAUNCHES
     device, dtype = centers3.device, centers3.dtype
     m, o, t = centers3.shape[-3], means3.shape[-3], centers3.shape[-2]
     out = torch.empty(sx.shape[:-2] + (m, o, t), dtype=dtype, device=device)
@@ -219,7 +213,7 @@ def _quadrature(centers3, means3, sx, sy, rho, valid, veh):
                  ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"risk_quadrature kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    tracing.count("kernel.q.launches", 1)
     if useful is not None:
         tracing.device_count("risk.quadrature.useful", useful)
     return out

@@ -65,7 +65,7 @@ from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import (
     load_config, merge_overrides, parse_cli_overrides,
 )
-from frenetix_tpu_torch.utils import visualization
+from frenetix_tpu_torch.utils import tracing, visualization
 from frenetix_tpu_torch.utils.logging import make_msg_logger
 from frenetix_tpu_torch.utils.sim_logging import SimulationLogger
 
@@ -273,18 +273,17 @@ def _pipeline_worker(payload):
     """One scenario end to end in a spawned worker process: (target, status
     rows, None, K1 launches), or (target, None, (repr, traceback), K1
     launches) when it raised."""
-    from frenetix_tpu_torch.ops import table_interp
-
     target, config, device, logs, evaluate, no_logging = payload
     log_dir = None if no_logging else os.path.join(logs, target_name(target))
-    before = table_interp.LAUNCHES
+    k1 = tracing.COUNTERS.get("kernel.k1.launches", 0)
     try:
         res = run_one(target, config, None, log_dir=log_dir, evaluate=evaluate,
                       device=device)
     except Exception as e:      # containment: the pipeline goes on
         return (target, None, (repr(e), traceback.format_exc()),
-                table_interp.LAUNCHES - before)
-    return target, _rows(res.scenario_id, res), None, table_interp.LAUNCHES - before
+                tracing.COUNTERS.get("kernel.k1.launches", 0) - k1)
+    return (target, _rows(res.scenario_id, res), None,
+            tracing.COUNTERS.get("kernel.k1.launches", 0) - k1)
 
 
 def run_pipeline(targets, config, device: torch.device, workers: int, out=None,

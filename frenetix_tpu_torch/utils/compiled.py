@@ -14,11 +14,10 @@ and replays it.
   so they key the entry (the port's `VehicleParams` holds floats where JAX
   traces them as array leaves).  The strides key it too, so that the body
   reads its static buffers in the layout the eager call would read.
-- **First call on CUDA**: the body runs once on a side stream (this builds
-  K1 and warms the allocator), is captured on a memory pool that all
-  entries share, and is replayed.  A body that waits for the host, copies
-  host → device or reads a tensor's value into Python fails its capture,
-  and the error propagates: nothing falls back to eager.
+- **First call on CUDA**: the body is captured on a memory pool that all
+  entries share (`_Graph`, below) and replayed.  A body that waits for the
+  host, copies host → device or reads a tensor's value into Python fails its
+  capture, and the error propagates: nothing falls back to eager.
 - **Outputs belong to the caller**, as JAX's do: after each replay the
   static outputs are copied out, one `torch.cat` per dtype, into fresh
   tensors; no later call overwrites them.
@@ -28,18 +27,24 @@ and replays it.
   callable runs `fn` eagerly and makes no entry.
 - **On the CPU** the same keys, static buffers, copies and output clones
   are used; the "replay" is `fn` run over the static buffers.
-- **Host counters**: an entry records what its capture added to every host
-  counter, the kernels' launch counters (K1's `ops.table_interp.LAUNCHES`,
-  K2's `ops.rollout_kernel.LAUNCHES`, Q's `risk.probability.LAUNCHES`) and
-  `utils.tracing`'s counters;
-  each replay adds the whole record, so a compiled path counts what its
-  eager twin counts.  The warm-up's counts are set-up and are not counted,
-  nor are the capture's (it records, it does not launch).
 - **Tracing** (`utils.tracing`): an outermost call is the span
   `frenetix.compiled`, with the children `.key` (bind, flatten, key
   lookup), `.copy_in`, `.replay` (the replay and the counters' record) and
   `.own`; a capture made with tracing on keeps the device spans and device
-  counters of its body as nodes of the graph.
+  counters of its body as nodes of the graph (`tracing.capture()`).  An
+  entry captured under the other tracing state is dropped at its next call
+  and captured again.
+
+`_Graph` is the port's one way to capture, replay and count a CUDA graph;
+the compiled entries and the device-resident run's cycle
+(`parallel.device_sim`) both use it.  It warms the body up once on a side
+stream under `tracing.warming()` (this builds the kernels and warms the
+allocator), captures it, and records what the capture added to every host
+counter of `utils.tracing` (the kernels' launch counters among them); each
+replay adds that record, so a replayed body counts what its eager twin
+counts.  The warm-up's counts are set-up and are not counted, nor are the
+capture's (it records, it does not launch).  A graph is `stale` once
+tracing was switched since its capture, and is then never replayed.
 
 `CAPTURES` counts the entries made (graphs captured on the card); each
 compiled callable keeps its `entries`, `captures` and `capture_s`, and
@@ -57,8 +62,6 @@ import weakref
 
 import torch
 
-from frenetix_tpu_torch.ops import rollout_kernel, table_interp
-from frenetix_tpu_torch.risk import probability
 from frenetix_tpu_torch.utils import tracing
 
 __all__ = ["CAPTURES", "Compiled", "compiled", "disable_compiled", "clear_all",
@@ -71,7 +74,7 @@ MAX_ENTRIES = 64
 
 _LOCAL = threading.local()
 _REGISTRY: "weakref.WeakSet[Compiled]" = weakref.WeakSet()
-# device → (the graph pool its entries share, the entries captured into it)
+# device → (the graph pool its entries share, the graphs captured into it)
 _POOLS: dict = {}
 
 
@@ -191,50 +194,63 @@ def _own(tree, outs):
 
 
 def _pool(device: torch.device):
-    """(handle, entries) of the pool that captures on `device` share.  When
+    """(handle, graphs) of the pool that captures on `device` share.  When
     every graph captured into a pool is gone the allocator retires the pool
     (a capture into it would fail), so a new one is taken then."""
-    handle, entries = _POOLS.get(device, (None, None))
-    if not entries:
-        handle, entries = torch.cuda.graph_pool_handle(), weakref.WeakSet()
-        _POOLS[device] = (handle, entries)
-    return handle, entries
+    handle, graphs = _POOLS.get(device, (None, None))
+    if not graphs:
+        handle, graphs = torch.cuda.graph_pool_handle(), weakref.WeakSet()
+        _POOLS[device] = (handle, graphs)
+    return handle, graphs
 
 
-# the keys of K1's, K2's and Q's launches in a record of host counters, and
-# the modules that hold them
-_K1 = "ops.table_interp.LAUNCHES"
-_K2 = "ops.rollout_kernel.LAUNCHES"
-_Q = "risk.probability.LAUNCHES"
-_LAUNCHES = {_K1: table_interp, _K2: rollout_kernel, _Q: probability}
+class _Graph:
+    """`body()` captured into a CUDA graph on `device` and the graph pool
+    `pool` (None: a pool of its own), after one warm-up pass on a side
+    stream (see the module's doc).  `out` is what the captured call
+    returned, `counts` what it added to each host counter."""
 
+    __slots__ = ("graph", "out", "counts", "traced", "__weakref__")
 
-def _counters() -> dict:
-    """Every host counter: the kernels' launches and `utils.tracing`'s
-    counters."""
-    return {**tracing.COUNTERS, **{k: m.LAUNCHES for k, m in _LAUNCHES.items()}}
+    def __init__(self, body, device: torch.device, pool=None):
+        before = dict(tracing.COUNTERS)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side), tracing.warming():
+                body()
+            stream.wait_stream(side)
+            at_capture = dict(tracing.COUNTERS)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.out = body()
+        after = dict(tracing.COUNTERS)
+        self.counts = {k: n - at_capture.get(k, 0) for k, n in after.items()
+                       if n != at_capture.get(k, 0)}
+        for k, n in after.items():
+            tracing.count(k, before.get(k, 0) - n)
+        self.traced = tracing.enabled()
 
+    @property
+    def stale(self) -> bool:
+        """Tracing was switched since the capture."""
+        return self.traced != tracing.enabled()
 
-def _add(record: dict) -> None:
-    """Add a record of host counter deltas to the counters."""
-    for name, n in record.items():
-        module = _LAUNCHES.get(name)
-        if module is not None:
-            module.LAUNCHES += n
-        else:
-            tracing.count(name, n)
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.counts.items():
+            tracing.count(k, n)
 
 
 class _Entry:
-    __slots__ = ("buffers", "graph", "out_tree", "outs", "counts", "spans",
-                 "__weakref__")
+    __slots__ = ("buffers", "graph", "out_tree", "outs", "spans", "__weakref__")
 
     def __init__(self, buffers):
         self.buffers = buffers
-        self.graph = None
+        self.graph = None       # the _Graph, on the card
         self.out_tree = None
         self.outs = None
-        self.counts = {}        # what the capture added to each host counter
         self.spans = None       # tracing.DeviceSpans of the capture, if any
 
 
@@ -273,6 +289,10 @@ class Compiled:
             cuda = leaves[0].device.type == "cuda"
             if cuda and torch.cuda.is_current_stream_capturing():
                 return self.eager(*args, **kwargs)     # inlined into the outer capture
+            if entry is not None and entry.graph is not None and entry.graph.stale:
+                # dropped before the new capture: the two never hold memory at once
+                del self.entries[key]
+                entry = None
             if entry is None:
                 entry = self._make(tree, leaves, bound, cuda)
                 self.entries[key] = entry
@@ -317,28 +337,14 @@ class Compiled:
         entry = _Entry([_buffer(t) for t in leaves])
         if cuda:
             device = leaves[0].device
-            with torch.cuda.device(device):
-                before = _counters()
-                stream = torch.cuda.current_stream(device)
-                side = torch.cuda.Stream(device)
-                side.wait_stream(stream)
-                with torch.cuda.stream(side), tracing.warming():
-                    self._call_body(bound, tree, entry.buffers)
-                stream.wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                at_capture = _counters()
-                pool, pool_entries = _pool(device)
-                with tracing.capture() as spans, torch.cuda.graph(graph, pool=pool):
-                    out = self._call_body(bound, tree, entry.buffers)
-                after = _counters()
-                entry.counts = {k: n - at_capture.get(k, 0) for k, n in after.items()
-                                if n != at_capture.get(k, 0)}
-                _add({k: before.get(k, 0) - n for k, n in after.items()})
-                entry.spans = tracing.DeviceSpans(spans) if spans else None
-            entry.graph = graph
-            pool_entries.add(entry)
+            pool, pool_graphs = _pool(device)
+            with tracing.capture() as spans:
+                entry.graph = _Graph(lambda: self._call_body(bound, tree, entry.buffers),
+                                     device, pool)
+            pool_graphs.add(entry.graph)
+            entry.spans = tracing.DeviceSpans(spans) if spans else None
             outs: list = []
-            entry.out_tree = _flatten(out, outs)
+            entry.out_tree = _flatten(entry.graph.out, outs)
             entry.outs = outs
         CAPTURES += 1
         self.captures += 1
@@ -361,7 +367,6 @@ class Compiled:
                 entry.graph.replay()
                 if entry.spans is not None:
                     entry.spans.replayed()
-                _add(entry.counts)
             with tracing.span("frenetix.compiled.own"):
                 return _own(entry.out_tree, entry.outs)
 

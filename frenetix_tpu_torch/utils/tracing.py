@@ -1,10 +1,10 @@
 """Spans and counters inside the port, on the profiler's clock.
 
 Tracing is off by default; `enable()` / `disable()` switch it, and
-`with on():` turns it on for a block.  A switch drops every compiled entry
-(`utils.compiled.clear_all`), and the device-resident run captures again
-at its next run, so no CUDA graph keeps the event or counter nodes of the
-other state.
+`with on():` turns it on for a block.  A CUDA graph captured under the
+other state is never replayed (`utils.compiled._Graph.stale`): a compiled
+entry and the device-resident run capture again at their next call, so no
+graph keeps the event or counter nodes of the other state.
 
 - `span(name)`: with tracing on, `torch.profiler.record_function(name)`,
   so a program span lands in the profiler's event stream beside CUPTI's
@@ -21,15 +21,14 @@ other state.
   work the block enqueues on the device's current stream, from a pair of
   timing events recorded around it; the host does not wait for them, they
   are read in `snapshot()`.  Off the card, a plain `span`.
-- `count(name, n)`: adds to a host counter, always on (as
-  `ops.table_interp.LAUNCHES`).  A compiled entry records what its capture
-  counted and adds it at each replay, so a compiled path counts what its
-  eager twin counts.
+- `count(name, n)`: adds to a host counter, always on.  A captured graph
+  records what its capture counted and adds it at each replay, so a
+  replayed path counts what its eager twin counts.
 - `device_count(name, t)`: with tracing on, adds the device tensor `t` to a
   persistent int64 accumulator on `t`'s device, capturable.  The
-  accumulator is made on a compiled entry's eager warm-up pass (which adds
-  nothing) and never inside a capture.  Inside a capture that
-  `utils.compiled` did not make, device spans and device counters do
+  accumulator is made on a captured graph's eager warm-up pass (which adds
+  nothing) and never inside a capture.  Inside a capture that is not a
+  compiled entry's (`capture()`), device spans and device counters do
   nothing.
 - `snapshot()` syncs once and returns the spans' (total ms, count), the
   host counters and the device counters; `reset()` clears them.
@@ -39,7 +38,10 @@ Spans: `frenetix.compiled` (with `.key`, `.copy_in`, `.replay`, `.own`),
 `.reset`, `.capture`, `.replay`, `.fetch` and `.finalize`; device spans
 `frenetix.risk.quadrature` and `frenetix.device_sim.cycles`.  Counters:
 `risk.quadrature.cells` (host) and `risk.quadrature.useful` (device),
-`device_sim.cycles`, `.captures`, `.fetches` and `.programs` (host).
+`device_sim.cycles`, `.captures`, `.fetches` and `.programs` (host), and
+the kernels' launches `kernel.k1.launches`, `kernel.k2.launches` (K2a + K2b
+pairs) and `kernel.q.launches` (host; calls of the plain twins are not
+counted).
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ _DEVICE: dict = {}
 # DeviceSpans whose last replay has not been folded yet
 _PENDING: set = set()
 # .capture: the device spans a compiled capture records; .warming: inside a
-# compiled entry's warm-up pass
+# captured graph's warm-up pass
 _LOCAL = threading.local()
 
 
@@ -72,34 +74,27 @@ def enabled() -> bool:
     return _ENABLED
 
 
-def _switch(state: bool) -> None:
-    global _ENABLED
-    if state != _ENABLED:
-        from frenetix_tpu_torch.utils import compiled
-
-        _ENABLED = state
-        compiled.clear_all()
-
-
 def enable() -> None:
-    """Turn tracing on (drops every compiled entry if it was off)."""
-    _switch(True)
+    """Turn tracing on."""
+    global _ENABLED
+    _ENABLED = True
 
 
 def disable() -> None:
-    """Turn tracing off (drops every compiled entry if it was on)."""
-    _switch(False)
+    """Turn tracing off."""
+    global _ENABLED
+    _ENABLED = False
 
 
 @contextlib.contextmanager
 def on():
     """Tracing on inside the block, and back as it was after it."""
-    was = _ENABLED
-    enable()
+    global _ENABLED
+    was, _ENABLED = _ENABLED, True
     try:
         yield
     finally:
-        _switch(was)
+        _ENABLED = was
 
 
 def _capturing() -> bool:
@@ -206,8 +201,8 @@ class DeviceSpans:
 
 @contextlib.contextmanager
 def warming():
-    """A compiled entry's eager warm-up pass: device counters make their
-    accumulators and add nothing."""
+    """A captured graph's eager warm-up pass (`utils.compiled._Graph`):
+    device counters make their accumulators and add nothing."""
     saved = getattr(_LOCAL, "warming", False)
     _LOCAL.warming = True
     try:

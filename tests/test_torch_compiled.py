@@ -31,12 +31,13 @@ import torch
 
 from frenetix_tpu_torch.io import scenario_factory as tfactory
 from frenetix_tpu_torch.models import walenet as twalenet
-from frenetix_tpu_torch.ops import table_interp
 from frenetix_tpu_torch.planner import core as tcore
 from frenetix_tpu_torch.planner import reactive as treactive
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import compiled as C
 from frenetix_tpu_torch.utils.config import FrenetixConfig
+
+from torch_parity import host_count
 
 CPU = torch.device("cpu")
 
@@ -446,13 +447,13 @@ def test_compiled_cycle_on_the_card_equals_eager_and_counts_k1(cuda_device):
         2, cuda_device, torch.float32, m_bucket=256)
     call = functools.partial(tcore.evaluate_cycle, dt=dt, n_steps=n, low_vel_mode=False)
     with C.disable_compiled():
-        table_interp.reset_launches()
+        k1 = host_count("kernel.k1.launches")
         want = [call(matrices[a], masks[a], ctxs[a]) for a in range(2)]
-        eager_k1 = table_interp.LAUNCHES
-    table_interp.reset_launches()
+        eager_k1 = host_count("kernel.k1.launches") - k1
+    k1 = host_count("kernel.k1.launches")
     got = [call(matrices[a], masks[a], ctxs[a]) for a in range(2)]
     # both agents' cycles share one signature: one capture, two replays
-    assert table_interp.LAUNCHES == eager_k1 == 2
+    assert host_count("kernel.k1.launches") - k1 == eager_k1 == 2
     assert len(tcore.evaluate_cycle.entries) == 1
     for g, w in zip(got, want):
         for a, b in zip(_leaves(g), _leaves(w)):

@@ -31,8 +31,7 @@ from frenetix_tpu_torch.io import scenario_factory as tfactory
 from frenetix_tpu_torch.parallel import device_sim as tds
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import FrenetixConfig
-
-from torch_parity import coarse_sampling
+from torch_parity import coarse_sampling, host_count
 
 torch.set_num_threads(1)
 
@@ -176,9 +175,10 @@ def test_fsm_step_matches_jax_on_crafted_carries(family):
 def test_in_run_fsm_matches_the_host_sequential_loop(family):
     ds = tds.DeviceSimulation(_sim(family))
     assert ds.fsm_in_scan, ds.fsm_reason
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     dres = ds.run()
-    assert tds.FETCHES == fetches + 1, "the in-run FSM keeps one fetch per run"
+    assert host_count("device_sim.fetches") == fetches + 1, \
+        "the in-run FSM keeps one fetch per run"
     assert not dres.extras.get("bailed")
     hsim = _sim(family)
     hres = hsim.run()
@@ -197,10 +197,11 @@ def test_forced_hybrid_equals_the_in_run_fsm():
     in_run = tds.DeviceSimulation(_sim("traffic_light")).run()
     ds = tds.DeviceSimulation(_sim("traffic_light", device_fsm="hybrid"))
     assert not ds.fsm_in_scan and "hybrid" in ds.fsm_reason
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     hybrid = ds.run()
     # one small fetch per cycle and the run's last one
-    assert tds.FETCHES - fetches == ds.n_cycles + 1 == hybrid.extras["fetches"]
+    fetched = host_count("device_sim.fetches") - fetches
+    assert fetched == ds.n_cycles + 1 == hybrid.extras["fetches"]
     _assert_equal_runs(hybrid, in_run, "hybrid vs in-run FSM")
 
 
@@ -233,10 +234,10 @@ def test_behavior_fleet_equals_solo_runs(device_fsm):
     families = ("traffic_light", "stop_sign")
     sims = [tds.DeviceSimulation(_sim(f, device_fsm)) for f in families]
     assert all(s.fsm_in_scan == (device_fsm == "auto") for s in sims)
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     fleet = tds.run_fleet(sims)
     if device_fsm == "auto":
-        assert tds.FETCHES == fetches + 1
+        assert host_count("device_sim.fetches") == fetches + 1
     solo = [tds.DeviceSimulation(_sim(f, device_fsm)).run() for f in families]
     for f, a, b in zip(families, fleet, solo):
         _assert_equal_runs(a, b, f)

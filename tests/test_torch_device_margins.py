@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CPU, coarse_sampling
+from torch_parity import CPU, coarse_sampling, host_count
 
 torch.set_num_threads(1)
 
@@ -78,9 +78,9 @@ def both(request):
     fetches = []
     results = []
     for emit in (True, False):
-        before = device_sim.FETCHES
+        before = host_count("device_sim.fetches")
         results.append(ds.run(emit_margins=emit))
-        fetches.append(device_sim.FETCHES - before)
+        fetches.append(host_count("device_sim.fetches") - before)
     return family, dtype, {k: np.asarray(v) for k, v in jout.items()}, *results, fetches
 
 

@@ -27,7 +27,7 @@ from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 
 from torch_parity import (CPU, assert_equal_runs, assert_run_equals_host, blind_spot,
-                          device_and_host, post_pass_config)
+                          device_and_host, host_count, post_pass_config)
 
 torch.set_num_threads(1)
 
@@ -67,9 +67,9 @@ def behavior_sim(device_fsm, steps=30):
 def test_behavior_with_responsibility_in_the_run_equals_hybrid_and_host():
     ds = tds.DeviceSimulation(behavior_sim("auto"))
     assert ds.fsm_in_scan and ds.resp_weight == 0.2, ds.fsm_reason
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     in_run = ds.run()
-    assert tds.FETCHES == fetches + 1 and not in_run.extras.get("bailed")
+    assert host_count("device_sim.fetches") == fetches + 1 and not in_run.extras.get("bailed")
     hybrid_ds = tds.DeviceSimulation(behavior_sim("hybrid"))
     assert not hybrid_ds.fsm_in_scan
     hybrid = hybrid_ds.run()

@@ -15,8 +15,7 @@ from frenetix_tpu_torch.io import commonroad as tcr, scenario_factory as tfactor
 from frenetix_tpu_torch.parallel import device_sim as tds
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import FrenetixConfig
-
-from torch_parity import CPU, assert_equal_runs, blind_spot, post_pass_config
+from torch_parity import CPU, assert_equal_runs, blind_spot, host_count, post_pass_config
 
 torch.set_num_threads(1)
 
@@ -44,9 +43,9 @@ def test_fleet_with_post_passes_equals_solo_runs():
     assert g0.road_segs.shape != g1.road_segs.shape
     assert g0.occ_obst.shape != g1.occ_obst.shape
     assert members[0].n_cycles != members[1].n_cycles
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     fleet = tds.run_fleet(members)
-    assert tds.FETCHES == fetches + 1
+    assert host_count("device_sim.fetches") == fetches + 1
     for i, (a, b) in enumerate(zip(fleet, (m.run() for m in fleet_members()))):
         assert_equal_runs(a, b, f"member {i}", atol=0.0)
 

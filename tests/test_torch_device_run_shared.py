@@ -20,11 +20,13 @@ import pytest
 import torch
 
 from frenetix_tpu_torch.io import scenario_factory
-from frenetix_tpu_torch.parallel import device_sim
 from frenetix_tpu_torch.parallel.device_sim import DeviceSimulation, share_runner
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import tracing
+from frenetix_tpu_torch.utils.compiled import _Graph
 from frenetix_tpu_torch.utils.config import load_config
+
+from torch_parity import host_count
 
 FIELDS = ("status", "trajectories", "status_per_step", "selections", "found", "costs")
 CONVOYS = ((10.0, 30.0), (9.4, 33.5))      # (ego speed, gap) of scenarios A and B
@@ -105,12 +107,14 @@ def test_a_switch_of_tracing_makes_the_runner_capture_again():
     ds = _convoy(torch.device("cpu"), *CONVOYS[0])
     ds.run()
     runner = ds._runner
-    assert runner.needs_capture()                       # the CPU captured nothing
-    runner.graph, runner.traced = object(), False       # as after a capture, tracing off
-    assert not runner.needs_capture()
+    assert runner.graph is None                         # the CPU captured nothing
+    # as after a capture with tracing off
+    runner.graph = _Graph.__new__(_Graph)
+    runner.graph.traced = False
+    assert not runner.graph.stale
     with tracing.on():
-        assert runner.needs_capture()
-    assert not runner.needs_capture()
+        assert runner.graph.stale
+    assert not runner.graph.stale
 
 
 def test_the_fetch_carries_each_cycles_chosen_cost():
@@ -124,7 +128,7 @@ def test_a_shared_runner_on_the_card_captures_once_and_matches_fresh_runs():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     card = torch.device("cuda", 0)
-    before = tracing.COUNTERS.get("device_sim.captures", 0)
+    before = host_count("device_sim.captures")
     sims, _ = _shared_against_fresh(card)
     # one capture for the shared runner, one per fresh run
     assert tracing.COUNTERS["device_sim.captures"] - before == 1 + len(CONVOYS)
@@ -132,4 +136,4 @@ def test_a_shared_runner_on_the_card_captures_once_and_matches_fresh_runs():
         _assert_same(sims[1].run(sync_debug=True), sims[1].run())
     # the switch made the shared runner capture again, once
     assert tracing.COUNTERS["device_sim.captures"] - before == 2 + len(CONVOYS)
-    assert device_sim.FETCHES > 0
+    assert host_count("device_sim.fetches") > 0

@@ -29,8 +29,7 @@ from frenetix_tpu_torch.planner.reactive import ReactivePlanner
 from frenetix_tpu_torch.sim.agent import AgentStatus
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import config as tconfig
-
-from torch_parity import CPU, coarse_sampling, to_np
+from torch_parity import CPU, coarse_sampling, host_count, to_np
 
 torch.set_num_threads(1)
 
@@ -534,9 +533,9 @@ def test_device_run_defaults_to_the_card_and_raises_without_one():
 def test_simulation_run_honours_device_resident_sim():
     make = lambda: tfactory.make_highway(n_steps=60)  # noqa: E731
     cfg = _tcfg(simulation={"device_resident_sim": True})
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     res = Simulation(make(), cfg, CPU).run()
-    assert tds.FETCHES == fetches + 1            # one fetch per run
+    assert host_count("device_sim.fetches") == fetches + 1      # one fetch per run
     host = Simulation(make(), _tcfg(), CPU).run()
     assert res.steps == host.steps and res.agent_status == host.agent_status
     assert res.planning_times == []
@@ -563,3 +562,29 @@ def test_run_scenario_device_sim_and_fleet_on_cpu(tmp_path, capsys, monkeypatch)
     rows = (tmp_path / "score_overview.csv").read_text().splitlines()
     assert rows[0] == "scenario;agent;timestep;status;message;wall_s"
     assert len(rows) == 4 and rows[1].startswith("SYN_Highway-1;60000;197;")
+
+
+@pytest.mark.cuda
+def test_a_replayed_run_with_the_risk_stack_counts_as_its_eager_run():
+    """`min_risk` prices every cycle's candidates with kernel Q, so the
+    replayed run moves `risk.quadrature.cells` and `kernel.q.launches` by
+    what its eager run moves them (the capture's and the warm-up's counts
+    are set-up), and returns the eager run's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    names = ("risk.quadrature.cells", "kernel.q.launches", "kernel.k1.launches")
+    cfg = _tcfg(planning={"emergency_mode": "min_risk"},
+                prediction={"max_obstacles": 1})
+    ds = tds.DeviceSimulation(Simulation(tfactory.make_highway(n_steps=24), cfg,
+                                         torch.device("cuda", 0)))
+    counts, results = {}, {}
+    for graph in (False, True):
+        before = {name: host_count(name) for name in names}
+        results[graph] = ds.run(graph=graph)
+        counts[graph] = {name: host_count(name) - before[name] for name in names}
+    assert counts[True] == counts[False]
+    q = counts[False]["kernel.q.launches"]
+    assert q > 0 and q % ds.n_cycles == 0 and counts[False]["risk.quadrature.cells"] > 0
+    for name in ("status", "trajectories", "selections", "found"):
+        np.testing.assert_array_equal(getattr(results[True], name),
+                                      getattr(results[False], name), err_msg=name)

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CPU, statuses
+from torch_parity import CPU, host_count, statuses
 
 torch.set_num_threads(1)
 
@@ -56,10 +56,10 @@ def runs(request):
     family = request.param
     ds = device_sim.DeviceSimulation(_sim(family))
     assert ds.fsm_in_scan, ds.fsm_reason
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     with RunTrace(device_sim) as run_trace:
         dres = ds.run(graph=False)
-    assert device_sim.FETCHES == fetches + 1, "the traced run still fetches once"
+    assert host_count("device_sim.fetches") == fetches + 1, "the traced run still fetches once"
     with CycleTrace(reactive, behavior_module) as host_trace:
         hres = _sim(family).run()
     return family, dres, run_trace, hres, host_trace

@@ -21,8 +21,7 @@ from frenetix_tpu_torch.io import scenario_factory as tfactory
 from frenetix_tpu_torch.parallel import device_sim as tds
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import config as tconfig
-
-from torch_parity import CPU, coarse_sampling
+from torch_parity import CPU, coarse_sampling, host_count
 
 torch.set_num_threads(1)
 
@@ -48,9 +47,9 @@ def _members():
 
 @pytest.fixture(scope="module")
 def fleet_and_solo():
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     fleet = tds.run_fleet(_members())
-    assert tds.FETCHES == fetches + 1            # ONE fetch for the whole fleet
+    assert host_count("device_sim.fetches") == fetches + 1      # ONE fetch for the whole fleet
     return fleet, [s.run() for s in _members()]
 
 
@@ -88,9 +87,9 @@ def test_chunked_fleet_equals_unchunked(fleet_and_solo):
     """chunk = 2: two runs through the same buffers, the second filled with a
     repeat of its first member; one fetch per group."""
     fleet, _ = fleet_and_solo
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     chunked = tds.run_fleet(_members(), chunk=2)
-    assert tds.FETCHES == fetches + 2
+    assert host_count("device_sim.fetches") == fetches + 2
     assert len(chunked) == 3
     for got, want in zip(chunked, fleet):
         _assert_same(got, want)

@@ -37,7 +37,8 @@ from frenetix_tpu_torch.planner.core import (
 )
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import config as tconfig
-from tests.torch_parity import ATOL, CPU, RTOL, t64, to_np
+
+from tests.torch_parity import ATOL, CPU, RTOL, host_count, t64, to_np
 
 torch.set_num_threads(1)
 
@@ -140,9 +141,9 @@ def _same_or_tie(best_a, best_b, cost_row):
 
 def test_batched_full_cycle_matches_jax(jax_problem):
     matrices, masks, tctx, jout = jax_problem
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     tout = tmesh.batched_full_cycle(dt=DT, n_steps=N)(matrices, masks, tctx)
-    assert table_interp.LAUNCHES == before      # CPU tensors: the plain twin
+    assert host_count("kernel.k1.launches") == before      # CPU tensors: the plain twin
     res = teval(matrices, masks, tctx, dt=DT, n_steps=N, low_vel_mode=False)
     cost = to_np(res.cost)
     np.testing.assert_array_equal(to_np(tout["found"]), jout["found"])

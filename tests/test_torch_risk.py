@@ -36,7 +36,8 @@ from frenetix_tpu_torch.risk import costs as trc
 from frenetix_tpu_torch.risk import harm as tharm
 from frenetix_tpu_torch.risk import probability as tprob
 from frenetix_tpu_torch.utils import tracing
-from tests.torch_parity import CPU, curved_ref_np, t64, to_np, torch_rollout
+
+from tests.torch_parity import CPU, curved_ref_np, host_count, t64, to_np, torch_rollout
 
 torch.set_num_threads(1)
 
@@ -149,11 +150,11 @@ def test_collision_probability_on_the_cpu_loads_no_kernel(risk_inputs, monkeypat
         raise AssertionError("a CPU call must not build a kernel")
     monkeypatch.setattr(_kernels, "_nvcc", no_nvcc)
     monkeypatch.setattr(_kernels, "_libraries", {})
-    launches = tprob.LAUNCHES
+    launches = host_count("kernel.q.launches")
     prob, _ = tprob.collision_probability_fast(tro, tpreds, VehicleParams())
     assert float(prob.max()) > 0.05
     assert "risk_quadrature" not in _kernels._libraries
-    assert tprob.LAUNCHES == launches
+    assert host_count("kernel.q.launches") == launches
 
 
 @pytest.mark.parametrize("fault", ["f32_predictions", "f32_rollout_field", "int_valid",
@@ -179,7 +180,7 @@ def test_collision_probability_counts_every_cell(risk_inputs):
                           else v for v in tro))
     preds2 = type(tpreds)(*(torch.stack([v, v]) for v in tpreds))
     m, o = tro.x.shape[0], tpreds.num_obstacles
-    before = tracing.COUNTERS.get("risk.quadrature.cells", 0)
+    before = host_count("risk.quadrature.cells")
     prob, t = tprob.collision_probability_fast(stacked, preds2, VehicleParams())
     assert prob.shape == (2, m, o, t)
     assert tracing.COUNTERS["risk.quadrature.cells"] - before == 2 * m * o * t

@@ -64,6 +64,10 @@ def _tracing_off():
     C.clear_all()
 
 
+def _launches():
+    return tracing.COUNTERS.get("kernel.q.launches", 0)
+
+
 def _problem(lead, m, o, n1, horizon, dtype, device, seed=0):
     """Candidates driving along x at 8-14 m/s with lateral offsets; obstacle
     slots beside and ahead of them, some beyond the gate, some invalid
@@ -164,27 +168,27 @@ def test_q_matches_the_plain_twin(case, dtype, cuda_device):
     assert bool(torch.isfinite(got).all())
 
 
-def test_q_launches_once_per_call(cuda_device, monkeypatch):
+def test_q_launches_once_per_call(cuda_device):
     ro, preds = _problem((2,), 64, 4, 31, 31, torch.float32, cuda_device)
-    monkeypatch.setattr(probability, "LAUNCHES", 0)
+    before = _launches()
     for n in range(1, 4):
         probability.collision_probability_fast(ro, preds, VEH)
-        assert probability.LAUNCHES == n
+        assert _launches() - before == n
     probability.collision_probability_fast(ro, preds, VEH, plain=True)
-    assert probability.LAUNCHES == 3
+    assert _launches() - before == 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_q_replayed_equals_eager(dtype, cuda_device, monkeypatch):
+def test_q_replayed_equals_eager(dtype, cuda_device):
     ro, preds = _problem((2,), 130, 16, 31, 31, dtype, cuda_device)
     eager, _ = probability.collision_probability_fast(ro, preds, VEH)
     program = C.compiled(probability.collision_probability_fast)
-    monkeypatch.setattr(probability, "LAUNCHES", 0)
+    before = _launches()
     for _ in range(3):
         replayed, _ = program(ro, preds, VEH)
     torch.cuda.synchronize()
     assert program.captures == 1
-    assert probability.LAUNCHES == 3          # the capture's launch, added per replay
+    assert _launches() - before == 3          # the capture's launch, added per replay
     assert torch.equal(replayed, eager)
 
 

@@ -31,10 +31,12 @@ import torch
 from frenetix_tpu_torch.geometry.corridor import strip_corridor
 from frenetix_tpu_torch.geometry.refpath import prepare_reference_path
 from frenetix_tpu_torch.ops import kinematics as kin
-from frenetix_tpu_torch.ops import rollout_kernel, table_interp
+from frenetix_tpu_torch.ops import rollout_kernel
 from frenetix_tpu_torch.ops.sampling import build_sampling_matrix, linspace_samples, \
     time_samples
 from frenetix_tpu_torch.utils import compiled as C
+
+from torch_parity import host_count
 
 DT = 0.1
 VEH = kin.VehicleParams()
@@ -119,10 +121,10 @@ def _assert_bitwise(got, want, what):
 def _both(matrix, ref, x0, *, extras=None, **kw):
     """(K2's rollout, the plain twin's) of the same tensors on the card, and
     the K2 launches the first made."""
-    before = rollout_kernel.LAUNCHES
+    before = host_count("kernel.k2.launches")
     got = kin.rollout_candidates(matrix, ref, VEH, x0_orientation=x0,
                                  extra_ref_tables=extras, **kw)
-    launches = rollout_kernel.LAUNCHES - before
+    launches = host_count("kernel.k2.launches") - before
     want = kin.rollout_candidates_plain(matrix, ref, VEH, x0_orientation=x0,
                                         extra_ref_tables=extras, **kw)
     torch.cuda.synchronize()
@@ -139,11 +141,11 @@ def test_cpu_tensors_run_the_plain_twin():
     kw = dict(dt=DT, n_steps=30, low_vel_mode=False, x0_orientation=0.35,
               extra_ref_tables=_tensor(strip_corridor(ref, 3.5), cpu, torch.float64),
               table_window=768)
-    before = rollout_kernel.LAUNCHES
+    before = host_count("kernel.k2.launches")
     got = kin.rollout_candidates(matrix, _ref_tensors(ref, cpu, torch.float64), VEH, **kw)
     want = kin.rollout_candidates_plain(matrix, _ref_tensors(ref, cpu, torch.float64),
                                         VEH, **kw)
-    assert rollout_kernel.LAUNCHES == before
+    assert host_count("kernel.k2.launches") == before
     _assert_bitwise(got, want, "cpu")
 
 
@@ -255,11 +257,12 @@ def test_k2_launches_once_per_compiled_replay(cuda_device):
     C.clear_all()
     kw = dict(dt=dt, n_steps=n_steps, low_vel_mode=False)
     first = evaluate_cycle(matrix, mask, ctx, **kw)           # warm-up and capture
-    k1, k2 = table_interp.LAUNCHES, rollout_kernel.LAUNCHES
+    k1, k2 = host_count("kernel.k1.launches"), host_count("kernel.k2.launches")
     for _ in range(3):
         again = evaluate_cycle(matrix, mask, ctx, **kw)
     torch.cuda.synchronize()
-    assert (table_interp.LAUNCHES - k1, rollout_kernel.LAUNCHES - k2) == (3, 3)
+    assert host_count("kernel.k1.launches") - k1 == 3
+    assert host_count("kernel.k2.launches") - k2 == 3
     assert evaluate_cycle.captures == 1
     _assert_bitwise(again.rollout, first.rollout, "replayed against the first call")
     C.clear_all()
@@ -280,10 +283,10 @@ def test_k2_launches_in_a_device_run(graph, cuda_device):
                      cuda_device)
     sim.max_steps = 12
     run = DeviceSimulation(sim)
-    k2 = rollout_kernel.LAUNCHES
+    k2 = host_count("kernel.k2.launches")
     res = run.run(graph=graph)
-    if not graph:
-        assert rollout_kernel.LAUNCHES - k2 == res.extras["k2_launches"]
+    # a replay adds what its capture recorded, as the eager body counts
+    assert host_count("kernel.k2.launches") - k2 == res.extras["k2_launches"]
     # one rollout per program (kinematics mode) and cycle, each around one K1
     assert res.extras["k2_launches"] % run.n_cycles == 0
     assert res.extras["k2_launches"] == res.extras["k1_launches"] > 0
@@ -295,7 +298,7 @@ def test_k2_refuses_what_it_does_not_take(cuda_device):
     matrix = _tensor(_matrix("normal", level=1), cuda_device, torch.float32)
     tables = _ref_tensors(ref, cuda_device, torch.float32)
     kw = dict(dt=DT, n_steps=30, low_vel_mode=False, x0_orientation=0.35)
-    before = rollout_kernel.LAUNCHES, table_interp.LAUNCHES
+    before = host_count("kernel.k2.launches"), host_count("kernel.k1.launches")
     with pytest.raises(TypeError):
         kin.rollout_candidates(matrix.half(), _ref_tensors(ref, cuda_device, torch.half),
                                VEH, **kw)
@@ -311,4 +314,4 @@ def test_k2_refuses_what_it_does_not_take(cuda_device):
         kin.rollout_candidates(matrix[None].expand(3, -1, -1),
                                _ref_tensors([ref, ref], cuda_device, torch.float32), VEH,
                                **kw)
-    assert (rollout_kernel.LAUNCHES, table_interp.LAUNCHES) == before
+    assert (host_count("kernel.k2.launches"), host_count("kernel.k1.launches")) == before

@@ -43,6 +43,8 @@ import torch
 from frenetix_tpu_torch import run_scenario
 from frenetix_tpu_torch.io import commonroad_writer, scenario_factory
 
+from torch_parity import host_count
+
 torch.set_num_threads(2)
 
 # wall-time columns, per table
@@ -242,9 +244,9 @@ def test_device_sim_log_set_against_host_run(tmp_path, capsys):
     xml = _short_highway(tmp_path)
     common = [xml, "--device", "cpu", "--set", "dtype=float64", *FAST, "--evaluate"]
     assert run_scenario.main([*common, "--logs", str(tmp_path / "host")]) == 0
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     assert run_scenario.main([*common, "--device-sim", "--logs", str(tmp_path / "dev")]) == 0
-    assert device_sim.FETCHES == fetches + 1          # one fetch for the run
+    assert host_count("device_sim.fetches") == fetches + 1          # one fetch for the run
     host, dev = tmp_path / "host" / "hw", tmp_path / "dev" / "hw"
     for rel in ("simulation.db", "60000/trajectories.db", "60000/logs.csv",
                 "solution_60000.xml"):
@@ -346,10 +348,10 @@ def test_cli_device_sim_evaluate_on_card(cuda_device, tmp_path):
     with one fetch, evaluated; the JAX device path's log set."""
     from frenetix_tpu_torch.parallel import device_sim
 
-    fetches = device_sim.FETCHES
+    fetches = host_count("device_sim.fetches")
     assert run_scenario.main(["highway", "--multiagent", "--device-sim", "--evaluate",
                               "--logs", str(tmp_path)]) == 0
-    assert device_sim.FETCHES == fetches + 1
+    assert host_count("device_sim.fetches") == fetches + 1
     t = _tables(str(tmp_path / "highway" / "simulation.db"))
     assert not t["results"][1] and t["scenario_evaluation"][1]
     assert len({r[1] for r in t["scenario_evaluation"][1]}) == 2

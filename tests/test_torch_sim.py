@@ -43,6 +43,8 @@ from frenetix_tpu_torch.planner.initial_state import compute_initial_state
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils import config as tconfig
 
+from torch_parity import host_count
+
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,9 +72,9 @@ def test_simulation_matches_jax(family):
     tcfg = tconfig.load_config()
     tcfg.dtype = "float64"
     jres = JaxSimulation(make(), jcfg).run()
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     tres = Simulation(make(), tcfg, torch.device("cpu")).run()
-    assert table_interp.LAUNCHES == before       # the CPU path uses the plain twin
+    assert host_count("kernel.k1.launches") == before       # the CPU path uses the plain twin
 
     assert tres.steps == jres.steps
     assert ({k: v.name for k, v in tres.agent_status.items()}
@@ -124,11 +126,11 @@ def test_features_outside_the_slice_raise(override, tmp_path, monkeypatch):
     calls = []
     monkeypatch.setattr(frenet, "interp_rows", lambda *a, **k: calls.append(1))
     cfg = tconfig.load_config(overrides=override, strict_overrides=True)
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     with pytest.raises(ImportError, match="matplotlib") as err:
         Simulation(make_highway(), cfg, torch.device("cpu"), log_dir=str(tmp_path))
     assert err.value.name == "matplotlib"
-    assert table_interp.LAUNCHES == before and not calls
+    assert host_count("kernel.k1.launches") == before and not calls
     assert not (tmp_path / "frames").exists()
 
 
@@ -323,9 +325,9 @@ def test_k1_kernel_bitwise_equals_plain_twin(cuda_device, dtype, p):
     gidx = torch.as_tensor(rng.integers(0, 867, p), dtype=torch.int32,
                            device=cuda_device)
     lam = torch.as_tensor(rng.uniform(-0.5, 1.5, p), dtype=dtype, device=cuda_device)
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     got = table_interp.interp_rows(table, gidx, lam)
-    assert table_interp.LAUNCHES == before + 1
+    assert host_count("kernel.k1.launches") == before + 1
     want = table_interp.interp_rows_plain(table, gidx, lam)
     torch.cuda.synchronize()
     assert got.shape == (7, p) and got.is_contiguous()
@@ -356,9 +358,9 @@ def test_dense_cycle_on_card_matches_cpu_float64(cuda_device):
         m, k, c, dt, n, _ = dense_cycle_problem(device, dtype, density=3, bucket=256)
         return evaluate_cycle(m, k, c, dt=dt, n_steps=n, low_vel_mode=False), k
 
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     res, mask = run(cuda_device, torch.float32)
-    assert table_interp.LAUNCHES > before
+    assert host_count("kernel.k1.launches") > before
     ref, _ = run(torch.device("cpu"), torch.float64)
     assert bool(res.found) and bool(ref.found)
     np.testing.assert_array_equal(res.histogram.cpu().numpy(), ref.histogram.numpy())
@@ -385,17 +387,17 @@ def test_batched_cycle_on_card_is_one_launch_and_equals_sequential(cuda_device, 
     matrices, masks, ctx, ctxs, dt, n = workloads.stacked_cycle_problem(
         n_agents, cuda_device, dtype, m_bucket=1024, spread=12.0, ragged=True)
     fn = batched_full_cycle(dt=dt, n_steps=n)
-    table_interp.reset_launches()
+    k1 = host_count("kernel.k1.launches")
     out = fn(matrices, masks, ctx)
     torch.cuda.synchronize()
-    assert table_interp.LAUNCHES == 1
+    assert host_count("kernel.k1.launches") - k1 == 1
     res = evaluate_cycle(matrices, masks, ctx, dt=dt, n_steps=n, low_vel_mode=False)
     for a in range(n_agents):
         seq = evaluate_cycle(matrices[a], masks[a], ctxs[a], dt=dt, n_steps=n,
                              low_vel_mode=False)
         assert int(out["best"][a]) == int(seq.best_idx)
         assert torch.equal(res.cost[a], seq.cost)
-    assert table_interp.LAUNCHES == 2 + n_agents
+    assert host_count("kernel.k1.launches") - k1 == 2 + n_agents
 
 
 @pytest.mark.cuda
@@ -428,10 +430,10 @@ def test_compute_initial_state_on_card_is_one_launch(cuda_device, dtype):
     cpu64 = initial_state_problem(8, torch.device("cpu"), torch.float64)[:2]
     card = initial_state_problem(8, cuda_device, dtype)[:2]
     want = compute_initial_state(*cpu64, 2.578, False)
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     got = compute_initial_state(*card, 2.578, False)
     torch.cuda.synchronize()
-    assert table_interp.LAUNCHES == before + 1
+    assert host_count("kernel.k1.launches") == before + 1
     tol = 1e-10 if dtype == torch.float64 else 1e-3
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.double().cpu().numpy(), w.numpy(), rtol=tol, atol=tol)

@@ -5,8 +5,8 @@
   it, and the host sampling matrix is `frenetix.sampling.matrix` and
   `.pad`; with tracing off the same profile holds no `frenetix.` event;
 - (b) a counter bumped in a compiled body counts per call as its eager
-  twin does, and a capture's record of host counters adds K1's and Q's
-  launches and the tracing counters at each replay;
+  twin does, and a captured graph (`utils.compiled._Graph`) adds its record
+  of host counters, the kernels' launches among them, at each replay;
 - (c) on a small rollout with one obstacle slot near, one far and one
   invalid, `risk.quadrature.cells` and `risk.quadrature.useful` equal a
   plain NumPy count of the cells and of (gate ∧ valid), eager and compiled;
@@ -14,14 +14,20 @@
   quadrature's device counter stays unmade;
 - (e) `snapshot()` and `reset()` round-trip, device spans folded once per
   replay included;
-- switching tracing drops every compiled entry, and `on()` restores the
-  state it found.
+- a switch of tracing makes every compiled entry capture again at its next
+  call, and `on()` restores the state it found;
+- the layering, read from the sources with `ast`: `utils.tracing` imports
+  nothing of the port, `utils.compiled` only `utils.tracing`, no other
+  module captures a CUDA graph, and no module keeps a `LAUNCHES` global.
 
 The card's case (a device span inside a CUDA graph, timed at each replay)
 carries the `cuda` marker and skips here.
 """
 from __future__ import annotations
 
+import ast
+import functools
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -29,10 +35,8 @@ import pytest
 import torch
 
 from frenetix_tpu_torch.ops import sampling
-from frenetix_tpu_torch.ops import rollout_kernel, table_interp
 from frenetix_tpu_torch.ops.costs import PredictionTensors
 from frenetix_tpu_torch.ops.kinematics import VehicleParams
-from frenetix_tpu_torch.risk import probability
 from frenetix_tpu_torch.risk.probability import collision_probability_fast
 from frenetix_tpu_torch.utils import compiled as C
 from frenetix_tpu_torch.utils import tracing
@@ -120,31 +124,43 @@ def test_a_counter_in_a_compiled_body_counts_per_call_as_its_eager_twin():
     program = _program()
     xs = [torch.arange(6.0), torch.arange(6.0) - 2.0, torch.ones(6)]
     with C.disable_compiled():
-        table_interp.reset_launches()
         for x in xs:
             program(x, scale=2.0)
-        eager = (tracing.COUNTERS["test.elements"], table_interp.LAUNCHES)
+        eager = dict(tracing.COUNTERS)
     tracing.reset()
-    table_interp.reset_launches()
     for x in xs:
         program(x, scale=2.0)
     assert len(program.entries) == 1
-    assert (tracing.COUNTERS["test.elements"], table_interp.LAUNCHES) == eager == (18, 0)
+    # the CPU runs the kernels' plain twins, which count no launch
+    assert tracing.COUNTERS == eager == {"test.elements": 18}
 
 
-def test_a_capture_record_adds_every_host_counter_at_each_replay(monkeypatch):
-    table_interp.reset_launches()
-    monkeypatch.setattr(probability, "LAUNCHES", 0)
-    monkeypatch.setattr(rollout_kernel, "LAUNCHES", 0)
-    record = {C._K1: 2, C._K2: 2, C._Q: 1, "test.cells": 30}
+class _Replays:
+    """A stand-in for a CUDA graph: counts its replays."""
+
+    def __init__(self):
+        self.n = 0
+
+    def replay(self):
+        self.n += 1
+
+
+def _captured(counts: dict, traced: bool) -> C._Graph:
+    """A `_Graph` as a capture with tracing `traced` leaves it (the CPU
+    captures nothing)."""
+    graph = C._Graph.__new__(C._Graph)
+    graph.graph, graph.out, graph.counts, graph.traced = _Replays(), None, counts, traced
+    return graph
+
+
+def test_a_capture_record_adds_every_host_counter_at_each_replay():
+    record = {"kernel.k1.launches": 2, "kernel.k2.launches": 2, "kernel.q.launches": 1,
+              "test.cells": 30}
+    graph = _captured(dict(record), traced=False)
     for _ in range(3):
-        C._add(record)
-    assert table_interp.LAUNCHES == 6
-    assert rollout_kernel.LAUNCHES == 6
-    assert probability.LAUNCHES == 3
-    assert tracing.COUNTERS["test.cells"] == 90
-    assert C._counters() == {C._K1: 6, C._K2: 6, C._Q: 3, "test.cells": 90}
-    table_interp.reset_launches()
+        graph.replay()
+    assert graph.graph.n == 3
+    assert tracing.COUNTERS == {name: 3 * n for name, n in record.items()}
 
 
 # ------------------------------------------------------------------ (c)
@@ -277,19 +293,29 @@ def test_snapshot_and_reset_round_trip():
     assert tracing.snapshot()["spans"] == {}
 
 
-def test_switching_drops_every_compiled_entry_and_on_restores_the_state():
+def test_a_switch_makes_every_entry_capture_again_at_its_next_call():
+    """Each entry is given the graph a capture on the card would leave; a
+    call under the other tracing state drops the entry and captures again."""
     program = _program()
-    program(torch.ones(2), scale=1.0)
-    assert len(program.entries) == 1
-    with tracing.on():
-        assert tracing.enabled() and not program.entries
+
+    def captures_after_a_call():
         program(torch.ones(2), scale=1.0)
+        for entry in program.entries.values():
+            if entry.graph is None:
+                entry.graph = _captured({}, traced=tracing.enabled())
+        assert len(program.entries) == 1
+        return program.captures
+
+    assert captures_after_a_call() == 1
+    with tracing.on():
+        assert tracing.enabled() and program.entries          # dropped at the call
+        assert captures_after_a_call() == 2
         with tracing.on():
-            assert len(program.entries) == 1              # no switch, no drop
-    assert not tracing.enabled() and not program.entries
-    program(torch.ones(2), scale=1.0)
+            assert captures_after_a_call() == 2               # no switch, no capture
+    assert not tracing.enabled()
+    assert captures_after_a_call() == 3
     tracing.disable()
-    assert len(program.entries) == 1
+    assert captures_after_a_call() == 3
 
 
 def test_span_is_one_shared_no_op_with_tracing_off():
@@ -297,6 +323,68 @@ def test_span_is_one_shared_no_op_with_tracing_off():
     with tracing.on():
         assert tracing.span("a") is not tracing.span("a")
     assert isinstance(tracing.span("a"), type(tracing._NOOP))
+
+
+# ------------------------------------------------------------------ layering
+
+PORT = Path(__file__).resolve().parents[1] / "frenetix_tpu_torch"
+
+
+@functools.cache
+def _sources() -> dict:
+    """The port's modules, path under the package → parsed source."""
+    return {p.relative_to(PORT).as_posix(): ast.parse(p.read_text(encoding="utf-8"))
+            for p in sorted(PORT.rglob("*.py"))}
+
+
+def _port_imports(tree) -> set:
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(PORT.name):
+            names |= {f"{node.module}.{a.name}" for a in node.names}
+        elif isinstance(node, ast.Import):
+            names |= {a.name for a in node.names if a.name.startswith(PORT.name)}
+    return names
+
+
+def _captures(tree) -> bool:
+    """`tree` names `torch.cuda.CUDAGraph` or `torch.cuda.graph`."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and node.attr in ("CUDAGraph", "graph")
+                and ast.unparse(node.value) == "torch.cuda"):
+            return True
+        if isinstance(node, ast.ImportFrom) and node.module == "torch.cuda" and any(
+                a.name in ("CUDAGraph", "graph") for a in node.names):
+            return True
+    return False
+
+
+def _globals(tree) -> set:
+    names = set()
+    for node in tree.body:
+        targets = node.targets if isinstance(node, ast.Assign) else (
+            [node.target] if isinstance(node, (ast.AnnAssign, ast.AugAssign)) else [])
+        names |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return names
+
+
+# rule → (what the sources show, what the rule wants)
+LAYERING = {
+    "tracing imports nothing of the port": lambda src: (
+        _port_imports(src["utils/tracing.py"]), set()),
+    "compiled imports only tracing of the port": lambda src: (
+        _port_imports(src["utils/compiled.py"]), {"frenetix_tpu_torch.utils.tracing"}),
+    "only compiled captures a CUDA graph": lambda src: (
+        {m for m, tree in src.items() if _captures(tree)}, {"utils/compiled.py"}),
+    "no module keeps a LAUNCHES global": lambda src: (
+        {m for m, tree in src.items() if "LAUNCHES" in _globals(tree)}, set()),
+}
+
+
+@pytest.mark.parametrize("rule", list(LAYERING))
+def test_graphs_and_counters_have_one_home_in_the_sources(rule):
+    got, want = LAYERING[rule](_sources())
+    assert got == want, rule
 
 
 # ------------------------------------------------------------------ card

@@ -28,11 +28,10 @@ import torch  # noqa: E402
 
 from frenetix_tpu_torch import run_scenario  # noqa: E402
 from frenetix_tpu_torch.geometry import frenet  # noqa: E402
-from frenetix_tpu_torch.ops import table_interp  # noqa: E402
 from frenetix_tpu_torch.sim.simulation import Simulation  # noqa: E402
 from frenetix_tpu_torch.utils import config as tconfig  # noqa: E402
 from frenetix_tpu_torch.utils import visualization as tvis  # noqa: E402
-from tests.torch_parity import to_np  # noqa: E402
+from tests.torch_parity import host_count, to_np  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -120,13 +119,13 @@ def port_runs(tmp_path_factory):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(tvis, "plot_scenario_at_timestep", _frame_spy(tvis, frames))
             _count_k1_calls(mp, calls)
-            launches = table_interp.LAUNCHES
+            launches = host_count("kernel.k1.launches")
             sim = Simulation(make_highway(n_steps=N_STEPS),
                              _configure(tconfig.FrenetixConfig(), over), CPU,
                              log_dir=log_dir)
             res = sim.run()
         out[case] = (res, frames, _frame_names(log_dir), len(calls),
-                     table_interp.LAUNCHES - launches)
+                     host_count("kernel.k1.launches") - launches)
     return out
 
 
@@ -202,9 +201,9 @@ def test_plotted_run_replans_as_its_unplotted_twin(port_runs, monkeypatch):
     _count_k1_calls(monkeypatch, twin_calls)
     cfg = _configure(tconfig.FrenetixConfig(), {})
     cfg.visualization.save_plots = False
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     twin = Simulation(make_highway(n_steps=N_STEPS), cfg, CPU).run()
-    assert table_interp.LAUNCHES - before == launches
+    assert host_count("kernel.k1.launches") - before == launches
     assert len(twin_calls) == calls > 0
     for aid, hist in twin.histories.items():
         np.testing.assert_array_equal(np.array([s.position for s in hist]),
@@ -230,10 +229,10 @@ def test_cli_without_the_package_fails_before_the_run(tmp_path, monkeypatch, cap
     _block(monkeypatch, blocked)
     loads = []
     monkeypatch.setattr(run_scenario, "load_target", lambda t: loads.append(t))
-    before = table_interp.LAUNCHES
+    before = host_count("kernel.k1.launches")
     logs = tmp_path / "logs"
     rc = run_scenario.main(["highway", "--device", "cpu", "--logs", str(logs), *flags])
-    assert rc == 1 and not loads and table_interp.LAUNCHES == before
+    assert rc == 1 and not loads and host_count("kernel.k1.launches") == before
     rows = list(csv.reader(open(logs / "log_failures.csv"), delimiter=";"))
     assert len(rows) == 1 and rows[0][0] == "highway"
     assert rows[0][1].startswith("ImportError") and blocked in rows[0][1]

@@ -43,8 +43,7 @@ from frenetix_tpu_torch.parallel import device_sim as tds
 from frenetix_tpu_torch.sim.simulation import Simulation
 from frenetix_tpu_torch.utils.config import FrenetixConfig
 from frenetix_tpu_torch.workloads import write_synthetic_walenet_onnx
-
-from torch_parity import CPU, coarse_sampling
+from torch_parity import CPU, coarse_sampling, host_count
 
 torch.set_num_threads(1)
 
@@ -118,9 +117,9 @@ def _device_against_host_batched(make, multi, behavior=False):
     sim = Simulation(make(), _cfg(FrenetixConfig, multi, behavior=behavior), CPU)
     ds = tds.DeviceSimulation(sim)
     assert ds.hybrid_pred and not ds.fsm_in_scan
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     dres = ds.run()
-    assert tds.FETCHES - fetches == ds.n_cycles + 1 == dres.extras["fetches"]
+    assert host_count("device_sim.fetches") - fetches == ds.n_cycles + 1 == dres.extras["fetches"]
     host = Simulation(make(), _cfg(FrenetixConfig, multi, True, behavior), CPU).run()
     assert dres.steps == host.steps
     assert [int(s) for s in dres.status] == [int(host.agent_status[a])
@@ -150,9 +149,9 @@ def test_walenet_fleet_runs_members_one_after_another():
              lambda: tfactory.make_overtake(n_steps=40)]
     sims = [tds.DeviceSimulation(Simulation(m(), _cfg(FrenetixConfig), CPU))
             for m in makes]
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     results = tds.run_fleet(sims)
-    assert tds.FETCHES - fetches == sum(s.n_cycles + 1 for s in sims)
+    assert host_count("device_sim.fetches") - fetches == sum(s.n_cycles + 1 for s in sims)
     for make, res in zip(makes, results):
         solo = tds.DeviceSimulation(Simulation(make(), _cfg(FrenetixConfig), CPU)).run()
         assert res.extras["fleet_size"] == 2

@@ -184,6 +184,15 @@ def post_pass_config(make, *, resp=0.0, module=False, soft=True, vis=False,
     return cfg
 
 
+def host_count(name: str) -> int:
+    """The port's host counter `name` (`utils.tracing`), 0 before its first
+    count: kernel launches (`kernel.k1.launches`, ...) and device→host
+    copies (`device_sim.fetches`)."""
+    from frenetix_tpu_torch.utils import tracing
+
+    return tracing.COUNTERS.get(name, 0)
+
+
 def device_and_host(make, cfg, steps):
     """(DeviceSimulation, its result, the host sequential Simulation, its
     result) of the port, both cut to `steps` steps; the run fetches once."""
@@ -193,9 +202,9 @@ def device_and_host(make, cfg, steps):
     sim = Simulation(make(), cfg, CPU)
     sim.max_steps = steps
     ds = tds.DeviceSimulation(sim)
-    fetches = tds.FETCHES
+    fetches = host_count("device_sim.fetches")
     dres = ds.run()
-    assert tds.FETCHES == fetches + 1, "one fetch per run"
+    assert host_count("device_sim.fetches") == fetches + 1, "one fetch per run"
     host = Simulation(make(), cfg, CPU)
     host.max_steps = steps
     return ds, dres, host, host.run()
