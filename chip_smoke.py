@@ -7,7 +7,8 @@ Phases, each printed on lines of its own:
 
 1. device: a CUDA device must exist and be Hopper (compute capability 9.x);
    prints the card's name and power limit; TF32 is switched off.
-2. build: compiles the K1 kernel (csrc/table_interp.cu) and kernel Q
+2. build: compiles the K1 kernel (csrc/table_interp.cu), K2
+   (csrc/rollout.cu), K3 (csrc/cycle.cu) and kernel Q
    (csrc/risk_quadrature.cu) with nvcc; prints ptxas's register report.
 3. K1 against its plain PyTorch twin on the card, at the dense cycle's
    shapes (R = 868, C = 7, P = 1,079,296), at the simulations' P = 1024 x 31
@@ -260,6 +261,19 @@ Phases, each printed on lines of its own:
    path (phase 9's batched cycle with responsibility) launches Q once per
    call, compiled and replaying.
 
+22. (run after phase 21) kernel K2, the rollout (K2a -> K1 -> K2b): (a)
+   bitwise against its plain twin at the dense, batched and device-run
+   shapes, float32 and float64; (b) its time, the twin's and its bytes
+   bound; (c) on every main path one K2 launch pair per rollout, and one K3
+   launch per K2 pair; (d) kernels per replay with the twin and with K2.
+23. (run after phase 22) kernel K3, the stages after the rollout: (a) at
+   the dense, batched and device-run shapes against the plain stages:
+   flags, steps, harms and the jerk terms bitwise, the summed terms within
+   1e-5 (float32) / 1e-12 (float64) of their size; (b) its time, the plain
+   stages' and its bytes bound; (c) phase 22's launch counts; (d) kernels
+   per replay of the dense, batched and device-run programs with the plain
+   stages and with K3.
+
 Each path on the card (phases 4 to 20) is driven with K1's launch count set
 to 0 just before and read just after (spawned ranks and workers report
 their own counts); a path that launched no kernel fails the run.
@@ -297,7 +311,7 @@ from frenetix_tpu_torch.ops.kinematics import rollout_candidates
 from frenetix_tpu_torch.parallel import device_sim
 from frenetix_tpu_torch.parallel.mesh import batched_full_cycle
 from frenetix_tpu_torch.planner import reactive
-from frenetix_tpu_torch.planner.core import evaluate_cycle
+from frenetix_tpu_torch.planner.core import cycle_stages as _CYCLE_STAGES, evaluate_cycle
 from frenetix_tpu_torch.risk import reachable_set
 from frenetix_tpu_torch.risk.costs import trajectory_risks
 from frenetix_tpu_torch.risk.harm import meta_from_footprint
@@ -410,7 +424,8 @@ def phase_device():
 
 
 def phase_build():
-    for what, name in (("K1", "table_interp"), ("K2", "rollout"), ("Q", "risk_quadrature")):
+    for what, name in (("K1", "table_interp"), ("K2", "rollout"), ("K3", "cycle"),
+                       ("Q", "risk_quadrature")):
         t0 = time.perf_counter()
         _kernels.load_library(name)
         info = _kernels.build_info(name)
@@ -3250,22 +3265,29 @@ def k2_bytes(n_rows, n1, n_extra, itemsize):
 
 @contextlib.contextmanager
 def _plain_spy():
-    """Yields a one-element list that counts the calls of
-    `ops.kinematics.rollout_candidates_plain` given CUDA tensors while the
-    block runs (the main paths must make none)."""
+    """Yields a one-element list that counts the calls of the plain twins
+    `ops.kinematics.rollout_candidates_plain` and
+    `planner.core.cycle_stages_plain` given CUDA tensors while the block
+    runs (the main paths must make none)."""
     from frenetix_tpu_torch.ops import kinematics
+    from frenetix_tpu_torch.planner import core
 
-    cuda_calls, original = [0], kinematics.rollout_candidates_plain
+    cuda_calls = [0]
+    originals = (kinematics.rollout_candidates_plain, core.cycle_stages_plain)
 
-    def spy(matrix, *args, **kw):
-        cuda_calls[0] += matrix.device.type == "cuda"
-        return original(matrix, *args, **kw)
+    def spying(original):
+        def spy(first, *args, **kw):
+            tensor = first if isinstance(first, torch.Tensor) else first.x
+            cuda_calls[0] += tensor.device.type == "cuda"
+            return original(first, *args, **kw)
+        return spy
 
-    kinematics.rollout_candidates_plain = spy
+    kinematics.rollout_candidates_plain = spying(originals[0])
+    core.cycle_stages_plain = spying(originals[1])
     try:
         yield cuda_calls
     finally:
-        kinematics.rollout_candidates_plain = original
+        kinematics.rollout_candidates_plain, core.cycle_stages_plain = originals
 
 
 @contextlib.contextmanager
@@ -3306,12 +3328,12 @@ class _Recorded(Exception):
     """Ends an eager run once the rollouts wanted are recorded."""
 
 
-def _recorded_rollouts(ds, n):
-    """The arguments of the first `n` rollouts of an eager run of `ds` (the
-    run is abandoned after them)."""
+def _recorded_calls(ds, n, name="rollout_candidates"):
+    """The arguments of the first `n` calls of `planner.core`'s `name` in an
+    eager run of `ds` (the run is abandoned after them)."""
     from frenetix_tpu_torch.planner import core
 
-    calls, original = [], core.rollout_candidates
+    calls, original = [], getattr(core, name)
 
     def recording(*args, **kw):
         calls.append((args, kw))
@@ -3319,13 +3341,13 @@ def _recorded_rollouts(ds, n):
             raise _Recorded
         return original(*args, **kw)
 
-    core.rollout_candidates = recording
+    setattr(core, name, recording)
     try:
         ds.run(graph=False)
     except _Recorded:
         pass
     finally:
-        core.rollout_candidates = original
+        setattr(core, name, original)
     return calls
 
 
@@ -3335,17 +3357,20 @@ def _k2_paths(dev, smi, spy):
 
     def counted(path, fn, rollouts, facts=None):
         """Run `fn`; its K2 launches (a replayed run's own figures, read by
-        `facts` from what `fn` returned) must equal `rollouts`."""
-        k1, k2 = host_count("kernel.k1.launches"), host_count("kernel.k2.launches")
+        `facts` from what `fn` returned) must equal `rollouts`, and K3's
+        K2's."""
+        names = ("k1", "k2", "k3")
+        before = [host_count(f"kernel.{k}.launches") for k in names]
         out = fn()
         torch.cuda.synchronize()
-        n1, n2 = host_count("kernel.k1.launches") - k1, host_count("kernel.k2.launches") - k2
+        n1, n2, n3 = (host_count(f"kernel.{k}.launches") - b for k, b in zip(names, before))
         if facts is not None:
-            n1, n2 = facts(out)["k1_launches"], facts(out)["k2_launches"]
+            n1, n2, n3 = (facts(out)[f"{k}_launches"] for k in names)
         want = rollouts(out) if callable(rollouts) else rollouts
         check(n2 == want and n2 > 0,
               f"{path}: {n2} K2 launches for {want} rollouts (K1 {n1})")
-        counts[path] = dict(k2=n2, k1=n1, rollouts=want)
+        check(n3 == n2, f"{path}: {n3} K3 launches for {n2} K2 launch pairs")
+        counts[path] = dict(k2=n2, k1=n1, k3=n3, rollouts=want)
         return out
 
     # the dense cycle, compiled: its replays
@@ -3355,6 +3380,13 @@ def _k2_paths(dev, smi, spy):
     counted("dense cycle, 5 replays", lambda: [evaluate_cycle(
         matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False)
         for _ in range(5)], 5)
+    # the JAX entry's twin (graft_entry.entry), compiled: its replays
+    from frenetix_tpu_torch.graft_entry import entry
+
+    entry_fn, entry_args = entry(dev)
+    entry_fn(*entry_args)
+    counted("graft_entry.entry(), 2 replays",
+            lambda: [entry_fn(*entry_args) for _ in range(2)], 2)
     # the host planner (planner/reactive.py): one rollout per evaluate_cycle
     calls = [0]
     original = reactive.evaluate_cycle
@@ -3409,10 +3441,10 @@ def _k2_paths(dev, smi, spy):
     counted("fleet of 2 (highway, overtake), replayed",
             lambda: device_sim.run_fleet(device_fleet(2, dev)),
             lambda res: res[0].extras["k1_launches"], facts=lambda res: res[0].extras)
-    check(spy[0] == 0, f"{spy[0]} CUDA calls reached the plain twin")
+    check(spy[0] == 0, f"{spy[0]} CUDA calls reached the plain twins")
     for path, c in counts.items():
         phase(22, f"(c) {path}: K2 {c['k2']} launch pairs = {c['rollouts']} rollouts; "
-                  f"K1 {c['k1']} [{smi}]")
+                  f"K1 {c['k1']}; K3 {c['k3']} [{smi}]")
     return counts
 
 
@@ -3432,7 +3464,7 @@ def phase_rollout(dev, smi, floor_ms):
                 dt=dt, n_steps=n_steps, low_vel_mode=False, x0_orientation=c.x0_orientation,
                 extra_ref_tables=c.corridor, table_window=768))
     ds = _device_sim("convoy", dev)
-    for (args, kw), mode in zip(_recorded_rollouts(ds, 2), ("", " low_vel")):
+    for (args, kw), mode in zip(_recorded_calls(ds, 2), ("", " low_vel")):
         shapes[(f"device run{mode}", torch.float32)] = (args, kw)
     results = {}
     for (what, dtype), (call_args, call_kw) in shapes.items():
@@ -3514,6 +3546,165 @@ def phase_rollout(dev, smi, floor_ms):
     return results, counts, programs
 
 
+K3_SOURCE = "frenetix_tpu_torch/csrc/cycle.cu"
+
+
+def k3_bytes(n_rows, n1, itemsize, n_agents=1, n_slots=0, horizon=0, n_obstacles=0,
+             n_segments=0, boundary=True):
+    """The floor of K3's bytes: per row the Rollout's x, y, theta_gl,
+    theta_cl, v, a, d (and the two corridor columns) read once, the six
+    coefficients of the jerk integrals, feasible, valid and the mask; the
+    13 terms, the total, the harm, the step and two flags written once; per
+    agent its predictions (means, inverse covariances, orientations, valid),
+    sizes, current obstacles and lane segments, the weights and speeds."""
+    per_row = ((7 + 2 * boundary) * n1 + 6 + 15) * itemsize + 3 + 4 + 2
+    per_agent = (n_slots * horizon * (7 * itemsize + 1) + n_slots * 2 * itemsize
+                 + n_obstacles * (2 * itemsize + 1) + n_segments * (4 * itemsize + 1)
+                 + 15 * itemsize)
+    return n_agents * n_rows * per_row + n_agents * per_agent
+
+
+@contextlib.contextmanager
+def _stages_twin_in_programs():
+    """The programs' stages after the rollout as the plain twin (the
+    parent's), to count and time them as they were: `planner.core`'s name is
+    rebound, compiled entries are dropped on the way in and out."""
+    from frenetix_tpu_torch.planner import core
+
+    compiled.clear_all()
+    core.cycle_stages = core.cycle_stages_plain
+    try:
+        yield
+    finally:
+        core.cycle_stages = _CYCLE_STAGES
+        compiled.clear_all()
+
+
+def _k3_against_twin(got, want, ro, ctx, dt):
+    """K3's stages against `cycle_stages_plain`'s: (the flags, steps, harms
+    and jerk terms that differ bitwise, per term the largest |Δ| over the
+    size of what the term adds up (|term|, and for path length and velocity
+    the same sums of |v| besides), that of the total, the agents whose
+    masked argmin picks differently)."""
+    from frenetix_tpu_torch.ops import costs
+
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64) \
+            if t.dtype.is_floating_point else t
+
+    differ = [name for name in ("collides", "boundary_step", "boundary_harm", "selectable")
+              if not torch.equal(bits(got[name]), bits(want[name]))]
+    differ += [f"cost_terms[{k}]" for k in (2, 3, 12)
+               if not torch.equal(bits(got["cost_terms"][..., k]),
+                                  bits(want["cost_terms"][..., k]))]
+    scale = want["cost_terms"].abs()
+    scale[..., 5] += costs.simpson_uniform(ro.v.abs(), dt)
+    scale[..., 8] += ro.v.abs().mean(-1)
+    def ratio(err, size):
+        # 0 where both are 0, inf where only the size is
+        return torch.where(size > 0, err / size, torch.where(err > 0, torch.inf, 0.0))
+
+    rel = ratio((got["cost_terms"] - want["cost_terms"]).abs(), scale).flatten(0, -2).amax(0)
+    cost_scale = (scale * ctx.weights.abs()).sum(-1)
+    cost_rel = float(ratio((got["cost"] - want["cost"]).abs(), cost_scale).max())
+    big = torch.full_like(want["cost"], 1e15)
+    pick_got = torch.argmin(torch.where(got["selectable"], got["cost"], big), -1)
+    pick_want = torch.argmin(torch.where(want["selectable"], want["cost"], big), -1)
+    return differ, rel.tolist(), cost_rel, int((pick_got != pick_want).sum())
+
+
+def phase_cycle_kernel(dev, smi, floor_ms, counts=None):
+    """Phase 23, kernel K3: (a) against the plain stages at the dense,
+    batched and device-run shapes, (b) its time, the twin's and the bound,
+    (c) launches on every main path against K2's, (d) kernels per replay of
+    the programs with the plain stages and with K3."""
+    from frenetix_tpu_torch.planner import core
+
+    shapes = {}
+    for dtype in (torch.float32, torch.float64):
+        matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, dtype)
+        matrices, masks, ctx_b, _, _, _ = stacked_cycle_problem(
+            A_BATCH, dev, dtype, m_bucket=M_BATCH, spread=12.0, ragged=True, o_slots=O_SLOTS)
+        for what, m, mk, c in (("dense", matrix, mask, ctx), ("batched", matrices, masks, ctx_b)):
+            ro = rollout_candidates(m, c.ref, c.veh, dt=dt, n_steps=n_steps, low_vel_mode=False,
+                                    x0_orientation=c.x0_orientation,
+                                    extra_ref_tables=c.corridor, table_window=768)
+            shapes[(what, dtype)] = ((ro, mk, c), dict(dt=dt, check_boundary=True,
+                                                        compensated_sum=False))
+    ds = _device_sim("convoy", dev)
+    for (args, kw), mode in zip(_recorded_calls(ds, 2, "cycle_stages"), ("", " low_vel")):
+        shapes[(f"device run{mode}", torch.float32)] = (args, kw)
+    results = {}
+    for (what, dtype), (args, kw) in shapes.items():
+        ro, mask, ctx = args
+        before = host_count("kernel.k3.launches")
+        got = core.cycle_stages(*args, **kw)
+        check(host_count("kernel.k3.launches") == before + 1, f"K3 {what}: not one launch")
+        want = core.cycle_stages_plain(*args, **kw)
+        torch.cuda.synchronize()
+        differ, rel, cost_rel, picks = _k3_against_twin(got, want, ro, ctx, kw["dt"])
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        name = str(dtype).split(".")[-1]
+        check(not differ, f"K3 {what} {name}: {differ} differ from the twin bitwise")
+        check(max(rel) <= rtol and cost_rel <= rtol,
+              f"K3 {what} {name}: summed terms {max(rel):.3e}, total {cost_rel:.3e} beyond "
+              f"{rtol} of their size")
+        lead = tuple(ro.x.shape[:-2])
+        n_agents, (n_rows, n1) = math.prod(lead), tuple(ro.x.shape[-2:])
+        ms = cuda_ms(lambda: core.cycle_stages(*args, **kw), 20, 5)
+        plain_ms = cuda_ms(lambda: core.cycle_stages_plain(*args, **kw), 3, 5)
+        preds = ctx.preds
+        floor = k3_bytes(n_rows, n1, ro.x.element_size(), n_agents,
+                         preds.means.shape[-3], preds.means.shape[-2],
+                         ctx.obstacle_xy.shape[-2], ctx.lane_segments.shape[-3],
+                         kw["check_boundary"])
+        bound = max(floor / HBM_BYTES_PER_S * 1e3, floor_ms)
+        results[(what, dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, floor_bytes=floor, rows=n_agents * n_rows,
+            n1=n1, slots=preds.means.shape[-3], max_rel=max(rel), cost_rel=cost_rel,
+            picks_differ=picks, collides_share=float(want["collides"].float().mean()))
+        phase(23, f"(a, b) K3 {what} {name} rows={n_agents * n_rows} N+1={n1} "
+                  f"O={preds.means.shape[-3]} S={ctx.lane_segments.shape[-3]}: flags, steps, "
+                  f"harms and jerk terms bitwise equal to the plain stages; summed terms "
+                  f"within {max(rel):.2e} of their size (per term "
+                  f"{' '.join(f'{r:.1e}' for r in rel)}), total {cost_rel:.2e}; "
+                  f"{picks} of {n_agents} picks differ (ties); collides "
+                  f"{results[(what, dtype)]['collides_share']:.3f} of rows; K3 {ms:.4f} ms, "
+                  f"plain stages {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound "
+                  f"max({floor / 1e6:.2f} MB at 3.35 TB/s, the launch floor) {bound:.4f} ms "
+                  f"= {bound / ms:.3f} of K3's time [{smi}]")
+
+    if counts is None:
+        with _plain_spy() as spy:
+            counts = _k2_paths(dev, smi, spy)
+    for path, c in counts.items():
+        phase(23, f"(c) {path}: K3 {c['k3']} launches = K2 {c['k2']} launch pairs [{smi}]")
+
+    # (d) kernels per replay, with the plain stages (the parent's program) and K3
+    matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(dev, torch.float32)
+    matrices, masks, ctx_b, _, _, _ = stacked_cycle_problem(
+        A_BATCH, dev, torch.float32, m_bucket=M_BATCH, spread=12.0, ragged=True)
+    programs = {}
+    for label, ctxm in (("twin", _stages_twin_in_programs), ("K3", contextlib.nullcontext)):
+        with ctxm():
+            compiled.clear_all()
+            dense = _kernels_per_call(lambda: evaluate_cycle(
+                matrix, mask, ctx, dt=dt, n_steps=n_steps, low_vel_mode=False), 10)
+            fn = batched_full_cycle(dt=dt, n_steps=n_steps)
+            fn.clear()
+            batched = _kernels_per_call(lambda: fn(matrices, masks, ctx_b), 10)
+            run = _device_sim("convoy", dev)
+            device_run = _kernels_per_call(lambda: run.run(graph=True), 1, units=run.n_cycles)
+            programs[label] = dict(dense=dense, batched=batched, device_run=device_run)
+    for what in ("dense", "batched", "device_run"):
+        (n0, b0), (n1_, b1) = programs["twin"][what], programs["K3"][what]
+        phase(23, f"(d) {what} program replayed, per {'cycle' if what == 'device_run' else 'call'}"
+                  f": {n0:.0f} -> {n1_:.0f} kernels, device busy {b0:.3f} -> {b1:.3f} ms "
+                  f"(profiled; plain stages -> K3) [{smi}]")
+    return results, counts, programs
+
+
 def _leaves(tree):
     leaves = []
     compiled._flatten(tree, leaves)
@@ -3552,6 +3743,8 @@ def main() -> int:
         (torch.float32, R_ROWS, P_DENSE)]["launch_floor_ms"])
     k2_times, k2_paths, k2_programs = _timed(phase_rollout, dev, smi, k1_times[
         (torch.float32, R_ROWS, P_DENSE)]["launch_floor_ms"])
+    k3_times, _, k3_programs = _timed(phase_cycle_kernel, dev, smi, k1_times[
+        (torch.float32, R_ROWS, P_DENSE)]["launch_floor_ms"], k2_paths)
     host_resp = _timed(phase_responsibility, dev, smi, launches, batched_p50)
     host_occ = _timed(phase_occlusion, dev, smi, launches)
     device_runs = _timed(phase_device_run, dev, smi, launches, host_runs)
@@ -3612,6 +3805,17 @@ def main() -> int:
         "shapes": {f"{w} {str(d).split('.')[-1]}": r for (w, d), r in k2_times.items()},
         "kernels_per_replay": {label: {w: n for w, (n, _) in p.items()}
                                for label, p in k2_programs.items()},
+    }, {
+        "name": "cycle", "route": "cuda", "source": K3_SOURCE,
+        "replaces": None,   # the JAX package leaves these stages to XLA's fusion
+        "launches": sum(c["k3"] for c in k2_paths.values()),
+        "launches_by_path": {p: c["k3"] for p, c in k2_paths.items()},
+        "max_rel_err": max(r["max_rel"] for r in k3_times.values()),
+        **{k: k3_times[("dense", torch.float32)][k] for k in ("ms", "plain_ms", "bound_ms")},
+        "shape": f"M={k3_times[('dense', torch.float32)]['rows']} N+1=31 float32, dense",
+        "shapes": {f"{w} {str(d).split('.')[-1]}": r for (w, d), r in k3_times.items()},
+        "kernels_per_replay": {label: {w: n for w, (n, _) in p.items()}
+                               for label, p in k3_programs.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

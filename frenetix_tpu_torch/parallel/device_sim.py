@@ -31,9 +31,10 @@ body runs eagerly.
 
 K1 (`ops.table_interp`) runs once per program (kinematics mode × level) per
 cycle on the stacked (S·A·R, C) table, inside that program's rollout, K2
-(`ops.rollout_kernel`, one launch pair per rollout).  A run reports their
-launches in `extras["k1_launches"]` and `extras["k2_launches"]`: the change
-of the host counters `kernel.k1.launches` and `kernel.k2.launches` across
+(`ops.rollout_kernel`, one launch pair per rollout), and K3
+(`ops.cycle_kernel`) once after it.  A run reports their launches in
+`extras["k1_launches"]`, `["k2_launches"]` and `["k3_launches"]`: the
+change of the host counters `kernel.k1.launches`, `.k2` and `.k3` across
 its cycles, which each replay moves by what its capture recorded, as the
 eager body moves them by what it launches.
 
@@ -1485,17 +1486,25 @@ class _Runner:
             tracing.count("device_sim.cycles", self.n_cycles)
             with tracing.span("frenetix.device_sim.fetch"):
                 out = self.fetch_outputs()
-        out.update(k1_launches=int(launched[0]), k2_launches=int(launched[1]),
-                   graph=use_graph, capture_s=capture_s)
+        out.update(_launch_facts(launched), graph=use_graph, capture_s=capture_s)
         return out
 
 
 
+_KERNELS = ("k1", "k2", "k3")
+
+
 def _launches() -> np.ndarray:
-    """K1's and K2's launches so far (`kernel.k1.launches`,
-    `kernel.k2.launches`)."""
-    return np.array([tracing.COUNTERS.get("kernel.k1.launches", 0),
-                     tracing.COUNTERS.get("kernel.k2.launches", 0)], dtype=np.int64)
+    """K1's, K2's and K3's launches so far (`kernel.k1.launches`, `.k2`,
+    `.k3`)."""
+    return np.array([tracing.COUNTERS.get(f"kernel.{k}.launches", 0) for k in _KERNELS],
+                    dtype=np.int64)
+
+
+def _launch_facts(launched) -> dict:
+    """`k1_launches`, `k2_launches` and `k3_launches` of a `_launches()`
+    difference."""
+    return {f"{k}_launches": int(n) for k, n in zip(_KERNELS, launched)}
 
 
 @contextlib.contextmanager
@@ -1873,8 +1882,8 @@ class DeviceSimulation:
             found=arrays["found"][:c_n, :a_n], costs=arrays["costs"][:c_n, :a_n],
             extras={"x_cl_cycles": arrays["x_cl_cycles"][:c_n, :a_n],
                     **{k: arrays[k][:c_n, :a_n] for k in MARGINS if k in arrays},
-                    **{k: facts[k] for k in ("k1_launches", "k2_launches", "graph",
-                                             "capture_s", "fetches", "captures")
+                    **{k: facts[k] for k in ("k1_launches", "k2_launches", "k3_launches",
+                                             "graph", "capture_s", "fetches", "captures")
                        if k in facts}},
         )
 
@@ -2290,8 +2299,8 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
     guard = contextlib.nullcontext()
     if runner.device.type == "cuda":
         guard = torch.cuda.device(runner.device)
-    # K1's and K2's launches across the cycles' advances, not the host side
-    captures, capture_s, launched = 0, 0.0, np.zeros(2, dtype=np.int64)
+    # the kernels' launches across the cycles' advances, not the host side
+    captures, capture_s, launched = 0, 0.0, np.zeros(len(_KERNELS), dtype=np.int64)
     with torch.no_grad(), guard:
         runner.reset()
         if behavior_on:
@@ -2340,8 +2349,8 @@ def _drive_hybrid(sims: list, graph: bool = True) -> list:
             runner.advance(use_graph)
             launched += _launches() - before
         out = runner.fetch_outputs()
-    out.update(k1_launches=int(launched[0]), k2_launches=int(launched[1]),
-               graph=use_graph, capture_s=capture_s, captures=captures,
+    out.update(_launch_facts(launched), graph=use_graph, capture_s=capture_s,
+               captures=captures,
                fetches=tracing.COUNTERS.get("device_sim.fetches", 0) - fetches0)
     return [s._finalize(_member_arrays(out, i if fleet else None), out)
             for i, s in enumerate(sims)]

@@ -7,6 +7,11 @@ PyTorch port of `frenetix_tpu/planner/core.py`:
     → prediction collisions + corridor road departure         ops.collision
     → masked argmin, first index on ties                      here
 
+On the card the rollout is kernel K2 (`ops.rollout_kernel`) and the stages
+after it, up to the selectable mask, are kernel K3 (`ops.cycle_kernel`, one
+launch); their plain twins `rollout_candidates_plain` and
+`cycle_stages_plain` run on the CPU.
+
 Everything stays on the context's device; nothing is copied to the host.
 `evaluate_cycle` is compiled per signature (`utils.compiled`: a CUDA graph
 captured once and replayed), as the JAX package jits it; its body is
@@ -29,13 +34,14 @@ import torch
 
 from frenetix_tpu_torch.geometry.refpath import RefPathTable
 from frenetix_tpu_torch.ops import collision as coll
+from frenetix_tpu_torch.ops import cycle_kernel
 from frenetix_tpu_torch.ops import costs as costs_mod
 from frenetix_tpu_torch.ops.costs import PredictionTensors
 from frenetix_tpu_torch.ops.kinematics import Rollout, VehicleParams, rollout_candidates
 from frenetix_tpu_torch.utils.compiled import compiled
 
 __all__ = ["CycleContext", "CycleResult", "evaluate_cycle", "evaluate_cycle_eager",
-           "context_from_numpy"]
+           "cycle_stages", "cycle_stages_plain", "context_from_numpy"]
 
 _BIG = 1e15
 
@@ -109,6 +115,45 @@ def evaluate_cycle(
         table_window=table_window,
     )
 
+    stages = cycle_stages(ro, valid_mask, ctx, dt=dt, check_boundary=check_boundary,
+                          compensated_sum=compensated_sum, harm_coeffs=harm_coeffs)
+    selectable, cost = stages["selectable"], stages["cost"]
+    masked_cost = torch.where(selectable, cost, torch.full_like(cost, _BIG))
+    # torch.argmin returns the FIRST minimal index on CPU and CUDA alike, so
+    # exact ties resolve to the lowest candidate index (per agent)
+    best_idx = torch.argmin(masked_cost, dim=-1).to(torch.int32)
+    found = torch.any(selectable, dim=-1)
+
+    histogram = torch.sum(ro.inf_slots & valid_mask[..., None], dim=-2).to(torch.int32)
+
+    return CycleResult(rollout=ro, **stages, best_idx=best_idx, found=found,
+                       histogram=histogram)
+
+
+def cycle_stages(ro, valid_mask, ctx: CycleContext, *, dt: float,
+                 check_boundary: bool = True, compensated_sum: bool = False,
+                 harm_coeffs=(-7.5, 0.0815)) -> dict:
+    """The cycle's stages after the rollout: `cost_terms`, `cost`,
+    `collides`, `boundary_step`, `boundary_harm` and `selectable` (the
+    `CycleResult` fields of those names).
+
+    CPU tensors run the plain twin `cycle_stages_plain`; anything else goes
+    to kernel K3 (`ops.cycle_kernel.cycle_fields`), which raises on what it
+    does not take."""
+    kw = dict(dt=dt, check_boundary=check_boundary, compensated_sum=compensated_sum,
+              harm_coeffs=harm_coeffs)
+    tensors = (ro.x, valid_mask, ctx.weights, ctx.preds.means, ctx.obstacle_xy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return cycle_stages_plain(ro, valid_mask, ctx, **kw)
+    return cycle_kernel.cycle_fields(ro, valid_mask, ctx, **kw)
+
+
+def cycle_stages_plain(ro, valid_mask, ctx: CycleContext, *, dt: float,
+                       check_boundary: bool = True, compensated_sum: bool = False,
+                       harm_coeffs=(-7.5, 0.0815)) -> dict:
+    """Plain PyTorch twin of kernel K3, the stages on the CPU (arguments as
+    `cycle_stages`): the cost stack (`ops.costs`), the prediction collisions
+    and the corridor departure (`ops.collision`); on the card ~260 kernels."""
     cost_terms = costs_mod.compute_cost_terms(
         ro,
         dt=dt,
@@ -123,7 +168,8 @@ def evaluate_cycle(
     cost = costs_mod.weighted_total(cost_terms, ctx.weights,
                                     compensated=compensated_sum)
 
-    rows = matrix.shape[:-1]
+    rows = ro.x.shape[:-1]
+    device = ro.x.device
     collides = coll.prediction_collisions(ro, ctx.preds, ctx.veh)
     if check_boundary:
         boundary_step, v_at = coll.road_departure_corridor(ro, ctx.veh)
@@ -133,31 +179,14 @@ def evaluate_cycle(
             torch.zeros_like(v_at),
         )
     else:
-        boundary_step = torch.full(rows, -1, dtype=torch.int32, device=matrix.device)
-        boundary_harm = torch.zeros(rows, dtype=matrix.dtype, device=matrix.device)
-        off_road = torch.zeros(rows, dtype=torch.bool, device=matrix.device)
+        boundary_step = torch.full(rows, -1, dtype=torch.int32, device=device)
+        boundary_harm = torch.zeros(rows, dtype=ro.x.dtype, device=device)
+        off_road = torch.zeros(rows, dtype=torch.bool, device=device)
 
     selectable = ro.feasible & ro.valid & ~collides & ~off_road & valid_mask
-    masked_cost = torch.where(selectable, cost, torch.full_like(cost, _BIG))
-    # torch.argmin returns the FIRST minimal index on CPU and CUDA alike, so
-    # exact ties resolve to the lowest candidate index (per agent)
-    best_idx = torch.argmin(masked_cost, dim=-1).to(torch.int32)
-    found = torch.any(selectable, dim=-1)
-
-    histogram = torch.sum(ro.inf_slots & valid_mask[..., None], dim=-2).to(torch.int32)
-
-    return CycleResult(
-        rollout=ro,
-        cost_terms=cost_terms,
-        cost=cost,
-        collides=collides,
-        boundary_step=boundary_step,
-        boundary_harm=boundary_harm,
-        selectable=selectable,
-        best_idx=best_idx,
-        found=found,
-        histogram=histogram,
-    )
+    return dict(cost_terms=cost_terms, cost=cost, collides=collides,
+                boundary_step=boundary_step, boundary_harm=boundary_harm,
+                selectable=selectable)
 
 
 # the body itself: the device-resident run's graph compiles it, and the

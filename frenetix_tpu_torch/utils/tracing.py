@@ -40,8 +40,8 @@ Spans: `frenetix.compiled` (with `.key`, `.copy_in`, `.replay`, `.own`),
 `risk.quadrature.cells` (host) and `risk.quadrature.useful` (device),
 `device_sim.cycles`, `.captures`, `.fetches` and `.programs` (host), and
 the kernels' launches `kernel.k1.launches`, `kernel.k2.launches` (K2a + K2b
-pairs) and `kernel.q.launches` (host; calls of the plain twins are not
-counted).
+pairs), `kernel.k3.launches` and `kernel.q.launches` (host; calls of the
+plain twins are not counted).
 """
 from __future__ import annotations
 

@@ -21,7 +21,6 @@ The card's cases carry the `cuda` marker and skip without one; on the card:
 """
 from __future__ import annotations
 
-import re
 from pathlib import Path
 
 import numpy as np
@@ -36,7 +35,7 @@ from frenetix_tpu_torch.ops.sampling import build_sampling_matrix, linspace_samp
     time_samples
 from frenetix_tpu_torch.utils import compiled as C
 
-from torch_parity import host_count
+from torch_parity import c_struct_fields, ctypes_fields, host_count
 
 DT = 0.1
 VEH = kin.VehicleParams()
@@ -149,27 +148,8 @@ def test_cpu_tensors_run_the_plain_twin():
     _assert_bitwise(got, want, "cpu")
 
 
-def _c_fields():
-    """(name, kind) of every member of `struct Args` in the kernel source, in
-    order; kind is "ptr", "i64" or "f64"."""
-    body = SOURCE.read_text().split("struct Args {", 1)[1].split("};", 1)[0]
-    body = re.sub(r"//[^\n]*", "", body)
-    fields = []
-    for decl in filter(None, (d.strip() for d in body.split(";"))):
-        kind = "f64" if decl.startswith("double") else (
-            "i64" if decl.startswith("int64_t") else "ptr")
-        names = re.sub(r"^(const\s+)?(void|int64_t|double)\s*\*?", "", decl)
-        for name in names.split(","):
-            name = name.strip()
-            fields.append((name.lstrip("*").strip(),
-                           "ptr" if name.startswith("*") or kind == "ptr" else kind))
-    return fields
-
-
 def test_the_argument_block_matches_the_kernel_source():
-    kinds = {"c_void_p": "ptr", "c_long": "i64", "c_longlong": "i64", "c_double": "f64"}
-    got = [(name, kinds[t.__name__]) for name, t in rollout_kernel._Args._fields_]
-    assert got == _c_fields()
+    assert ctypes_fields(rollout_kernel._Args) == c_struct_fields(SOURCE)
 
 
 # ----------------------------------------------------------------- the card
@@ -255,6 +235,7 @@ def test_k2_launches_once_per_compiled_replay(cuda_device):
     matrix, mask, ctx, dt, n_steps, _ = dense_cycle_problem(cuda_device, torch.float32,
                                                             density=2, bucket=256)
     C.clear_all()
+    captures = evaluate_cycle.captures        # (cumulative over the process)
     kw = dict(dt=dt, n_steps=n_steps, low_vel_mode=False)
     first = evaluate_cycle(matrix, mask, ctx, **kw)           # warm-up and capture
     k1, k2 = host_count("kernel.k1.launches"), host_count("kernel.k2.launches")
@@ -263,7 +244,7 @@ def test_k2_launches_once_per_compiled_replay(cuda_device):
     torch.cuda.synchronize()
     assert host_count("kernel.k1.launches") - k1 == 3
     assert host_count("kernel.k2.launches") - k2 == 3
-    assert evaluate_cycle.captures == 1
+    assert evaluate_cycle.captures - captures == 1
     _assert_bitwise(again.rollout, first.rollout, "replayed against the first call")
     C.clear_all()
 

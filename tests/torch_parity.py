@@ -184,6 +184,33 @@ def post_pass_config(make, *, resp=0.0, module=False, soft=True, vis=False,
     return cfg
 
 
+def c_struct_fields(source, struct="Args"):
+    """(name, kind) of every member of `struct` in a kernel source file, in
+    order; kind is "ptr", "i64" or "f64" (the members a ctypes argument
+    block mirrors)."""
+    import re
+    from pathlib import Path
+
+    body = Path(source).read_text().split(f"struct {struct} {{", 1)[1].split("};", 1)[0]
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        kind = "f64" if decl.startswith("double") else (
+            "i64" if decl.startswith("int64_t") else "ptr")
+        names = re.sub(r"^(const\s+)?(void|int64_t|double)\s*\*?", "", decl)
+        for name in names.split(","):
+            name = name.strip()
+            fields.append((name.lstrip("*").strip(),
+                           "ptr" if name.startswith("*") or kind == "ptr" else kind))
+    return fields
+
+
+def ctypes_fields(structure):
+    """(name, kind) of a ctypes.Structure's fields, kinds as `c_struct_fields`."""
+    kinds = {"c_void_p": "ptr", "c_long": "i64", "c_longlong": "i64", "c_double": "f64"}
+    return [(name, kinds[t.__name__]) for name, t in structure._fields_]
+
+
 def host_count(name: str) -> int:
     """The port's host counter `name` (`utils.tracing`), 0 before its first
     count: kernel launches (`kernel.k1.launches`, ...) and device→host
