@@ -16,5 +16,6 @@ from frenetix_tpu_torch.parallel.distributed import (  # noqa: F401
 from frenetix_tpu_torch.parallel.device_sim import (  # noqa: F401
     DeviceSimResult,
     DeviceSimulation,
+    FleetRunner,
     run_fleet,
 )

@@ -41,20 +41,27 @@ eager body moves them by what it launches.
 A fleet (`run_fleet`) pads every member to the fleet's maxima with inert
 rows and runs the same body over one more leading axis, (S, A, ...).
 
-A captured run serves further scenarios of the same statics and shapes:
-`share_runner(sims)` gives every member one runner (its buffers hold the
-window slots any member fills), and a member's `run()` copies its own
-inputs into the buffers (`_Runner.load`) before the replays, so a service
-that simulates one scenario after another captures once.  The result is
-bitwise that of the member's own fresh run.
+A captured run serves further input sets of the same statics and shapes,
+in one way: a runner's owner (`_Runner.take`) has its inputs copied into
+the buffers (`_Runner.load`) before the replays, unless they are there
+already.  `share_runner(sims)` gives single scenarios one runner (its
+buffers hold the window slots any member fills), so a service that
+simulates one scenario after another captures once; a `FleetRunner` gives
+one runner to several fleets of S members, sized to the maxima over all
+of them, so a service that runs fleet after fleet captures once, and
+`run_fleet(chunk=)` runs its chunks through one.  Each result is bitwise
+that of its own fresh run.
 
-Tracing (`utils.tracing`): the spans `frenetix.device_sim.load`, `.reset`,
-`.capture`, `.replay` (the loop of a run's cycles), `.fetch` and
+Tracing (`utils.tracing`): the spans `frenetix.device_sim.load`,
+`.fleet.load` (a fleet's stack copied into the buffers),
+`.reset`, `.capture`, `.replay` (the loop of a run's cycles), `.fetch` and
 `.finalize`; the device span `frenetix.device_sim.cycles`, two timing
 events on the stream around that loop; the counters `device_sim.cycles`
 (cycles driven), `.captures`, `.fetches` (device→host copies: one per run or
-chunk, and one per cycle on the hybrid path) and `.programs` (K1 launches of
-each captured cycle).  A runner captures again when its graph is stale
+chunk, and one per cycle on the hybrid path), `.programs` (K1 launches of
+each captured cycle), and per fleet run `.fleet.members`,
+`.fleet.agent_cycles_real` (Σ own agents × own cycles) and
+`.fleet.agent_cycles_stacked` (S × agents × cycles of the buffers).  A runner captures again when its graph is stale
 (tracing was switched since the capture), so no graph keeps the other
 state's nodes.  The runner's graph records no device spans.
 
@@ -160,8 +167,8 @@ from frenetix_tpu_torch.sim.visible_area import (
 from frenetix_tpu_torch.utils import tracing
 from frenetix_tpu_torch.utils.compiled import _Graph
 
-__all__ = ["DeviceSimulation", "DeviceSimResult", "SimTensors", "run_fleet",
-           "share_runner"]
+__all__ = ["DeviceSimulation", "DeviceSimResult", "FleetRunner", "SimTensors",
+           "run_fleet", "share_runner"]
 
 # AgentStatus values as plain ints: the status carry is an int32 tensor
 _RUNNING, _SUCCESS, _TIMELIMIT, _COLLISION, _ERROR = 1, 2, 3, 4, 5
@@ -466,8 +473,11 @@ def _kept_slots(*tensors: SimTensors) -> np.ndarray:
 def _trim_slots(g: SimTensors, keep: np.ndarray) -> SimTensors:
     """`g` with only the window slots `keep` (`_kept_slots`); the
     occluders, the collision sweep's obstacles and the spawn tensors stay
-    whole."""
+    whole.  A `g` of len(keep) slots is returned as it is: it is trimmed
+    already, or `keep` is every one of its slots."""
     axis = np.ndim(g.x_cl0) - 2 + 1         # after the leading and cycle axes
+    if np.shape(g.pred_windows["valid"])[axis] == len(keep):
+        return g
 
     def take(x):
         return None if x is None else np.take(x, keep, axis=axis)
@@ -874,9 +884,11 @@ class _Runner:
     with `emit_margins` it also writes every cycle's selection margins
     (`select_with_fallback`) into (C, ..., A) output buffers that the one
     fetch brings back.  `load` copies another input set of the same shapes
-    into the input buffers (a fleet's next chunk, restacked tables), `run`
-    resets the carry, drives `n_cycles` cycles and fetches once.  `loaded`
-    is the DeviceSimulation whose inputs the buffers hold."""
+    into the input buffers (restacked tables), `take` an owner's inputs
+    unless the buffers hold them (a shared runner's next scenario or
+    fleet), `run` resets the carry, drives `n_cycles` cycles and fetches
+    once.  `loaded` is the owner whose inputs the buffers hold: a
+    DeviceSimulation, or a fleet's members as a tuple."""
 
     def __init__(self, proto: "DeviceSimulation", g_host: SimTensors, n_cycles: int,
                  hybrid: bool = False, hybrid_pred: bool = False, keep=None,
@@ -980,6 +992,15 @@ class _Runner:
             return dst
 
         _map_leaves(copy, self.g, _trim_slots(g_host, self.keep))
+
+    def take(self, owner, inputs, span: str) -> None:
+        """Make the buffers hold `owner`'s inputs: `inputs()` copied in
+        (`load`, inside the host span `span`) unless they are there."""
+        if self.loaded is owner:
+            return
+        with tracing.span(span):
+            self.load(inputs())
+        self.loaded = owner
 
     def reset(self) -> None:
         g, st = self.g, self.state
@@ -1844,11 +1865,8 @@ class DeviceSimulation:
                 if self._runner is None:
                     self._runner = _Runner(self, self.tensors, self.n_cycles)
                 runner = self._runner
-                if runner.loaded is not self:
-                    # a runner shared with other scenarios (`share_runner`)
-                    with tracing.span("frenetix.device_sim.load"):
-                        runner.load(self.tensors)
-                    runner.loaded = self
+                # a runner shared with other scenarios (`share_runner`)
+                runner.take(self, lambda: self.tensors, "frenetix.device_sim.load")
             out = runner.run(graph=graph, sync_debug=sync_debug)
             if out["bail"]:
                 # the in-run FSM wanted to overtake, which only the host FSM
@@ -2262,6 +2280,102 @@ def _fleet_stack(sims, dims=None, use_fsm: bool = False) -> SimTensors:
                                                    for s in sims))
 
 
+def _check_fleet(sims) -> None:
+    """Raise ValueError unless the members can share one run: no member
+    mesh, the planning statics equal."""
+    base = sims[0]
+    for s in sims:
+        if s.mesh is not None:
+            raise ValueError("run_fleet composes members without meshes (per-member "
+                             "meshes are not supported; pass mesh= to run_fleet to "
+                             "split the scenario axis)")
+        if s.statics != base.statics:
+            raise ValueError(
+                "fleet members must share planning statics (dt, horizon, "
+                "replanning frequency, sampling levels, dtype, device, emergency "
+                "mode, compensated-sum flag, vehicle, cost weights, responsibility "
+                "weight, prediction mode and sensor settings, occlusion "
+                "settings, behavior settings)")
+
+
+class FleetRunner:
+    """One captured run for several fleets, lasting across their runs.
+
+        runner = FleetRunner([fleet_a, fleet_b])     # lists of DeviceSimulations
+        results_a = runner.run(fleet_a)              # one DeviceSimResult per member
+
+    The runner's buffers have the scenario axis of the largest fleet handed
+    in and the maxima over every member of every fleet (agents, cycles,
+    table rows, obstacles, goal rings, bank width) and hold the window slots
+    any member fills, so one capture serves them all.  Each fleet is padded,
+    stacked and trimmed to those slots once, here, on the host (a shorter
+    fleet is filled with repeats of its first member, whose results are
+    dropped).  `run(fleet)` copies the fleet's stack into the buffers unless
+    they hold it already (`_Runner.take`), replays and fetches once.  Each
+    member's result is bitwise that of its solo run.
+
+    The members must share the statics (`DeviceSimulation.statics`), carry
+    no mesh of their own and run on the run's own path: a walenet member, or
+    a behavior member outside the in-run FSM's scope, raises ValueError.  A
+    member whose FSM bails is run again alone on the hybrid path.
+    `emit_margins` as in `DeviceSimulation.run`."""
+
+    def __init__(self, fleets: list, emit_margins: bool = False):
+        fleets = [tuple(f) for f in fleets]
+        members = [s for f in fleets for s in f]
+        _check_fleet(members)
+        for s in members:
+            if s.hybrid_pred or (s.hybrid_behavior and not s.fsm_in_scan):
+                raise ValueError(f"a fleet runner does not take the hybrid path "
+                                 f"({s.fsm_reason})")
+        base = members[0]
+        self.size = max(len(f) for f in fleets)
+        self.use_fsm = base.hybrid_behavior
+        self.emit_margins = bool(emit_margins)
+        self.dims = _fleet_dims(members, self.use_fsm)
+        keep = _kept_slots(*(s.tensors for s in members))
+        # (fleet, its padded and trimmed stack) per fleet: a run only copies
+        self.fleets = []
+        for f in fleets:
+            filled = f + (f[0],) * (self.size - len(f))
+            self.fleets.append((f, _trim_slots(_fleet_stack(filled, self.dims, self.use_fsm),
+                                               keep)))
+        first, stack = self.fleets[0]
+        self.runner = _Runner(base, stack, self.dims["c"], keep=keep,
+                              emit_margins=emit_margins)
+        self.runner.loaded = first
+
+    def run(self, fleet, graph: bool = True, sync_debug: bool = False) -> list:
+        """One run of `fleet`, one of the fleets the runner was made for
+        (the same members in the same order; any other raises ValueError),
+        and one fetch: its members' results, in order.  `graph` and
+        `sync_debug` as in `DeviceSimulation.run`."""
+        members = tuple(fleet)
+        known = next((k for k in self.fleets if len(k[0]) == len(members)
+                      and all(a is b for a, b in zip(k[0], members))), None)
+        if known is None:
+            raise ValueError("a fleet runner runs only the fleets it was made for")
+        owner, stack = known
+        tracing.count("device_sim.fleet.members", len(members))
+        tracing.count("device_sim.fleet.agent_cycles_real",
+                      sum(len(s.agents) * s.n_cycles for s in members))
+        tracing.count("device_sim.fleet.agent_cycles_stacked",
+                      self.size * self.dims["a"] * self.dims["c"])
+        self.runner.take(owner, lambda: stack, "frenetix.device_sim.fleet.load")
+        out = self.runner.run(graph=graph, sync_debug=sync_debug)
+        results = []
+        for i, s in enumerate(members):
+            if out["bail"][i]:
+                # this member's FSM wanted to overtake: alone, hybrid
+                _no_hybrid_margins(self.emit_margins, "a member's in-run FSM bailed")
+                res = _drive_hybrid([s], graph=graph)[0]
+                res.extras["bailed"] = True
+            else:
+                res = s._finalize(_member_arrays(out, i), out)
+            results.append(res)
+        return results
+
+
 def _no_hybrid_margins(emit_margins: bool, why: str) -> None:
     if emit_margins:
         raise ValueError(f"emit_margins: the hybrid path carries no selection margins "
@@ -2378,10 +2492,11 @@ def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = 
     is run again alone on the hybrid path.
 
     `chunk`: run the S simulations as ceil(S / chunk) runs of `chunk` members
-    through the SAME buffers (and, on a CUDA device, the same captured
-    graph): all groups are padded to the maxima of the whole fleet, the last
-    group is filled with repeats of its first member, and every group is one
-    fetch.  `graph` and `sync_debug` as in `DeviceSimulation.run`.
+    through one `FleetRunner` (the same buffers and, on a CUDA device, the
+    same captured graph): all groups are padded to the maxima of the whole
+    fleet, the last group is filled with repeats of its first member, and
+    every group is one fetch.  A `FleetRunner` of one's own keeps that
+    capture across calls.  `graph` and `sync_debug` as in `DeviceSimulation.run`.
 
     `mesh`: the scenario axis is split over its ranks (every rank of it
     passing the same members): rank r runs members [r·S/W, (r+1)·S/W) as a
@@ -2396,18 +2511,7 @@ def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = 
     whose FSM bailed raises ValueError."""
     t_start = time.perf_counter()
     base = sims[0]
-    for s in sims:
-        if s.mesh is not None:
-            raise ValueError("run_fleet composes members without meshes (per-member "
-                             "meshes are not supported; pass mesh= to run_fleet to "
-                             "split the scenario axis)")
-        if s.statics != base.statics:
-            raise ValueError(
-                "fleet members must share planning statics (dt, horizon, "
-                "replanning frequency, sampling levels, dtype, device, emergency "
-                "mode, compensated-sum flag, vehicle, cost weights, responsibility "
-                "weight, prediction mode and sensor settings, occlusion "
-                "settings, behavior settings)")
+    _check_fleet(sims)
     use_fsm = base.hybrid_behavior and all(s.fsm_in_scan for s in sims)
     if mesh is not None:
         check_axis(mesh, axis_name)
@@ -2429,29 +2533,10 @@ def run_fleet(sims: list, mesh=None, axis_name: str = "scenarios", chunk: int = 
             else [sims[0].run(graph=graph)]
     else:
         group = len(sims) if chunk is None else min(int(chunk), len(sims))
-        dims = _fleet_dims(sims, use_fsm)
-        # the window slots any member fills: one buffer shape for every chunk
-        keep = _kept_slots(*(s.tensors for s in sims))
-        runner, results = None, []
-        for lo in range(0, len(sims), group):
-            members = sims[lo:lo + group]
-            filled = members + [members[0]] * (group - len(members))
-            stacked = _fleet_stack(filled, dims, use_fsm)
-            if runner is None:
-                runner = _Runner(base, stacked, dims["c"], keep=keep,
-                                 emit_margins=emit_margins)
-            else:
-                runner.load(stacked)
-            out = runner.run(graph=graph, sync_debug=sync_debug)
-            for i, s in enumerate(members):
-                if out["bail"][i]:
-                    # this member's FSM wanted to overtake: alone, hybrid
-                    _no_hybrid_margins(emit_margins, "a member's in-run FSM bailed")
-                    res = _drive_hybrid([s], graph=graph)[0]
-                    res.extras["bailed"] = True
-                else:
-                    res = s._finalize(_member_arrays(out, i), out)
-                results.append(res)
+        chunks = [sims[lo:lo + group] for lo in range(0, len(sims), group)]
+        runner = FleetRunner(chunks, emit_margins=emit_margins)
+        results = [res for members in chunks
+                   for res in runner.run(members, graph=graph, sync_debug=sync_debug)]
     wall = time.perf_counter() - t_start
     for res in results:
         res.wall_time = wall

@@ -35,10 +35,12 @@ graph keeps the event or counter nodes of the other state.
 
 Spans: `frenetix.compiled` (with `.key`, `.copy_in`, `.replay`, `.own`),
 `frenetix.sampling.matrix` and `.pad`, `frenetix.device_sim.load`,
-`.reset`, `.capture`, `.replay`, `.fetch` and `.finalize`; device spans
-`frenetix.risk.quadrature` and `frenetix.device_sim.cycles`.  Counters:
-`risk.quadrature.cells` (host) and `risk.quadrature.useful` (device),
-`device_sim.cycles`, `.captures`, `.fetches` and `.programs` (host), and
+`.fleet.load`, `.reset`, `.capture`, `.replay`, `.fetch` and `.finalize`;
+device spans `frenetix.risk.quadrature` and `frenetix.device_sim.cycles`.
+Counters: `risk.quadrature.cells` (host) and `risk.quadrature.useful`
+(device), `device_sim.cycles`, `.captures`, `.fetches`, `.programs`,
+`.fleet.members`, `.fleet.agent_cycles_real` and
+`.fleet.agent_cycles_stacked` (host), and
 the kernels' launches `kernel.k1.launches`, `kernel.k2.launches` (K2a + K2b
 pairs), `kernel.k3.launches` and `kernel.q.launches` (host; calls of the
 plain twins are not counted).
